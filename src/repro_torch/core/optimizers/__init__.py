@@ -1,0 +1,93 @@
+"""Optimizers of the port's first slice (port of ``repro.core.optimizers``):
+``adamw32``, ``adamw4bit`` and ``production4bit`` behind the validated
+``make_optimizer(name, lr, **overrides)`` factory."""
+
+from __future__ import annotations
+
+import difflib
+import inspect
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+from repro_torch.core.optimizers.adamw import (
+    M_4BIT,
+    V_4BIT,
+    adamw32,
+    adamw4bit,
+    adamw_chain,
+    quantized_adamw,
+)
+from repro_torch.core.optimizers.base import Optimizer, QuantPolicy, state_nbytes, tree_order
+from repro_torch.core.optimizers.presets import production4bit
+from repro_torch.core.optimizers.schedule import constant, linear_warmup_linear_decay
+
+__all__ = [
+    "Optimizer",
+    "QuantPolicy",
+    "state_nbytes",
+    "tree_order",
+    "adamw_chain",
+    "adamw32",
+    "adamw4bit",
+    "production4bit",
+    "constant",
+    "linear_warmup_linear_decay",
+    "OPTIMIZER_SPECS",
+    "make_optimizer",
+    "optimizer_names",
+    "M_4BIT",
+    "V_4BIT",
+]
+
+
+class OptimizerSpec(NamedTuple):
+    factory: Callable[..., Optimizer]
+    description: str
+    forwards_to: Optional[Callable[..., Optimizer]] = None
+
+
+OPTIMIZER_SPECS: Dict[str, OptimizerSpec] = {
+    "adamw32": OptimizerSpec(adamw32, "32-bit AdamW (no compression)", quantized_adamw),
+    "adamw4bit": OptimizerSpec(
+        adamw4bit, "paper's 4-bit AdamW: m B128/DE, v Rank-1/Linear", quantized_adamw
+    ),
+    "production4bit": OptimizerSpec(
+        production4bit, "production preset: fp32 embed/head/norm/bias + 4-bit SR body"
+    ),
+}
+
+
+def optimizer_names() -> Tuple[str, ...]:
+    return tuple(OPTIMIZER_SPECS)
+
+
+def make_optimizer(name: str, lr, **overrides) -> Optimizer:
+    """Build a registered optimizer; unknown names or overrides raise
+    ``ValueError`` listing the valid choices."""
+    spec = OPTIMIZER_SPECS.get(name)
+    if spec is None:
+        close = difflib.get_close_matches(str(name), OPTIMIZER_SPECS, n=1)
+        hint = f" — did you mean {close[0]!r}?" if close else ""
+        raise ValueError(
+            f"unknown optimizer {name!r}; available: {', '.join(OPTIMIZER_SPECS)}{hint}"
+        )
+    valid = set()
+    fn = spec.factory
+    while fn is not None:  # follow the **kw forwarding chain
+        sig = inspect.signature(fn)
+        valid |= {
+            p.name for p in sig.parameters.values()
+            if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD, inspect.Parameter.KEYWORD_ONLY)
+            and p.name != "lr"
+        }
+        has_var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values())
+        fn = spec.forwards_to if (has_var_kw and fn is spec.factory) else None
+    unknown = set(overrides) - valid
+    if unknown:
+        raise ValueError(
+            f"optimizer {name!r} does not accept override(s) {sorted(unknown)}; "
+            f"valid overrides: {sorted(valid)}."
+        )
+    try:
+        return spec.factory(lr, **overrides)
+    except TypeError as e:
+        raise ValueError(f"optimizer {name!r} rejected overrides: {e}") from None

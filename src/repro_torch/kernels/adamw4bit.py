@@ -1,0 +1,285 @@
+"""Fused 4-bit AdamW update: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/adamw4bit.py::fused_adamw4``. The kernel
+(``repro_torch/csrc/fused_adamw4.cu``) is built with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface on first use and
+loaded with ``ctypes``; its source says what bounds it (device-memory bytes)
+and how it is laid out.
+
+``fused_adamw4`` takes a stacked ``(L, R, C)`` leaf (or ``(R, C)``, L == 1)
+and runs ONE launch over every slice. A CUDA tensor launches the kernel and
+adds one to ``LAUNCHES["fused_adamw4"]``; a CPU tensor takes the plain
+version (``fused_adamw4_plain``, the oracles of ``ref.py``); anything else
+raises. There is no fallback from the kernel.
+
+Unlike the functional reference, the param is updated in place when
+``out`` is the param itself (the optimizer does this to save a copy of
+every fused leaf); codes and scales are fresh tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref
+
+__all__ = [
+    "fused_adamw4",
+    "fused_adamw4_plain",
+    "hyper_scalars",
+    "build_library",
+    "LAUNCHES",
+    "SOURCE",
+    "BUILD_DIR",
+]
+
+_BLOCK = 128
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_adamw4.cu"
+# <repo>/build/kernels — listed in .gitignore
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Kernel launches by wrapper name; only a real CUDA launch counts.
+LAUNCHES: Dict[str, int] = {"fused_adamw4": 0}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("fused_adamw4: nvcc not found (set CUDA_HOME or PATH)")
+
+
+def build_library() -> Path:
+    """Compile the kernel source (if this exact source has no library yet)
+    and return the library's path. The name carries the source's hash, and
+    the library is written under a temporary name and renamed, so concurrent
+    builds never load a half-written file."""
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"libfused_adamw4_{digest}.so"
+    if lib.exists():
+        return lib
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    log = BUILD_DIR / f"fused_adamw4_{digest}.log"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        capture_output=True, text=True,
+    )
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        fn = lib.fused_adamw4_launch
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [
+            p, p, i, p,             # w, w_out, w_is_bf16, g
+            p, p, p,                # m_codes, m_scale, v_codes
+            p, p, p, p,             # vr, vc, vr_new, vc_new
+            p, i,                   # seeds, use_sr
+            p, p, p,                # m_codes_out, m_scale_out, v_codes_out
+            ll, ll, ll,             # L, R, C
+            p, p, i,                # m_table, m_mid, m_points (host)
+            p, p, i,                # v_table, v_mid, v_points (host)
+            f, f, f, f, f, f, f, f, f,  # lr b1 omb1 b2 omb2 eps wd bc1 bc2
+            p,                      # stream
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def hyper_scalars(b1: float, b2: float, eps: float, weight_decay: float) -> Dict[str, float]:
+    """The fp32 values the reference's arithmetic uses for the Python-float
+    hyperparameters: ``b1 * m`` rounds b1 to fp32, ``(1.0 - b1) * g`` rounds
+    the double difference to fp32."""
+    f = lambda x: float(np.float32(x))
+    return dict(b1=f(b1), omb1=f(1.0 - b1), b2=f(b2), omb2=f(1.0 - b2),
+                eps=f(eps), wd=f(weight_decay))
+
+
+def _as3(x: torch.Tensor, L: int, last: int) -> torch.Tensor:
+    return x.reshape(L, -1, last)
+
+
+def fused_adamw4_plain(w, g, m_packed, m_scale, v_packed, v_r, v_c, v_r_new, v_c_new,
+                       m_table, v_table, lr, bc1, bc2, sr_seed=None, *,
+                       b1, b2, eps, weight_decay, use_sr=False):
+    """The plain torch version on (L, R, C) operands; returns (w_new,
+    m_packed_new, m_scale_new, v_packed_new). Scalars become 0-d tensors on
+    the operands' device so every division is a true IEEE division."""
+    dev = w.device
+    t = lambda x: torch.full((), float(x), dtype=torch.float32, device=dev)
+    m_table, v_table = m_table.to(dev), v_table.to(dev)
+    if sr_seed is not None:
+        sr_seed = sr_seed.to(dev)
+    args = (w, g, m_packed, m_scale, v_packed, v_r, v_c, m_table, v_table,
+            t(lr), b1, b2, eps, weight_decay, t(bc1), t(bc2))
+    if use_sr:
+        out = ref.fused_adamw4_sr_reference(*args, sr_seed, v_r_new, v_c_new)
+    else:
+        out = ref.fused_adamw4_reference(*args, v_r_new, v_c_new)
+    return out[:4]
+
+
+def _check(name, x, dtype, shape, dev):
+    if x.device != dev:
+        raise ValueError(f"fused_adamw4: {name} on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"fused_adamw4: {name} dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"fused_adamw4: {name} shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"fused_adamw4: {name} must be contiguous and 16-byte aligned")
+
+
+def fused_adamw4(
+    w: torch.Tensor,          # (L, R, C) or (R, C), fp32 or bf16
+    g: torch.Tensor,          # like w, fp32
+    m_packed: torch.Tensor,   # (L, R, C/2) uint8
+    m_scale: torch.Tensor,    # (L, R, C/128) fp32
+    v_packed: torch.Tensor,   # (L, R, C/2) uint8
+    v_r: torch.Tensor,        # (L, R) old per-slice rank-1 row stats
+    v_c: torch.Tensor,        # (C,) old col stats (shared)
+    v_r_new: torch.Tensor,    # (L, R) stats of the updated v
+    v_c_new: torch.Tensor,    # (C,)
+    m_table: torch.Tensor,    # (<=16,) signed DE table (any device; CPU is free)
+    v_table: torch.Tensor,    # (<=16,) unsigned linear table
+    lr: float,
+    bc1: float,               # 1 - b1^t (fp32 value)
+    bc2: float,               # 1 - b2^t
+    sr_seed: Optional[torch.Tensor] = None,  # (L, 2) key words, int64 values
+    *,
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float,
+    use_sr: bool = False,
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused AdamW step over all stacked slices in ONE launch.
+
+    Returns (w_new, m_packed_new, m_scale_new, v_packed_new) in the input
+    rank. ``out`` (shaped like ``w``) receives the param, and may be ``w``.
+    """
+    squeeze = w.ndim == 2
+    if squeeze:
+        (R, C), L = w.shape, 1
+    else:
+        L, R, C = w.shape
+    if C % 256:
+        raise ValueError(f"fused_adamw4: C={C} must be a multiple of 256")
+    if use_sr and sr_seed is None:
+        raise ValueError("fused_adamw4(use_sr=True) requires sr_seed")
+    w3 = w.reshape(L, R, C)
+    shapes = dict(
+        g=(L, R, C), m_packed=(L, R, C // 2), m_scale=(L, R, C // _BLOCK),
+        v_packed=(L, R, C // 2), v_r=(L, R), v_r_new=(L, R),
+    )
+    ops = dict(
+        g=g.reshape(L, R, C), m_packed=_as3(m_packed, L, C // 2),
+        m_scale=_as3(m_scale, L, C // _BLOCK), v_packed=_as3(v_packed, L, C // 2),
+        v_r=v_r.reshape(L, R), v_r_new=v_r_new.reshape(L, R),
+    )
+    dev = w.device
+    if dev.type == "cpu":
+        res = fused_adamw4_plain(
+            w3, ops["g"], ops["m_packed"], ops["m_scale"], ops["v_packed"],
+            ops["v_r"], v_c, ops["v_r_new"], v_c_new, m_table, v_table, lr, bc1, bc2,
+            None if sr_seed is None else sr_seed.reshape(L, 2),
+            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, use_sr=use_sr,
+        )
+        w_new = res[0]
+        if out is not None:
+            out.reshape(L, R, C).copy_(w_new)
+            w_new = out
+        res = (w_new.reshape(L, R, C),) + tuple(res[1:])
+    elif dev.type == "cuda":
+        res = _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
+                      L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes)
+    else:
+        raise ValueError(f"fused_adamw4: unsupported device {dev}")
+    if squeeze:
+        res = tuple(o.reshape(o.shape[1:]) for o in res)
+    return res
+
+
+def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
+            L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes):
+    dev = w3.device
+    if w3.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_adamw4: param dtype {w3.dtype} (fp32 or bf16 only)")
+    _check("w", w3, w3.dtype, (L, R, C), dev)
+    for name, dtype in (("g", torch.float32), ("m_packed", torch.uint8),
+                        ("m_scale", torch.float32), ("v_packed", torch.uint8),
+                        ("v_r", torch.float32), ("v_r_new", torch.float32)):
+        _check(name, ops[name], dtype, shapes[name], dev)
+    _check("v_c", v_c, torch.float32, (C,), dev)
+    _check("v_c_new", v_c_new, torch.float32, (C,), dev)
+    w_out = torch.empty_like(w3) if out is None else out.reshape(L, R, C)
+    _check("out", w_out, w3.dtype, (L, R, C), dev)
+    seeds = None
+    if use_sr:
+        s = sr_seed.reshape(L, 2).to(torch.int64)
+        s = torch.where(s >= 2**31, s - 2**32, s).to(torch.int32).contiguous()
+        # host seed rows go up through pinned memory: no stream synchronisation
+        seeds = s.pin_memory().to(dev, non_blocking=True) if s.device.type == "cpu" else s
+    m_out = torch.empty((L, R, C // 2), dtype=torch.uint8, device=dev)
+    ms_out = torch.empty((L, R, C // _BLOCK), dtype=torch.float32, device=dev)
+    v_out = torch.empty((L, R, C // 2), dtype=torch.uint8, device=dev)
+
+    def host_table(t):
+        # a CPU table costs nothing here; a CUDA one is copied down (a sync)
+        a = t.detach().to("cpu", torch.float32).numpy().astype(np.float32)
+        if not 2 <= a.size <= 16:
+            raise ValueError(f"fused_adamw4: table of {a.size} points (2..16)")
+        mid = ((a[1:] + a[:-1]) / np.float32(2.0)).astype(np.float32)
+        return np.ascontiguousarray(a), np.ascontiguousarray(mid), int(a.size)
+
+    mt, mmid, mp = host_table(m_table)
+    vt, vmid, vp = host_table(v_table)
+    hs = hyper_scalars(b1, b2, eps, weight_decay)
+    fp = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = _library().fused_adamw4_launch(
+        ptr(w3), ptr(w_out), int(w3.dtype == torch.bfloat16), ptr(ops["g"]),
+        ptr(ops["m_packed"]), ptr(ops["m_scale"]), ptr(ops["v_packed"]),
+        ptr(ops["v_r"]), ptr(v_c), ptr(ops["v_r_new"]), ptr(v_c_new),
+        ptr(seeds) if seeds is not None else None, int(use_sr),
+        ptr(m_out), ptr(ms_out), ptr(v_out),
+        L, R, C,
+        fp(mt), fp(mmid), mp, fp(vt), fp(vmid), vp,
+        float(np.float32(lr)), hs["b1"], hs["omb1"], hs["b2"], hs["omb2"],
+        hs["eps"], hs["wd"], float(np.float32(bc1)), float(np.float32(bc2)),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_adamw4: kernel launch failed (cudaError {err})")
+    LAUNCHES["fused_adamw4"] += 1
+    return w_out, m_out, ms_out, v_out

@@ -1,0 +1,132 @@
+"""Leaf-level entry of the fused 4-bit AdamW step, with its torch prepass.
+
+Port of ``repro/kernels/ops.py::fused_adamw4_leaf``, the integration point of
+``FusedAdamWRoute``: it takes a (param, grad, QuantizedTensor m,
+QuantizedTensor v) leaf, computes the new rank-1 stats of v in a prepass
+(torch ops; it materialises an fp32 ``v_new`` of the leaf, a later fusion
+target), and runs dequant -> AdamW -> requant in ONE kernel launch over all
+stacked slices ``(L, R, C)``.
+
+Leading-dim rank-1 stats fold into the row stat (``min`` is associative),
+so every slice sees the kernel's ``min(row, col)`` contract with per-slice
+row stats ``(L, R)`` and shared column stats ``(C,)``. Stochastic rounding:
+slice ``l`` is keyed by ``fold_in(leaf_key, l)``; the seed rows are derived
+on the host (no device work, no synchronisation).
+
+Dispatch follows the tensors: a CUDA leaf launches the CUDA kernel
+(``adamw4bit.LAUNCHES`` counts launches, in place of the reference's
+``count_pallas_calls``), a CPU leaf takes the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quantizer import QuantizedTensor
+from repro_torch.kernels import ref
+from repro_torch.kernels.adamw4bit import LAUNCHES, fused_adamw4
+from repro_torch.kernels.sr import threefry2x32
+
+__all__ = ["fused_adamw4_leaf", "leaf_operands", "seed_rows", "LAUNCHES"]
+
+_BLOCK = 128
+
+
+def _rank1_slice_stats(stats: Tuple[torch.Tensor, ...], shape: Tuple[int, ...]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-dim rank-1 stats -> per-slice (L, R) row stats + shared (C,) cols."""
+    lead_shape = shape[:-2]
+    row, col = stats[-2], stats[-1]
+    if not lead_shape:
+        return row[None, :], col
+    lead = None
+    for r, st in enumerate(stats[:-2]):
+        view = [1] * len(lead_shape)
+        view[r] = lead_shape[r]
+        b = st.reshape(view)
+        lead = b if lead is None else torch.minimum(lead, b)
+    lead = lead.expand(lead_shape).reshape(-1)  # (L,)
+    return torch.minimum(lead[:, None], row[None, :]), col
+
+
+def _rank1_new_stats(v_new: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Per-dim maxes of the updated (nonnegative) v, rank1_normalize's layout."""
+    nd = v_new.ndim
+    return tuple(
+        torch.amax(v_new, dim=tuple(i for i in range(nd) if i != r)) for r in range(nd)
+    )
+
+
+def seed_rows(key: Tuple[int, int], L: int) -> torch.Tensor:
+    """(L, 2) int64 key words on the host: row ``l`` = ``fold_in(key, l)``."""
+    w0, w1 = threefry2x32(key[0], key[1], 0, torch.arange(L, dtype=torch.int64))
+    return torch.stack([w0, w1], dim=1)
+
+
+def leaf_operands(p, g, m_s: QuantizedTensor, v_s: QuantizedTensor, b2: float,
+                  key: Optional[Tuple[int, int]] = None):
+    """The prepass: a leaf's operands for ``adamw4bit.fused_adamw4`` as a
+    dict of keyword arguments, plus the new rank-1 stats of v (per dim)."""
+    shape = tuple(p.shape)
+    R, C = shape[-2], shape[-1]
+    L = p.numel() // (R * C)
+    use_sr = bool(m_s.config.stochastic_rounding) and key is not None
+    # host tables: free for the CUDA launch, moved by the plain version
+    m_table = m_s.config.table("cpu")
+    v_table = v_s.config.table("cpu")
+    g3 = g.to(torch.float32).reshape(L, R, C)
+    v_packed = v_s.codes.reshape(L, R, C // 2)
+    v_r, v_c = _rank1_slice_stats(v_s.scales, shape)
+
+    # rank-1 stats of the UPDATED v, with the kernel's rounding:
+    # b2 * v + ((1 - b2) * g) * g
+    v_new = ref.dequant_rank1(v_packed, v_r, v_c, v_table.to(p.device))
+    t = g3 * (1.0 - b2)
+    t.mul_(g3)
+    v_new.mul_(b2).add_(t)
+    del t
+    new_stats = _rank1_new_stats(v_new.reshape(shape))
+    del v_new
+    v_r_new, v_c_new = _rank1_slice_stats(new_stats, shape)
+    operands = dict(
+        w=p.reshape(L, R, C), g=g3,
+        m_packed=m_s.codes.reshape(L, R, C // 2),
+        m_scale=m_s.scales[0].reshape(L, R, C // _BLOCK),
+        v_packed=v_packed, v_r=v_r.contiguous(), v_c=v_c.contiguous(),
+        v_r_new=v_r_new.contiguous(), v_c_new=v_c_new.contiguous(),
+        m_table=m_table, v_table=v_table,
+        sr_seed=seed_rows(key, L) if use_sr else None, use_sr=use_sr,
+    )
+    return operands, new_stats
+
+
+def fused_adamw4_leaf(
+    p: torch.Tensor,
+    g: torch.Tensor,
+    m_s: QuantizedTensor,
+    v_s: QuantizedTensor,
+    lr: float,
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float,
+    bc1: float,
+    bc2: float,
+    key: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, QuantizedTensor, QuantizedTensor]:
+    """One fused AdamW step for an ndim>=2 leaf with 4-bit B128 m and 4-bit
+    rank-1 v; ``p`` is updated in place and returned. ``key`` turns on
+    in-kernel stochastic rounding when the configs ask for it (no key =>
+    round-to-nearest, as ``quantize()`` falls back). ``lr``/``bc1``/``bc2``
+    are host fp32 values."""
+    operands, new_stats = leaf_operands(p, g, m_s, v_s, b2, key)
+    _, mp3, ms3, vp3 = fused_adamw4(
+        **operands, lr=lr, bc1=bc1, bc2=bc2,
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, out=operands["w"],
+    )
+    m2 = QuantizedTensor(mp3.reshape(m_s.codes.shape), (ms3.reshape(m_s.scales[0].shape),),
+                         m_s.shape, m_s.config)
+    v2 = QuantizedTensor(vp3.reshape(v_s.codes.shape), new_stats, v_s.shape, v_s.config)
+    return p, m2, v2

@@ -1,0 +1,79 @@
+"""Shared layers: rmsnorm, embedding lookup, RoPE, chunked cross entropy.
+
+Port of ``repro/models/layers.py`` (the dense path). Compute is bf16 with
+fp32 master weights cast in (``COMPUTE_DTYPE``, as ``layers.py:34``);
+norms, RoPE and the loss run in fp32 inside.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "INIT_STD",
+    "COMPUTE_DTYPE",
+    "dense",
+    "rmsnorm",
+    "embed_lookup",
+    "rope",
+    "chunked_cross_entropy",
+]
+
+INIT_STD = 0.02
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, spec: str) -> torch.Tensor:
+    """einsum with bf16 compute, weights cast in."""
+    return torch.einsum(spec, x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(COMPUTE_DTYPE)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids.long(), table.to(COMPUTE_DTYPE))
+
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Standard RoPE, halves rotated (LLaMA convention). x: (B, S, H, D);
+    positions: (B, S)."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x32 = x.to(torch.float32)
+    half = x.shape[-1] // 2
+    x1, x2 = x32[..., :half], x32[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
+                          logit_cap: float = 0.0, chunk: int = 512) -> torch.Tensor:
+    """Mean causal-LM cross entropy over unmasked labels (-1 = masked),
+    computing logits for ``chunk`` positions at a time."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    head_c = head.to(COMPUTE_DTYPE)
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, chunk):
+        xc = x[:, s0:s0 + chunk].to(COMPUTE_DTYPE)
+        lc = labels[:, s0:s0 + chunk].long()
+        logits = torch.einsum("bcd,dv->bcv", xc, head_c).to(torch.float32)
+        if logit_cap > 0:
+            logits = logit_cap * torch.tanh(logits / logit_cap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+        mask = (lc >= 0).to(torch.float32)
+        loss_sum = loss_sum + torch.sum((lse - gold) * mask)
+        count = count + torch.sum(mask)
+    return loss_sum / torch.clamp_min(count, 1.0)
