@@ -4,28 +4,50 @@
 
 Phases, each failing the run on error:
 
-1. print the card's name and power limit; build the port's CUDA kernel
-   from ``src/repro_torch/csrc`` into ``build/kernels``;
-2. hold the fused 4-bit AdamW kernel against its plain torch version on the
-   card, round-to-nearest and stochastic rounding, through the leaf prepass
-   at every shape the main path gives it: ``wo`` (24, 16, 128, 2048), ``w1``
-   and ``w3`` (24, 2048, 8192), ``w2`` (24, 8192, 2048). Codes and scales
-   must be bit-equal, params within 1e-6 relative (both round every
-   operation alike). Then time kernel and plain version at each shape with
-   CUDA events (median), and sum the four leaves of one step;
-3. check the card against the CPU on a small input: three reduced-config
+1. print the card's name and power limit; build the port's CUDA kernels
+   from ``src/repro_torch/csrc`` into ``build/kernels``, one ``nvcc`` per
+   source, all started together;
+2. hold the fused 4-bit AdamW kernel (B1) against its plain torch version
+   on the card, round-to-nearest and stochastic rounding, through the leaf
+   prepass at every shape the training path gives it: ``wo`` (24, 16, 128,
+   2048), ``w1`` and ``w3`` (24, 2048, 8192), ``w2`` (24, 8192, 2048).
+   Codes and scales must be bit-equal, params within 1e-6 relative (both
+   round every operation alike). Then time kernel and plain version at each
+   shape with CUDA events (median), and sum the four leaves of one step;
+3. hold the block-wise 4-bit quantize (B2) and dequantize (B3) kernels
+   against their plain versions at every q4 leaf shape of internlm2-1.8b,
+   full size: B2's codes and scales bit-equal from fp32 and from bf16 input,
+   B3's output bit-equal. Time both (CUDA events, median of 21; plain median
+   of 3) and report GB/s, the share of 3.35 TB/s and the byte bound (4.53125
+   B per element), per leaf and summed over the tree's 11 leaves;
+4. check the card against the CPU on a small input: three reduced-config
    production4bit steps from the same weights. Losses must agree within
    3e-4 relative (measured gap 3.2e-5: bf16 products round differently),
    a gap that the same model without its optimizer steps must exceed five
    times over, and at least 90% of the fused leaves' 4-bit first-moment
    codes must agree;
-4. drive the main path: ``repro_torch.launch.train`` trains internlm2-1.8b
-   at full width and depth, production4bit with SR, 5 steps of batch 8 x seq
-   128, with every kernel launch count set to 0 just before and read just
-   after; check state bytes (4,590,578,552), 4 launches per step, finite
-   losses and a last loss below the first;
-5. split one more full-size step into model and optimizer time (CUDA
-   events) and list its top device kernels (``torch.profiler``).
+5. check q4 serving on the card against the CPU on a small input: the
+   reduced config's q4 trees bit-equal (B2 on the card, its plain version on
+   the CPU), prefill and teacher-forced decode logits within 2e-2 absolute
+   (bf16 products again), and the agreement of greedy and sampled engine
+   streams recorded;
+6. drive the training path: ``repro_torch.launch.train`` trains
+   internlm2-1.8b at full width and depth, production4bit with SR, 5 steps
+   of batch 8 x seq 128, with every kernel launch count set to 0 just before
+   and read just after; check state bytes (4,590,578,552), 4 B1 launches per
+   step and none of B2/B3, finite losses and a last loss below the first;
+7. split one more full-size step into model and optimizer time (CUDA
+   events) and list its top device kernels (``torch.profiler``);
+8. drive the serving path: ``repro_torch.launch.serve`` serves
+   internlm2-1.8b at full width and depth with q4 weights, 8 requests
+   (prompt lengths from seed 0 in 32..384, half greedy, half T 0.8 top-k
+   40) through 4 slots, 64 new tokens each, 8 decode steps per host sync,
+   1024 cache slots, with every launch count set to 0 just before and read
+   just after; check weight bytes (1,003,596,800), 11 B2 launches, 11 B3
+   launches per prefill and per decode chunk, no B1, every stream complete
+   and in the vocabulary; report prefill and decode device ms (CUDA
+   events), tok/s and peak memory;
+9. list the top device kernels of one decode chunk (``torch.profiler``).
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -51,6 +73,18 @@ LEAF_SHAPES = (("wo", (24, 16, 128, 2048), 1), ("w1,w3", (24, 2048, 8192), 2),
                ("w2", (24, 8192, 2048), 1))
 SMALL_RTOL = 3e-4
 OUT_DIR = ROOT / "chiprun_out"
+# the q4 serving leaves of internlm2-1.8b: (names, shape, leaves of that shape)
+Q4_LEAVES = (("wq", (24, 2048, 16, 128), 1), ("wk,wv", (24, 2048, 8, 128), 2),
+             ("wo", (24, 16, 128, 2048), 1), ("w1,w3", (24, 2048, 8192), 2),
+             ("w2", (24, 8192, 2048), 1), ("norm1,norm2", (24, 2048), 2),
+             ("embed", (92544, 2048), 1), ("head", (2048, 92544), 1))
+Q4_BYTES_PER_ELEMENT = 4 + 0.5 + 4 / 128  # fp32 one way, codes + scales the other
+Q4_OPS_PER_ELEMENT = 20.0  # quantize: abs, max, divide, 15 compares, pack
+Q4_LEAF_COUNT = sum(count for _, _, count in Q4_LEAVES)  # 11
+WEIGHT_BYTES_Q4 = 1_003_596_800
+VOCAB = 92544
+SERVE_ATOL = 2e-2
+SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_DRAIN = 8, 64, 8
 
 
 def fail(msg: str) -> None:
@@ -59,11 +93,12 @@ def fail(msg: str) -> None:
 
 
 def phase_build():
-    from repro_torch.kernels import adamw4bit
+    from repro_torch.kernels import adamw4bit, build, quant4
 
     t0 = time.perf_counter()
-    lib = adamw4bit.build_library()
-    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    libs = build.build_libraries(adamw4bit.SOURCE, quant4.SOURCE)
+    print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs)} "
+          f"in {time.perf_counter() - t0:.1f} s")
 
 
 def _states(shape, sr_on, seed, dev):
@@ -229,17 +264,26 @@ def phase_small_reference(dev):
     return dict(card=card, cpu=cpu, without_steps=still, m_code_agreement=agree)
 
 
-def phase_main_path(launches):
+def _reset(counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def _read(counters):
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def phase_main_path(counters):
     import torch
 
     from repro_torch.launch import train
 
-    for k in launches:
-        launches[k] = 0
+    _reset(counters)
     out = train.main(["--arch", "internlm2-1.8b", "--optimizer", "production4bit",
                       "--sr-seed", "0", "--steps", str(STEPS), "--batch", "8", "--seq", "128",
                       "--device", "cuda"])
-    counts = dict(launches)
+    counts = _read(counters)
     losses = [r["loss"] for r in out["steps"]]
     for r in out["steps"]:
         print(f"main path step {r['step']}: loss {r['loss']:.4f}  {r['ms']:.1f} ms  "
@@ -250,6 +294,8 @@ def phase_main_path(launches):
         fail(f"state_bytes {out['state_bytes']} != {STATE_BYTES_INTERNLM2}")
     if counts["fused_adamw4"] != 4 * STEPS:
         fail(f"fused_adamw4 launched {counts['fused_adamw4']} times, expected {4 * STEPS}")
+    if counts["quantize_blockwise_4bit"] or counts["dequantize_blockwise_4bit"]:
+        fail(f"the training path launched the q4 kernels: {counts}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -257,6 +303,25 @@ def phase_main_path(launches):
     del out
     torch.cuda.empty_cache()
     return counts, losses
+
+
+def _top_kernels(prof, path, n=8):
+    """Print the top ``n`` device kernels of a profile by self device time
+    (full table to ``path``); returns [(name, ms, count)]."""
+    avgs = prof.key_averages()
+    self_dev = lambda e: (getattr(e, "self_device_time_total", None)
+                          or getattr(e, "self_cuda_time_total", 0))
+    kernels = sorted((e for e in avgs if self_dev(e) > 0), key=self_dev, reverse=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    sort_key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    path.write_text(avgs.table(sort_by=sort_key, row_limit=40))
+    if not kernels:
+        fail(f"the profile ({path.name}) shows no device time")
+    top = [(e.key, self_dev(e) / 1e3, e.count) for e in kernels[:n]]
+    for key, ms, count in top:
+        print(f"  device {ms:8.2f} ms  x{count:<5d} {key[:90]}")
+    return top
 
 
 def phase_profile(dev):
@@ -301,21 +366,235 @@ def phase_profile(dev):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         step(3)
-    avgs = prof.key_averages()
-    self_dev = lambda e: (getattr(e, "self_device_time_total", None)
-                          or getattr(e, "self_cuda_time_total", 0))
-    kernels = sorted((e for e in avgs if self_dev(e) > 0), key=self_dev, reverse=True)
-    OUT_DIR.mkdir(exist_ok=True)
-    sort_key = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    (OUT_DIR / "step_profile.txt").write_text(avgs.table(sort_by=sort_key, row_limit=40))
     print(f"step split (CUDA events, step 3): model fwd+bwd {model_ms:.1f} ms, "
           f"optimizer {opt_ms:.1f} ms")
-    for e in kernels[:8]:
-        print(f"  device {self_dev(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    _top_kernels(prof, OUT_DIR / "step_profile.txt")
     del model, state, prof
     torch.cuda.empty_cache()
     return model_ms, opt_ms
+
+
+def phase_quant_leaves(dev):
+    """B2 and B3 against their plain versions at every q4 leaf shape of
+    internlm2-1.8b (the (R, C) view ``prepare_params`` gives the kernel),
+    then both timed; sums over the tree's 11 leaves."""
+    import torch
+
+    from repro_torch.kernels import quant4
+    from repro_torch.serve.weights import WEIGHT_Q4, kernel_view
+
+    table = WEIGHT_Q4.table("cpu")
+    rows, err = [], {"q": 0.0, "dq": 0.0}
+    for names, shape, count in Q4_LEAVES:
+        R, C = kernel_view(shape)
+        g = torch.Generator(device=dev).manual_seed(R + C)
+        x = torch.randn((R, C), generator=g, device=dev) * 0.02
+        x[0, :128] = 0.0  # one guarded all-zero block
+        for dtype in (torch.float32, torch.bfloat16):
+            xi = x.to(dtype)
+            ck, sk = quant4.quantize_blockwise_4bit(xi, table)
+            cp, sp = quant4.quantize_blockwise_4bit_plain(xi, table)
+            torch.cuda.synchronize()
+            if not torch.equal(ck, cp):
+                fail(f"B2 {names} {shape} {dtype}: codes differ at {int((ck != cp).sum())} bytes")
+            if not torch.equal(sk, sp):
+                fail(f"B2 {names} {shape} {dtype}: scales differ "
+                     f"(max {float((sk - sp).abs().max())})")
+            err["q"] = max(err["q"], float((sk - sp).abs().max()))
+            del xi, ck, sk, cp, sp
+        ck, sk = quant4.quantize_blockwise_4bit(x, table)
+        yk = quant4.dequantize_blockwise_4bit(ck, sk, table)
+        yp = quant4.dequantize_blockwise_4bit_plain(ck, sk, table)
+        torch.cuda.synchronize()
+        if not torch.equal(yk, yp):
+            fail(f"B3 {names} {shape}: differs (max {float((yk - yp).abs().max())})")
+        err["dq"] = max(err["dq"], float((yk - yp).abs().max()))
+        del yk, yp
+        n = R * C
+        row = dict(leaves=names, shape=list(shape), view=[R, C], count=count)
+        for _ in range(3):
+            quant4.quantize_blockwise_4bit(x, table)
+            quant4.dequantize_blockwise_4bit(ck, sk, table)
+        row["q_ms"] = _median_ms(lambda: quant4.quantize_blockwise_4bit(x, table), 21)
+        row["dq_ms"] = _median_ms(lambda: quant4.dequantize_blockwise_4bit(ck, sk, table), 21)
+        row["q_plain_ms"] = _median_ms(lambda: quant4.quantize_blockwise_4bit_plain(x, table), 3)
+        row["dq_plain_ms"] = _median_ms(
+            lambda: quant4.dequantize_blockwise_4bit_plain(ck, sk, table), 3)
+        row["bytes"] = Q4_BYTES_PER_ELEMENT * n
+        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["q_bound_ms"] = max(t_bytes, Q4_OPS_PER_ELEMENT * n / FP32_FLOPS_PER_S * 1e3)
+        row["dq_bound_ms"] = max(t_bytes, 1.0 * n / FP32_FLOPS_PER_S * 1e3)
+        row["bound_by"] = "bytes" if t_bytes >= row["q_bound_ms"] else "operations"
+        for k in ("q", "dq"):
+            gbs = row["bytes"] / (row[f"{k}_ms"] * 1e-3) / 1e9
+            row[f"{k}_gbs"] = gbs
+        print(f"q4 {names} {shape} as ({R}, {C}) x{count}: "
+              f"B2 {row['q_ms']:.4f} ms ({row['q_gbs']:.0f} GB/s, "
+              f"{row['q_gbs'] * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), "
+              f"B3 {row['dq_ms']:.4f} ms ({row['dq_gbs']:.0f} GB/s, "
+              f"{row['dq_gbs'] * 1e9 / HBM_BYTES_PER_S:.1%}), bound {row['q_bound_ms']:.4f} ms "
+              f"({row['bound_by']}); plain B2 {row['q_plain_ms']:.2f} ms, "
+              f"B3 {row['dq_plain_ms']:.2f} ms")
+        rows.append(row)
+        del x, ck, sk
+        torch.cuda.empty_cache()
+    tree = {k: sum(r[k] * r["count"] for r in rows)
+            for k in ("q_ms", "dq_ms", "q_plain_ms", "dq_plain_ms", "q_bound_ms", "dq_bound_ms",
+                      "bytes")}
+    tree["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+    print(f"q4 whole tree ({Q4_LEAF_COUNT} leaves, {tree['bytes'] / 1e9:.3f} GB each way): "
+          f"B2 {tree['q_ms']:.4f} ms, B3 {tree['dq_ms']:.4f} ms, "
+          f"bound {tree['q_bound_ms']:.4f} ms; "
+          f"plain B2 {tree['q_plain_ms']:.1f} ms, B3 {tree['dq_plain_ms']:.1f} ms; "
+          f"codes, scales and values bit-equal to the plain versions")
+    return err, rows, tree
+
+
+def _stream_agreement(a, b):
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    return same / max(1, sum(len(r) for r in a))
+
+
+def phase_small_serving(dev):
+    """q4 serving of the reduced config on the card and on the CPU from the
+    same masters: trees bit-equal, logits within SERVE_ATOL, streams'
+    agreement recorded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.quantizer import QuantizedTensor
+    from repro_torch.models import (decode_step, init_model, init_serve_cache, named_params,
+                                    prefill_with_cache)
+    from repro_torch.serve import Request, ServeEngine, materialize, prepare_params
+
+    cfg = reduced_config("internlm2-1.8b")
+    model = init_model(cfg, seed=0, device="cpu")
+    masters = {k: p.detach() for k, p in named_params(model).items()}
+    rng = np.random.default_rng(1)
+    lens = np.array([32, 17, 9, 25])
+    toks = rng.integers(0, cfg.vocab_size, size=(4, 32))
+    steps = rng.integers(0, cfg.vocab_size, size=(8, 4))  # teacher-forced decode tokens
+    prompts = [toks[b, :n].tolist() for b, n in enumerate(lens)]
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        tree = prepare_params({k: v.to(d) for k, v in masters.items()}, "q4")
+        p = materialize(tree)
+        cache = init_serve_cache(cfg, 4, 256, device=d)
+        logits = [prefill_with_cache(p, cfg, torch.from_numpy(toks).to(d),
+                                     torch.from_numpy(lens).to(d), cache)[0].cpu()]
+        for t in range(steps.shape[0]):
+            logits.append(decode_step(p, cfg, cache, torch.from_numpy(steps[t]).to(d),
+                                      torch.from_numpy(lens + t).to(d))[0].cpu())
+        eng = ServeEngine(cfg, {k: v.to(d) for k, v in masters.items()}, max_batch=2, s_max=256,
+                          weights="q4", drain_every=4)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=16,
+                        **({} if i % 2 == 0 else dict(temperature=0.8, top_k=40)))
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        res[name] = dict(tree=tree, logits=logits, greedy=[r.output for r in reqs[0::2]],
+                         sampled=[r.output for r in reqs[1::2]])
+    for k, v in res["cpu"]["tree"].items():
+        w = res["card"]["tree"][k]
+        if isinstance(v, QuantizedTensor):
+            if not (torch.equal(w.codes.cpu(), v.codes)
+                    and torch.equal(w.scales[0].cpu(), v.scales[0])):
+                fail(f"reduced q4 tree: {k} differs between card (B2) and CPU (plain)")
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(res["card"]["logits"], res["cpu"]["logits"])]
+    greedy = _stream_agreement(res["card"]["greedy"], res["cpu"]["greedy"])
+    sampled = _stream_agreement(res["card"]["sampled"], res["cpu"]["sampled"])
+    print(f"reduced q4 serving, card vs CPU: trees bit-equal; max |dlogit| prefill {diffs[0]:.3g}, "
+          f"decode {max(diffs[1:]):.3g} (held to {SERVE_ATOL}); stream agreement greedy "
+          f"{greedy:.3f}, sampled {sampled:.3f}")
+    if not max(diffs) <= SERVE_ATOL:
+        fail(f"reduced q4 serving: card vs CPU logits differ by {diffs}")
+    return dict(max_dlogit_prefill=diffs[0], max_dlogit_decode=max(diffs[1:]),
+                greedy_agreement=greedy, sampled_agreement=sampled)
+
+
+def _serve_requests(vocab):
+    """The serving mix: prompt lengths from seed 0 in 32..384, random
+    tokens, even request ids greedy, odd ones T 0.8 top-k 40."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(32, 385, size=SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=int(n)).tolist(),
+                    max_new_tokens=SERVE_NEW_TOKENS,
+                    **({} if i % 2 == 0 else dict(temperature=0.8, top_k=40)))
+            for i, n in enumerate(lengths)]
+
+
+def phase_serve(counters):
+    """The serving path at full size through its CLI's ``main``."""
+    from repro_torch.launch import serve
+
+    reqs = _serve_requests(VOCAB)
+    _reset(counters)
+    out = serve.main(["--arch", "internlm2-1.8b", "--weights", "q4", "--requests",
+                      str(SERVE_REQUESTS), "--max-batch", "4", "--max-new-tokens",
+                      str(SERVE_NEW_TOKENS), "--drain-every", str(SERVE_DRAIN), "--s-max", "1024",
+                      "--seed", "0", "--device", "cuda"], requests=reqs)
+    counts = _read(counters)
+    eng = out["engine"]
+    calls = out["materialize_calls"]
+    rep = out["weight_report"]
+    n_chunks = calls["decode"]
+    # copies: the profile phase runs the same engine on
+    prefill_ms, decode_ms = list(eng.phase_ms["prefill"]), list(eng.phase_ms["decode"])
+    step_ms = sum(decode_ms) / (n_chunks * SERVE_DRAIN)
+    res = dict(weight_bytes=rep["total_serve_bytes"], quantized_leaves=rep["quantized_leaves"],
+               launches=counts, materialize_calls=calls, prefill_ms=prefill_ms,
+               decode_chunk_ms=decode_ms, decode_ms_per_step=step_ms, tokens=out["tokens"],
+               wall_s=out["wall_s"], tok_per_s=out["tokens"] / out["wall_s"],
+               peak_bytes=out["peak_bytes"], prompt_lengths=[len(r.prompt) for r in reqs])
+    print(f"serve path: {len(reqs)} requests, prompts {res['prompt_lengths']}, "
+          f"{out['tokens']} tokens in {out['wall_s']:.2f} s ({res['tok_per_s']:.1f} tok/s); "
+          f"prefills {len(prefill_ms)} at {', '.join(f'{m:.1f}' for m in prefill_ms)} ms; "
+          f"{n_chunks} decode chunks, {step_ms:.2f} ms per decode step of 4 slots; "
+          f"weight bytes {rep['total_serve_bytes']:,}; peak device memory "
+          f"{out['peak_bytes'] / 1e9:.2f} GB; launches {counts}")
+    if rep["total_serve_bytes"] != WEIGHT_BYTES_Q4 or rep["quantized_leaves"] != Q4_LEAF_COUNT:
+        fail(f"weight bytes {rep['total_serve_bytes']} ({rep['quantized_leaves']} q4 leaves), "
+             f"expected {WEIGHT_BYTES_Q4} ({Q4_LEAF_COUNT})")
+    if counts["quantize_blockwise_4bit"] != Q4_LEAF_COUNT:
+        fail(f"B2 launched {counts['quantize_blockwise_4bit']} times, expected {Q4_LEAF_COUNT}")
+    expected = Q4_LEAF_COUNT * (calls["prefill"] + calls["decode"])
+    if counts["dequantize_blockwise_4bit"] != expected:
+        fail(f"B3 launched {counts['dequantize_blockwise_4bit']} times, expected {expected} "
+             f"({Q4_LEAF_COUNT} per materialize, {calls})")
+    if counts["fused_adamw4"]:
+        fail(f"the serving path launched the optimizer kernel: {counts}")
+    if calls["prefill"] < 2 or len(prefill_ms) != calls["prefill"] or len(decode_ms) != n_chunks:
+        fail(f"expected a backfill (two prefills or more) and timed phases: {calls}")
+    for r in reqs:
+        if not (r.done and len(r.output) == SERVE_NEW_TOKENS
+                and all(0 <= t < VOCAB for t in r.output)):
+            fail(f"request {r.rid}: done={r.done}, {len(r.output)} tokens")
+    return res, eng
+
+
+def phase_serve_profile(eng):
+    """Top device kernels of one decode chunk of the full-size q4 engine."""
+    import torch
+
+    for r in _serve_requests(VOCAB)[:4]:
+        r.rid += 100
+        eng.submit(r)
+    eng._admit_and_prefill()
+    eng._decode()  # warm
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng._decode()
+    print(f"one decode chunk ({SERVE_DRAIN} steps of 4 slots), top device kernels:")
+    top = _top_kernels(prof, OUT_DIR / "serve_decode_profile.txt", n=10)
+    del prof
+    return top
 
 
 def main():
@@ -327,7 +606,7 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     try:
-        from repro_torch.kernels import adamw4bit
+        from repro_torch.kernels import adamw4bit, quant4
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
 
@@ -342,11 +621,18 @@ def main():
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
     phase_build()
     max_err, leaves, per_step = phase_leaves(dev)
+    q4_err, q4_leaves, q4_tree = phase_quant_leaves(dev)
     small = phase_small_reference(dev)
-    counts, losses = phase_main_path(adamw4bit.LAUNCHES)
+    small_serving = phase_small_serving(dev)
+    counts, losses = phase_main_path(counters)
     model_ms, opt_ms = phase_profile(dev)
+    serving, eng = phase_serve(counters)
+    decode_top = phase_serve_profile(eng)
+    del eng
+    torch.cuda.empty_cache()
 
     kernels = [{
         "name": "fused_adamw4",
@@ -361,13 +647,42 @@ def main():
         "bound_ms": per_step["bound_ms"],
         "bound_by": per_step["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "quantize_blockwise_4bit",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/quant4.cu",
+        "replaces": "src/repro/kernels/quant4.py:47",
+        "launches": serving["launches"]["quantize_blockwise_4bit"],
+        "max_abs_err": q4_err["q"],  # scales; codes bit-equal
+        # the whole q4 tree of internlm2-1.8b (11 launches, one prepare_params)
+        "ms": q4_tree["q_ms"],
+        "plain_ms": q4_tree["q_plain_ms"],
+        "bound_ms": q4_tree["q_bound_ms"],
+        "bound_by": q4_tree["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "dequantize_blockwise_4bit",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/quant4.cu",
+        "replaces": "src/repro/kernels/quant4.py:79",
+        "launches": serving["launches"]["dequantize_blockwise_4bit"],
+        "max_abs_err": q4_err["dq"],
+        # the whole q4 tree (11 launches, one materialize)
+        "ms": q4_tree["dq_ms"],
+        "plain_ms": q4_tree["dq_plain_ms"],
+        "bound_ms": q4_tree["dq_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes this function
     }]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "leaves": leaves, "per_step": per_step,
-         "small_reference": small, "losses": losses,
-         "step_split_ms": {"model": model_ms, "optimizer": opt_ms},
+         "q4_leaves": q4_leaves, "q4_tree": q4_tree, "small_reference": small,
+         "small_serving": small_serving, "losses": losses,
+         "step_split_ms": {"model": model_ms, "optimizer": opt_ms}, "serving": serving,
+         "decode_chunk_top_kernels": decode_top,
          "seconds": time.perf_counter() - t_start}, indent=1))
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

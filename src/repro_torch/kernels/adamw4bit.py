@@ -3,8 +3,8 @@
 Port of ``repro/kernels/adamw4bit.py::fused_adamw4``. The kernel
 (``repro_torch/csrc/fused_adamw4.cu``) is built with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface on first use and
-loaded with ``ctypes``; its source says what bounds it (device-memory bytes)
-and how it is laid out.
+loaded with ``ctypes`` (``kernels.build``); its source says what bounds it
+(device-memory bytes) and how it is laid out.
 
 ``fused_adamw4`` takes a stacked ``(L, R, C)`` leaf (or ``(R, C)``, L == 1)
 and runs ONE launch over every slice. A CUDA tensor launches the kernel and
@@ -20,37 +20,23 @@ every fused leaf); codes and scales are fresh tensors.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 __all__ = [
     "fused_adamw4",
     "fused_adamw4_plain",
     "hyper_scalars",
-    "build_library",
     "LAUNCHES",
     "SOURCE",
-    "BUILD_DIR",
 ]
 
 _BLOCK = 128
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_adamw4.cu"
-# <repo>/build/kernels — listed in .gitignore
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = build.CSRC / "fused_adamw4.cu"
 
 # Kernel launches by wrapper name; only a real CUDA launch counts.
 LAUNCHES: Dict[str, int] = {"fused_adamw4": 0}
@@ -58,44 +44,10 @@ LAUNCHES: Dict[str, int] = {"fused_adamw4": 0}
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("fused_adamw4: nvcc not found (set CUDA_HOME or PATH)")
-
-
-def build_library() -> Path:
-    """Compile the kernel source (if this exact source has no library yet)
-    and return the library's path. The name carries the source's hash, and
-    the library is written under a temporary name and renamed, so concurrent
-    builds never load a half-written file."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libfused_adamw4_{digest}.so"
-    if lib.exists():
-        return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    log = BUILD_DIR / f"fused_adamw4_{digest}.log"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    log.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
-
-
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = build.load_library(SOURCE)
         fn = lib.fused_adamw4_launch
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         fn.argtypes = [
@@ -146,17 +98,6 @@ def fused_adamw4_plain(w, g, m_packed, m_scale, v_packed, v_r, v_c, v_r_new, v_c
     else:
         out = ref.fused_adamw4_reference(*args, v_r_new, v_c_new)
     return out[:4]
-
-
-def _check(name, x, dtype, shape, dev):
-    if x.device != dev:
-        raise ValueError(f"fused_adamw4: {name} on {x.device}, expected {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"fused_adamw4: {name} dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"fused_adamw4: {name} shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"fused_adamw4: {name} must be contiguous and 16-byte aligned")
 
 
 def fused_adamw4(
@@ -230,6 +171,10 @@ def fused_adamw4(
     return res
 
 
+def _check(what, x, dtype, shape, dev):
+    build.check_operand("fused_adamw4", what, x, dtype, shape, dev)
+
+
 def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
             L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes):
     dev = w3.device
@@ -254,16 +199,8 @@ def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
     ms_out = torch.empty((L, R, C // _BLOCK), dtype=torch.float32, device=dev)
     v_out = torch.empty((L, R, C // 2), dtype=torch.uint8, device=dev)
 
-    def host_table(t):
-        # a CPU table costs nothing here; a CUDA one is copied down (a sync)
-        a = t.detach().to("cpu", torch.float32).numpy().astype(np.float32)
-        if not 2 <= a.size <= 16:
-            raise ValueError(f"fused_adamw4: table of {a.size} points (2..16)")
-        mid = ((a[1:] + a[:-1]) / np.float32(2.0)).astype(np.float32)
-        return np.ascontiguousarray(a), np.ascontiguousarray(mid), int(a.size)
-
-    mt, mmid, mp = host_table(m_table)
-    vt, vmid, vp = host_table(v_table)
+    mt, mmid, mp = build.host_table(m_table)
+    vt, vmid, vp = build.host_table(v_table)
     hs = hyper_scalars(b1, b2, eps, weight_decay)
     fp = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())

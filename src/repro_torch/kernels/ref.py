@@ -1,7 +1,7 @@
-"""Plain torch versions of the fused kernel's arithmetic (the oracles).
+"""Plain torch versions of the kernels' arithmetic (the oracles).
 
 Port of ``repro/kernels/ref.py``. These are what the CPU path runs and what
-``chip_smoke.py`` holds the CUDA kernel against on the card, so they spell
+``chip_smoke.py`` holds the CUDA kernels against on the card, so they spell
 out the kernel's exact fp32 operation order: ``b1*m + (1-b1)*g`` as two
 products and one add (no fused multiply-add), IEEE division and square
 root, midpoint compare-and-sum encoding. Scalar hyperparameters are Python
@@ -35,6 +35,7 @@ __all__ = [
     "encode_table",
     "encode_table_stochastic_bits",
     "dequant_blockwise",
+    "quant_blockwise",
     "dequant_rank1",
     "slice_uniforms",
     "fused_adamw4_reference",
@@ -54,6 +55,18 @@ def dequant_blockwise(packed: torch.Tensor, scale: torch.Tensor,
     """packed (..., C/2), scale (..., C/128) -> (..., C) fp32."""
     vals = decode_table(unpack_codes(packed), table)
     return vals * torch.repeat_interleave(scale, _BLOCK, dim=-1)
+
+
+def quant_blockwise(x: torch.Tensor, table: torch.Tensor, block: int = _BLOCK
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., C) fp32 or bf16, C % block == 0 -> packed (..., C/2) uint8 and
+    guarded absmax scales (..., C/block) fp32; round to nearest. The input is
+    taken in fp32, as the kernel takes it."""
+    *lead, C = x.shape
+    blocks = x.to(torch.float32).reshape(*lead, C // block, block)
+    scale = _guard(torch.amax(torch.abs(blocks), dim=-1))
+    n = (blocks / scale[..., None]).reshape(*lead, C)
+    return pack_codes(encode_table(n, table)), scale
 
 
 def dequant_rank1(packed: torch.Tensor, r: torch.Tensor, c: torch.Tensor,

@@ -4,10 +4,13 @@ from repro_torch.models.blocks import LayerSpec
 from repro_torch.models.model import (
     ModelConfig,
     Transformer,
+    decode_step,
     forward_hidden,
     init_model,
+    init_serve_cache,
     loss_fn,
     named_params,
+    prefill_with_cache,
 )
 
 __all__ = [
@@ -18,4 +21,7 @@ __all__ = [
     "forward_hidden",
     "loss_fn",
     "named_params",
+    "init_serve_cache",
+    "decode_step",
+    "prefill_with_cache",
 ]

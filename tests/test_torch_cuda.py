@@ -1,4 +1,6 @@
-"""The fused 4-bit AdamW CUDA kernel against its plain torch version.
+"""The port's CUDA kernels against their plain torch versions: the fused
+4-bit AdamW kernel, the block-wise 4-bit quantize / dequantize kernels and a
+short q4 serving run.
 
 Needs an NVIDIA card (the kernel has no CPU mode), so every test here is
 marked ``cuda`` and skips without one. It imports torch and the port only,
@@ -7,7 +9,8 @@ so it runs where JAX is absent:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Codes and scales must be bit-equal; params equal to 1e-6 relative (both
-sides round every operation alike, so they agree to the bit in practice).
+sides round every operation alike, so they agree to the bit in practice);
+dequantized weights bit-equal.
 """
 
 import dataclasses
@@ -86,3 +89,94 @@ def test_wrapper_rejects_bad_operands(cuda):
             torch.ones(2, 64, device=cuda), torch.ones(256, device=cuda),
             M_4BIT.table("cpu"), V_4BIT.table("cpu"), LR, BC1, BC2, **HP,
         )
+
+
+# ---------------------------------------------------------------------------
+# block-wise 4-bit quantize / dequantize kernels and the q4 serving path
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.mappings import mapping_table  # noqa: E402
+from repro_torch.kernels import quant4  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 512), (8, 128), (3, 92544), (1, 128 * 1000)])
+def test_quant4_kernels_match_plain(cuda, shape, x_dtype):
+    table = mapping_table("de", 4, True, "cpu")
+    g = torch.Generator().manual_seed(shape[0] * 7 + shape[1])
+    x = (torch.randn(shape, generator=g) * 0.02).to(x_dtype)
+    x[0, :128] = 0.0  # a guarded all-zero block
+    before = dict(quant4.LAUNCHES)
+    pk, sk = quant4.quantize_blockwise_4bit(x.to(cuda), table)
+    pp, sp = quant4.quantize_blockwise_4bit(x, table)  # CPU: the plain version
+    back_k = quant4.dequantize_blockwise_4bit(pk, sk, table)
+    back_p = quant4.dequantize_blockwise_4bit(pp, sp, table)
+    torch.cuda.synchronize()
+    assert torch.equal(pk.cpu(), pp) and torch.equal(sk.cpu(), sp)
+    assert torch.equal(back_k.cpu(), back_p)
+    assert quant4.LAUNCHES["quantize_blockwise_4bit"] - before["quantize_blockwise_4bit"] == 1
+    assert quant4.LAUNCHES["dequantize_blockwise_4bit"] - before["dequantize_blockwise_4bit"] == 1
+
+
+@pytest.mark.cuda
+def test_quant4_wrappers_reject_bad_operands(cuda):
+    table = mapping_table("de", 4, True, "cpu")
+    with pytest.raises(ValueError, match="shape"):
+        quant4.quantize_blockwise_4bit(torch.zeros(4, 200, device=cuda), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant4.quantize_blockwise_4bit(torch.zeros(256, 4, device=cuda).t(), table)
+    with pytest.raises(TypeError):
+        quant4.quantize_blockwise_4bit(torch.zeros(4, 128, device=cuda, dtype=torch.float16), table)
+    codes = torch.zeros(4, 64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="scales shape"):
+        quant4.dequantize_blockwise_4bit(codes, torch.ones(4, 2, device=cuda), table)
+
+
+@pytest.mark.cuda
+def test_q4_engine_on_card_matches_cpu(cuda):
+    """A short q4 engine run on the card against the same run on the CPU:
+    B2 and B3 launched once per leaf and per leaf and phase, the q4 trees
+    bit-equal, prefill logits within 2e-2 (bf16 products round differently
+    on the two devices), all streams run to their length."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_model, init_serve_cache, named_params, prefill_with_cache
+    from repro_torch.serve import Request, ServeEngine, materialize
+
+    cfg = reduced_config("internlm2-1.8b")
+    masters = {k: p.detach() for k, p in named_params(init_model(cfg, device="cpu")).items()}
+    outs, trees = {}, {}
+    for dev in ("cpu", cuda):
+        before = dict(quant4.LAUNCHES)
+        eng = ServeEngine(cfg, {k: v.to(dev) for k, v in masters.items()}, max_batch=2,
+                          s_max=256, weights="q4", drain_every=4)
+        reqs = [Request(rid=i, prompt=[3 + i, 4 + i, 5 + i], max_new_tokens=6) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs[str(dev)] = [r.output for r in reqs]
+        trees[str(dev)] = eng.params
+        n_q = sum(isinstance(v, QuantizedTensor) for v in eng.params.values())
+        calls = sum(eng.materialize_calls.values())
+        launched = {k: quant4.LAUNCHES[k] - before[k] for k in before}
+        if dev == cuda:
+            assert launched == {"quantize_blockwise_4bit": n_q,
+                                "dequantize_blockwise_4bit": n_q * calls}
+            assert len(eng.phase_ms["decode"]) == eng.materialize_calls["decode"]
+        else:
+            assert launched == {"quantize_blockwise_4bit": 0, "dequantize_blockwise_4bit": 0}
+    for k, v in trees["cpu"].items():
+        w = trees["cuda"][k]
+        if isinstance(v, QuantizedTensor):
+            assert torch.equal(w.codes.cpu(), v.codes)
+            assert torch.equal(w.scales[0].cpu(), v.scales[0])
+        else:
+            assert torch.equal(w.cpu(), v)
+    assert all(len(o) == 6 for o in outs["cuda"])
+    toks, lens = torch.tensor([[3, 4, 5, 6], [7, 8, 0, 0]]), torch.tensor([4, 2])
+    logits = {}
+    for dev, tree in trees.items():
+        cache = init_serve_cache(cfg, 2, 256, device=dev)
+        logits[dev] = prefill_with_cache(materialize(tree), cfg, toks.to(dev), lens.to(dev),
+                                         cache)[0].cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=2e-2, rtol=0)
