@@ -6,14 +6,19 @@ Phases, each failing the run on error:
 
 1. print the card's name and power limit; build the port's CUDA kernels
    from ``src/repro_torch/csrc`` into ``build/kernels``, one ``nvcc`` per
-   source, all started together;
-2. hold the fused 4-bit AdamW kernel (B1) against its plain torch version
-   on the card, round-to-nearest and stochastic rounding, through the leaf
-   prepass at every shape the training path gives it: ``wo`` (24, 16, 128,
+   source, all started together; print each kernel's registers and spills
+   (``-Xptxas -v``) and, where ``cuobjdump`` is there, the integer-ALU
+   instructions that stochastic rounding adds to B1's SASS;
+2. hold both passes of the fused 4-bit AdamW step (B1) against their plain
+   torch versions on the card, round-to-nearest and stochastic rounding,
+   at every shape the training path gives them: ``wo`` (24, 16, 128,
    2048), ``w1`` and ``w3`` (24, 2048, 8192), ``w2`` (24, 8192, 2048).
-   Codes and scales must be bit-equal, params within 1e-6 relative (both
-   round every operation alike). Then time kernel and plain version at each
-   shape with CUDA events (median), and sum the four leaves of one step;
+   The stats pass's per-dim stats, the update pass's codes and scales must
+   be bit-equal, params within 1e-6 relative (both round every operation
+   alike). Then time, with CUDA events (median) and the SM clock printed
+   beside them, the stats pass and the torch prepass it replaces, the
+   update pass (RTN and SR) and its plain version at each shape, each
+   against its bound, and sum the four leaves of one step;
 3. hold the block-wise 4-bit quantize (B2) and dequantize (B3) kernels
    against their plain versions at every q4 leaf shape of internlm2-1.8b,
    full size: B2's codes and scales bit-equal from fp32 and from bf16 input,
@@ -34,8 +39,10 @@ Phases, each failing the run on error:
 6. drive the training path: ``repro_torch.launch.train`` trains
    internlm2-1.8b at full width and depth, production4bit with SR, 5 steps
    of batch 8 x seq 128, with every kernel launch count set to 0 just before
-   and read just after; check state bytes (4,590,578,552), 4 B1 launches per
-   step and none of B2/B3, finite losses and a last loss below the first;
+   and read just after; check state bytes (4,590,578,552), 4 launches of
+   each B1 pass per step and none of B2/B3, the losses against the earlier
+   runs' (to four decimals: codes and scales are bit-equal) and a last loss
+   below the first, and report peak memory;
 7. split one more full-size step into model and optimizer time (CUDA
    events) and list its top device kernels (``torch.profiler``);
 8. drive the serving path: ``repro_torch.launch.serve`` serves
@@ -58,6 +65,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +75,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+INT_ALU_LANES_PER_SM = 64      # Hopper SM: 32-bit shift, funnel shift and logic ops per clock
+# Stochastic rounding draws word 0 of two Threefry-2x32-20 blocks per element
+# (m on stream 0, v on stream 1): 20 rounds of add, rotate, xor, of which the
+# last rotate and xor are dead, and stream 0's first rotate (of key word 1)
+# is the same for a whole slice. That leaves 75 rotates and xors on the
+# integer ALU pipe per element (the adds may go to the IMAD pipe); phase 1
+# checks the count against the SASS.
+SR_ALU_OPS_PER_ELEMENT = 2 * (19 + 19) - 1
+STATS_BYTES_PER_ELEMENT = 4 + 0.5  # fp32 grad + v codes, read once
+# The 5-step losses of the full-size run (chip runs of the two earlier
+# versions of B1, which gave the same codes and scales).
+EXPECTED_LOSSES = (11.8285, 11.6147, 11.5683, 11.3304, 11.3129)
 STATE_BYTES_INTERNLM2 = 4_590_578_552
 STEPS = 5
 # the fused leaves of internlm2-1.8b: (names, shape, leaves of that shape)
@@ -92,6 +113,55 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def _kernel_label(mangled):
+    """fused_adamw4_kernel<fp32,SR> and the like from a mangled name."""
+    m = re.search(r"(fused_adamw4_kernel|rank1_stats_kernel|dequantize_kernel|quantize_kernel)"
+                  r"(I.*?E)?E", mangled)
+    if not m:
+        return mangled
+    args = m.group(2) or ""
+    dtype = "bf16" if "bfloat16" in args else "fp32" if args.startswith("If") else ""
+    mode = "SR" if "Lb1" in args else "RTN" if "Lb0" in args else ""
+    args = ",".join(a for a in (dtype, mode) if a)
+    return m.group(1) + (f"<{args}>" if args else "")
+
+
+def _ptxas_report(log):
+    """Per kernel: registers, and spill stores/loads, from nvcc's -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _kernel_label(m.group(1))
+            out[name] = {}
+        elif name and "spill" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def _sass_sr_alu_per_element(lib):
+    """Rotates (funnel shifts) and xors per element in the SR update
+    kernel's SASS: both over the Threefry words drawn, counted by their
+    rotates by 24 (two in every word, never hoisted or dead). The SASS goes
+    to chiprun_out. None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"sass_{lib.stem}.txt").write_text(sass)
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        if _kernel_label(body.split("\n", 1)[0]) == "fused_adamw4_kernel<fp32,SR>":
+            rot = re.findall(r"SHF\.L\.W\.U32(?:\.HI)? R\d+, R\d+, 0x([0-9a-f]+), R\d+", body)
+            xor = re.findall(r"LOP3\.LUT R\d+, R\d+, R\d+, RZ, 0x3c, !PT", body)
+            words = rot.count("18") / 2
+            return 2 * (len(rot) + len(xor)) / words if words else None
+    return None
+
+
 def phase_build():
     from repro_torch.kernels import adamw4bit, build, quant4
 
@@ -99,6 +169,17 @@ def phase_build():
     libs = build.build_libraries(adamw4bit.SOURCE, quant4.SOURCE)
     print(f"built {', '.join(str(p.relative_to(ROOT)) for p in libs)} "
           f"in {time.perf_counter() - t0:.1f} s")
+    report = {}
+    for lib in libs:
+        report.update(_ptxas_report(lib.with_suffix(".log").read_text()))
+    for name, r in report.items():
+        print(f"ptxas {name}: {r.get('registers')} registers, spill stores "
+              f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B")
+    alu = _sass_sr_alu_per_element(libs[0])
+    print("SASS: the SR update kernel runs " + ("(cuobjdump not found)" if alu is None
+                                                else f"{alu:.1f}")
+          + f" Threefry rotates and xors per element ({SR_ALU_OPS_PER_ELEMENT} needed)")
+    return dict(ptxas=report, sass_sr_alu_per_element=alu)
 
 
 def _states(shape, sr_on, seed, dev):
@@ -154,13 +235,17 @@ def _median_ms(fn, reps):
     return times[len(times) // 2]
 
 
-def _bound(shape):
-    """Least time for one launch on a leaf of ``shape`` (the kernel sees
-    (L, R, C), leading dims folded into L): each input read once, each
-    output written once, against fp32 operations."""
+def _leaf_dims(shape):
     R, C = shape[-2], shape[-1]
     n = math.prod(shape)
-    L = n // (R * C)
+    return n, n // (R * C), R, C
+
+
+def _bound(shape):
+    """Least time for one update-pass launch on a leaf of ``shape`` (the
+    kernel sees (L, R, C), leading dims folded into L): each input read
+    once, each output written once, against fp32 operations."""
+    n, L, R, C = _leaf_dims(shape)
     read = n * (4 + 4 + 0.5 + 0.5) + n / 128 * 4 + (2 * L * R + 2 * C) * 4 + L * 2 * 4
     write = n * (4 + 0.5 + 0.5) + n / 128 * 4
     nbytes = read + write
@@ -169,29 +254,60 @@ def _bound(shape):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def phase_leaves(dev):
-    """Kernel against plain version at every fused leaf shape of the main
-    path, RTN and SR, on identical operands; then both timed (SR, the main
-    path's mode: kernel median of 21, plain median of 3; RTN kernel too)."""
+def _sr_int_ms(shape, card):
+    """Least time of SR's Threefry work on the integer ALU pipe."""
+    n = math.prod(shape)
+    rate = INT_ALU_LANES_PER_SM * card["sms"] * card["max_sm_mhz"] * 1e6
+    return SR_ALU_OPS_PER_ELEMENT * n / rate * 1e3
+
+
+def _stats_bound(shape):
+    """Least time for one stats-pass launch: g and the v codes read once,
+    the old stats read and the new ones written once; 10 fp32 operations
+    per element (dequant, guard, b2*v + (omb2*g)*g, two maxima)."""
+    n, L, R, C = _leaf_dims(shape)
+    nbytes = n * STATS_BYTES_PER_ELEMENT + 2 * (L * R + C) * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10.0 * n / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def _sm_clock():
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def phase_leaves(dev, card):
+    """Both passes against their plain versions at every fused leaf shape of
+    the main path, RTN and SR, on identical operands; then all timed (the
+    update pass: kernel median of 21, plain median of 3, SR; the stats pass
+    and the torch prepass: median of 21)."""
     import torch
 
     from repro_torch.kernels import adamw4bit, ops, sr
 
-    rows, max_err = [], 0.0
+    rows, max_err, stats_err = [], 0.0, 0.0
     for names, shape, count in LEAF_SHAPES:
         row = dict(leaves=names, shape=list(shape), count=count)
         for sr_on in (False, True):
             w, grad, m_q, v_q = _states(shape, sr_on, 1, dev)
             key = sr.PRNGKey(0) if sr_on else None
-            operands, _ = ops.leaf_operands(w, grad, m_q, v_q, HP["b2"], key)
+            operands, stats = ops.leaf_operands(w, grad, m_q, v_q, HP["b2"], key)
+            stats_args = (operands["v_packed"], operands["v_r"], operands["v_c"],
+                          operands["g"], operands["v_table"], HP["b2"], shape)
+            plain_stats = adamw4bit.rank1_new_stats_plain(*stats_args)
             k_out = adamw4bit.fused_adamw4(**operands, **SCAL, **HP)
             p_out = adamw4bit.fused_adamw4_plain(**operands, **SCAL, **HP)
             torch.cuda.synchronize()
+            for d, (a, b) in enumerate(zip(stats, plain_stats)):
+                if not torch.equal(a, b):
+                    fail(f"{shape} sr={sr_on}: stats pass, dim {d} differs from the torch "
+                         f"prepass (max {float((a - b).abs().max())})")
+                stats_err = max(stats_err, float((a - b).abs().max()))
             err = _compare(shape, k_out, p_out, sr_on)
             max_err = max(max_err, err)
-            print(f"fused_adamw4 {names} {shape} sr={sr_on}: codes and scales bit-equal, "
-                  f"max |dw| = {err:.3g}")
-            del k_out, p_out
+            print(f"fused_adamw4 {names} {shape} sr={sr_on}: stats bit-equal to the torch "
+                  f"prepass; codes and scales bit-equal, max |dw| = {err:.3g}")
+            del k_out, p_out, plain_stats
             kernel = lambda: adamw4bit.fused_adamw4(**operands, **SCAL, **HP, out=operands["w"])
             for _ in range(3):
                 kernel()
@@ -199,21 +315,44 @@ def phase_leaves(dev):
             if sr_on:
                 row["plain_ms"] = _median_ms(
                     lambda: adamw4bit.fused_adamw4_plain(**operands, **SCAL, **HP), 3)
-            del w, grad, m_q, v_q, operands
+            else:
+                row["stats_ms"] = _median_ms(lambda: adamw4bit.rank1_new_stats(*stats_args), 21)
+                row["prepass_ms"] = _median_ms(
+                    lambda: adamw4bit.rank1_new_stats_plain(*stats_args), 21)
+            del w, grad, m_q, v_q, operands, stats, stats_args
             torch.cuda.empty_cache()
         row["bound_ms"], row["bound_by"], row["bytes"] = _bound(shape)
-        gbs = row["bytes"] / (row["sr_ms"] * 1e-3) / 1e9
-        print(f"fused_adamw4 {names} {shape} x{count}: SR kernel {row['sr_ms']:.4f} ms "
-              f"({gbs:.0f} GB/s, {gbs * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), "
-              f"RTN kernel {row['rtn_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        row["sr_int_ms"] = _sr_int_ms(shape, card)
+        row["sr_bound_ms"] = max(row["bound_ms"], row["sr_int_ms"])
+        row["sr_bound_by"] = "bytes" if row["bound_ms"] >= row["sr_int_ms"] else "operations"
+        row["stats_bound_ms"], row["stats_bound_by"], row["stats_bytes"] = _stats_bound(shape)
+        row["sm_clock"] = _sm_clock()
+        print(f"fused_adamw4 {names} {shape} x{count} (SM clock {row['sm_clock']}): "
+              f"RTN {row['rtn_ms']:.4f} ms against {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{row['bound_ms'] / row['rtn_ms']:.1%}); SR {row['sr_ms']:.4f} ms against "
+              f"{row['sr_bound_ms']:.4f} ms ({row['sr_bound_by']}: bytes {row['bound_ms']:.4f}, "
+              f"integer ALU {row['sr_int_ms']:.4f}; {row['sr_bound_ms'] / row['sr_ms']:.1%}); "
+              f"plain {row['plain_ms']:.1f} ms")
+        print(f"rank1_new_stats {names} {shape} x{count}: kernel {row['stats_ms']:.4f} ms against "
+              f"{row['stats_bound_ms']:.4f} ms ({row['stats_bound_by']}, "
+              f"{row['stats_bound_ms'] / row['stats_ms']:.1%}); torch prepass "
+              f"{row['prepass_ms']:.4f} ms")
         rows.append(row)
-    step = {k: sum(r[k] * r["count"] for r in rows)
-            for k in ("sr_ms", "rtn_ms", "plain_ms", "bound_ms", "bytes")}
+    keys = ("sr_ms", "rtn_ms", "plain_ms", "bound_ms", "bytes", "sr_int_ms", "sr_bound_ms",
+            "stats_ms", "prepass_ms", "stats_bound_ms", "stats_bytes")
+    step = {k: sum(r[k] * r["count"] for r in rows) for k in keys}
     step["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
-    print(f"fused_adamw4 per step (4 leaves, SR): kernel {step['sr_ms']:.4f} ms, "
-          f"RTN kernel {step['rtn_ms']:.4f} ms, plain {step['plain_ms']:.1f} ms, "
-          f"bound {step['bound_ms']:.4f} ms ({step['bytes'] / 1e9:.2f} GB)")
+    step["sr_bound_by"] = "bytes" if step["bound_ms"] >= step["sr_int_ms"] else "operations"
+    step["stats_bound_by"] = ("bytes" if all(r["stats_bound_by"] == "bytes" for r in rows)
+                              else "operations")
+    step["stats_max_abs_err"] = stats_err
+    print(f"fused_adamw4 per step (4 leaves): SR {step['sr_ms']:.4f} ms against "
+          f"{step['sr_bound_ms']:.4f} ms ({step['sr_bound_by']}; bytes {step['bound_ms']:.4f} ms, "
+          f"{step['bytes'] / 1e9:.2f} GB; integer ALU {step['sr_int_ms']:.4f} ms), "
+          f"RTN {step['rtn_ms']:.4f} ms, plain {step['plain_ms']:.1f} ms")
+    print(f"rank1_new_stats per step (4 leaves): kernel {step['stats_ms']:.4f} ms against "
+          f"{step['stats_bound_ms']:.4f} ms ({step['stats_bytes'] / 1e9:.2f} GB), torch prepass "
+          f"{step['prepass_ms']:.4f} ms")
     return max_err, rows, step
 
 
@@ -289,20 +428,25 @@ def phase_main_path(counters):
         print(f"main path step {r['step']}: loss {r['loss']:.4f}  {r['ms']:.1f} ms  "
               f"grad_norm {r['grad_norm']:.3f}")
     print(f"main path: params {out['n_params']:,}  state_bytes {out['state_bytes']:,}  "
-          f"peak device memory {out['peak_bytes'] / 1e9:.2f} GB  launches {counts}")
+          f"peak device memory {out['peak_bytes'] / 1e9:.2f} GB (36.34 GB with the torch "
+          f"prepass)  launches {counts}")
     if out["state_bytes"] != STATE_BYTES_INTERNLM2:
         fail(f"state_bytes {out['state_bytes']} != {STATE_BYTES_INTERNLM2}")
-    if counts["fused_adamw4"] != 4 * STEPS:
-        fail(f"fused_adamw4 launched {counts['fused_adamw4']} times, expected {4 * STEPS}")
+    for name in ("fused_adamw4", "rank1_new_stats"):
+        if counts[name] != 4 * STEPS:
+            fail(f"{name} launched {counts[name]} times, expected {4 * STEPS}")
+    if any(abs(a - b) > 1e-4 for a, b in zip(losses, EXPECTED_LOSSES)):
+        fail(f"losses {losses} differ from {EXPECTED_LOSSES} beyond four decimals")
     if counts["quantize_blockwise_4bit"] or counts["dequantize_blockwise_4bit"]:
         fail(f"the training path launched the q4 kernels: {counts}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"loss did not fall: {losses}")
+    peak = out["peak_bytes"]
     del out
     torch.cuda.empty_cache()
-    return counts, losses
+    return counts, losses, peak
 
 
 def _top_kernels(prof, path, n=8):
@@ -568,8 +712,8 @@ def phase_serve(counters):
     if counts["dequantize_blockwise_4bit"] != expected:
         fail(f"B3 launched {counts['dequantize_blockwise_4bit']} times, expected {expected} "
              f"({Q4_LEAF_COUNT} per materialize, {calls})")
-    if counts["fused_adamw4"]:
-        fail(f"the serving path launched the optimizer kernel: {counts}")
+    if counts["fused_adamw4"] or counts["rank1_new_stats"]:
+        fail(f"the serving path launched the optimizer kernels: {counts}")
     if calls["prefill"] < 2 or len(prefill_ms) != calls["prefill"] or len(decode_ms) != n_chunks:
         fail(f"expected a backfill (two prefills or more) and timed phases: {calls}")
     for r in reqs:
@@ -622,12 +766,18 @@ def main():
     t_start = time.perf_counter()
 
     counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
-    phase_build()
-    max_err, leaves, per_step = phase_leaves(dev)
+    build_report = phase_build()
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.split()
+    card_info = dict(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                     max_sm_mhz=float(mhz[0]) if mhz else 1980.0)
+    print(f"card: {card_info['sms']} SMs, SM clock up to {card_info['max_sm_mhz']:g} MHz, "
+          f"now {_sm_clock()}")
+    max_err, leaves, per_step = phase_leaves(dev, card_info)
     q4_err, q4_leaves, q4_tree = phase_quant_leaves(dev)
     small = phase_small_reference(dev)
     small_serving = phase_small_serving(dev)
-    counts, losses = phase_main_path(counters)
+    counts, losses, train_peak = phase_main_path(counters)
     model_ms, opt_ms = phase_profile(dev)
     serving, eng = phase_serve(counters)
     decode_top = phase_serve_profile(eng)
@@ -641,11 +791,25 @@ def main():
         "replaces": "src/repro/kernels/adamw4bit.py:233",
         "launches": counts["fused_adamw4"],
         "max_abs_err": max_err,
-        # one training step's four launches (wo, w1, w2, w3), SR
+        # one training step's four launches (wo, w1, w2, w3), SR: the larger
+        # of the byte bound and the Threefry integer-ALU bound
         "ms": per_step["sr_ms"],
         "plain_ms": per_step["plain_ms"],
-        "bound_ms": per_step["bound_ms"],
-        "bound_by": per_step["bound_by"],
+        "bound_ms": per_step["sr_bound_ms"],
+        "bound_by": per_step["sr_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "rank1_new_stats",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_adamw4.cu",
+        "replaces": "src/repro/kernels/ops.py:181",  # the XLA-fused prepass
+        "launches": counts["rank1_new_stats"],
+        "max_abs_err": per_step["stats_max_abs_err"],
+        # one training step's four launches; plain = the torch prepass
+        "ms": per_step["stats_ms"],
+        "plain_ms": per_step["prepass_ms"],
+        "bound_ms": per_step["stats_bound_ms"],
+        "bound_by": per_step["stats_bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     }, {
         "name": "quantize_blockwise_4bit",
@@ -676,7 +840,8 @@ def main():
     }]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "leaves": leaves, "per_step": per_step,
+        {"card": card, "card_info": card_info, "build": build_report, "kernels": kernels,
+         "leaves": leaves, "per_step": per_step, "train_peak_bytes": train_peak,
          "q4_leaves": q4_leaves, "q4_tree": q4_tree, "small_reference": small,
          "small_serving": small_serving, "losses": losses,
          "step_split_ms": {"model": model_ms, "optimizer": opt_ms}, "serving": serving,

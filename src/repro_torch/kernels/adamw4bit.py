@@ -1,16 +1,21 @@
-"""Fused 4-bit AdamW update: the CUDA kernel's wrapper and its plain version.
+"""Fused 4-bit AdamW update in two passes: the CUDA kernels' wrappers and
+their plain versions.
 
-Port of ``repro/kernels/adamw4bit.py::fused_adamw4``. The kernel
-(``repro_torch/csrc/fused_adamw4.cu``) is built with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface on first use and
-loaded with ``ctypes`` (``kernels.build``); its source says what bounds it
-(device-memory bytes) and how it is laid out.
+Port of ``repro/kernels/adamw4bit.py::fused_adamw4`` and of the rank-1
+stats prepass before it in ``repro/kernels/ops.py::fused_adamw4_leaf``. Both
+kernels live in ``repro_torch/csrc/fused_adamw4.cu``, built with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface on first
+use and loaded with ``ctypes`` (``kernels.build``); the source says what
+bounds each pass and how it is laid out.
 
-``fused_adamw4`` takes a stacked ``(L, R, C)`` leaf (or ``(R, C)``, L == 1)
-and runs ONE launch over every slice. A CUDA tensor launches the kernel and
-adds one to ``LAUNCHES["fused_adamw4"]``; a CPU tensor takes the plain
-version (``fused_adamw4_plain``, the oracles of ``ref.py``); anything else
-raises. There is no fallback from the kernel.
+``rank1_new_stats`` (pass 1) computes the per-dim maxima of the updated
+second moment ``b2 * v + (1 - b2) * g * g`` of a leaf without writing that
+fp32 tensor anywhere; ``fused_adamw4`` (pass 2) takes a stacked ``(L, R,
+C)`` leaf (or ``(R, C)``, L == 1) and runs ONE launch over every slice. A
+CUDA tensor launches the kernel and adds one to ``LAUNCHES[<name>]``; a CPU
+tensor takes the plain version (``rank1_new_stats_plain``, the reference's
+prepass in torch ops; ``fused_adamw4_plain``, the oracles of ``ref.py``);
+anything else raises. There is no fallback from a kernel.
 
 Unlike the functional reference, the param is updated in place when
 ``out`` is the param itself (the optimizer does this to save a copy of
@@ -20,6 +25,7 @@ every fused leaf); codes and scales are fresh tensors.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -30,6 +36,8 @@ from repro_torch.kernels import build, ref
 __all__ = [
     "fused_adamw4",
     "fused_adamw4_plain",
+    "rank1_new_stats",
+    "rank1_new_stats_plain",
     "hyper_scalars",
     "LAUNCHES",
     "SOURCE",
@@ -39,7 +47,7 @@ _BLOCK = 128
 SOURCE = build.CSRC / "fused_adamw4.cu"
 
 # Kernel launches by wrapper name; only a real CUDA launch counts.
-LAUNCHES: Dict[str, int] = {"fused_adamw4": 0}
+LAUNCHES: Dict[str, int] = {"fused_adamw4": 0, "rank1_new_stats": 0}
 
 _lib = None
 
@@ -63,6 +71,15 @@ def _library():
             p,                      # stream
         ]
         fn.restype = ctypes.c_int
+        fn = lib.rank1_stats_launch
+        fn.argtypes = [
+            p, p, p, p,             # v_codes, vr, vc, g
+            p, p,                   # row_max, col_max
+            ll, ll, ll,             # L, R, C
+            p, i, f, f,             # v_table (host), v_points, b2, omb2
+            p,                      # stream
+        ]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -78,6 +95,83 @@ def hyper_scalars(b1: float, b2: float, eps: float, weight_decay: float) -> Dict
 
 def _as3(x: torch.Tensor, L: int, last: int) -> torch.Tensor:
     return x.reshape(L, -1, last)
+
+
+def _leaf_dims(shape: Tuple[int, ...]) -> Tuple[int, int, int]:
+    R, C = shape[-2], shape[-1]
+    return math.prod(shape) // (R * C), R, C
+
+
+def rank1_new_stats_plain(v_packed, v_r, v_c, g, v_table, b2: float, shape):
+    """The plain version of the stats pass: the per-dim maxima of
+    ``b2 * v + ((1 - b2) * g) * g`` (every op rounded in fp32, as the kernel
+    rounds it) over a leaf of ``shape``, ``rank1_normalize``'s layout. It
+    writes the fp32 v_new of the whole leaf: the reference's eager form,
+    kept as the oracle and for the CPU, where memory is not the limit."""
+    v_new = ref.dequant_rank1(v_packed, v_r, v_c, v_table.to(g.device))
+    t = g * (1.0 - b2)
+    t.mul_(g)
+    v_new.mul_(b2).add_(t)
+    del t
+    v_new = v_new.reshape(shape)
+    nd = len(shape)
+    return tuple(
+        torch.amax(v_new, dim=tuple(i for i in range(nd) if i != r)) for r in range(nd)
+    )
+
+
+def _dim_stats(row_max: torch.Tensor, col_max: torch.Tensor, shape) -> Tuple[torch.Tensor, ...]:
+    """Per-dim maxima of a leaf from its (L, R) row and (C,) column maxima:
+    every dim but the last is a max over the rows."""
+    rows = row_max.reshape(*shape[:-1])
+    nd = rows.ndim
+    stats = []
+    for r in range(nd):
+        dims = tuple(i for i in range(nd) if i != r)
+        stats.append(torch.amax(rows, dim=dims) if dims else rows)
+    return tuple(stats) + (col_max,)
+
+
+def rank1_new_stats(
+    v_packed: torch.Tensor,   # (L, R, C/2) uint8
+    v_r: torch.Tensor,        # (L, R) old per-slice row stats
+    v_c: torch.Tensor,        # (C,) old col stats (shared)
+    g: torch.Tensor,          # (L, R, C) fp32
+    v_table: torch.Tensor,    # (<=16,) unsigned linear table (any device; CPU is free)
+    b2: float,
+    shape: Tuple[int, ...],   # the leaf's own shape, L*R*C elements
+) -> Tuple[torch.Tensor, ...]:
+    """Pass 1: the rank-1 stats of the updated v, one array per dim of
+    ``shape``. On the card the kernel reduces to (L, R) row and (C,) column
+    maxima in one launch; no fp32 tensor of the leaf's size is written."""
+    L, R, C = _leaf_dims(tuple(shape))
+    dev = g.device
+    if dev.type == "cpu":
+        return rank1_new_stats_plain(v_packed, v_r, v_c, g, v_table, b2, shape)
+    if dev.type != "cuda":
+        raise ValueError(f"rank1_new_stats: unsupported device {dev}")
+    if C % 256:
+        raise ValueError(f"rank1_new_stats: C={C} must be a multiple of 256")
+    check = lambda what, x, dtype, shp: build.check_operand("rank1_new_stats", what, x, dtype,
+                                                            shp, dev)
+    check("v_packed", v_packed, torch.uint8, (L, R, C // 2))
+    check("v_r", v_r, torch.float32, (L, R))
+    check("v_c", v_c, torch.float32, (C,))
+    check("g", g, torch.float32, (L, R, C))
+    row = torch.empty((L, R), dtype=torch.float32, device=dev)
+    col = torch.zeros((C,), dtype=torch.int32, device=dev)  # float bits, merged by atomicMax
+    vt, _, vp = build.host_table(v_table)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = _library().rank1_stats_launch(
+        ptr(v_packed), ptr(v_r), ptr(v_c), ptr(g), ptr(row), ptr(col), L, R, C,
+        vt.ctypes.data_as(ctypes.c_void_p), vp,
+        float(np.float32(b2)), float(np.float32(1.0 - b2)),  # as the plain version rounds them
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"rank1_new_stats: kernel launch failed (cudaError {err})")
+    LAUNCHES["rank1_new_stats"] += 1
+    return _dim_stats(row, col.view(torch.float32), tuple(shape))
 
 
 def fused_adamw4_plain(w, g, m_packed, m_scale, v_packed, v_r, v_c, v_r_new, v_c_new,

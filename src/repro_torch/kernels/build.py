@@ -106,11 +106,14 @@ def check_operand(kernel: str, what: str, x: torch.Tensor, dtype, shape, dev) ->
 
 
 def host_table(t: torch.Tensor):
-    """A 2..16-point table as host fp32 arrays (table, midpoints, points) for
-    a kernel's parameters; the midpoints round as ``mappings.encode``'s.
-    A CPU table costs nothing; a CUDA one is copied down (a sync)."""
+    """A sorted 2..16-point table as host fp32 arrays (table, midpoints,
+    points) for a kernel's parameters; the midpoints round as
+    ``mappings.encode``'s. A CPU table costs nothing; a CUDA one is copied
+    down (a sync)."""
     a = t.detach().to("cpu", torch.float32).numpy().astype(np.float32)
     if not 2 <= a.size <= 16:
         raise ValueError(f"table of {a.size} points (the kernels take 2..16)")
+    if np.any(a[1:] < a[:-1]):
+        raise ValueError("table is not sorted (the kernels' encodes search it)")
     mid = ((a[1:] + a[:-1]) / np.float32(2.0)).astype(np.float32)
     return np.ascontiguousarray(a), np.ascontiguousarray(mid), int(a.size)

@@ -1,11 +1,12 @@
-"""Leaf-level entry of the fused 4-bit AdamW step, with its torch prepass.
+"""Leaf-level entry of the fused 4-bit AdamW step.
 
 Port of ``repro/kernels/ops.py::fused_adamw4_leaf``, the integration point of
 ``FusedAdamWRoute``: it takes a (param, grad, QuantizedTensor m,
-QuantizedTensor v) leaf, computes the new rank-1 stats of v in a prepass
-(torch ops; it materialises an fp32 ``v_new`` of the leaf, a later fusion
-target), and runs dequant -> AdamW -> requant in ONE kernel launch over all
-stacked slices ``(L, R, C)``.
+QuantizedTensor v) leaf and runs the step as two kernel launches over all
+stacked slices ``(L, R, C)``: pass 1 (``adamw4bit.rank1_new_stats``)
+reduces the updated v to its new rank-1 stats without writing it, as the
+reference's XLA fusion does, and pass 2 (``adamw4bit.fused_adamw4``) runs
+dequant -> AdamW -> requant.
 
 Leading-dim rank-1 stats fold into the row stat (``min`` is associative),
 so every slice sees the kernel's ``min(row, col)`` contract with per-slice
@@ -13,9 +14,9 @@ row stats ``(L, R)`` and shared column stats ``(C,)``. Stochastic rounding:
 slice ``l`` is keyed by ``fold_in(leaf_key, l)``; the seed rows are derived
 on the host (no device work, no synchronisation).
 
-Dispatch follows the tensors: a CUDA leaf launches the CUDA kernel
-(``adamw4bit.LAUNCHES`` counts launches, in place of the reference's
-``count_pallas_calls``), a CPU leaf takes the plain version.
+Dispatch follows the tensors: a CUDA leaf launches the CUDA kernels
+(``adamw4bit.LAUNCHES`` counts launches of both passes, in place of the
+reference's ``count_pallas_calls``), a CPU leaf takes the plain versions.
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.quantizer import QuantizedTensor
-from repro_torch.kernels import ref
-from repro_torch.kernels.adamw4bit import LAUNCHES, fused_adamw4
+from repro_torch.kernels.adamw4bit import LAUNCHES, fused_adamw4, rank1_new_stats
 from repro_torch.kernels.sr import threefry2x32
 
 __all__ = ["fused_adamw4_leaf", "leaf_operands", "seed_rows", "LAUNCHES"]
@@ -51,14 +51,6 @@ def _rank1_slice_stats(stats: Tuple[torch.Tensor, ...], shape: Tuple[int, ...]
     return torch.minimum(lead[:, None], row[None, :]), col
 
 
-def _rank1_new_stats(v_new: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Per-dim maxes of the updated (nonnegative) v, rank1_normalize's layout."""
-    nd = v_new.ndim
-    return tuple(
-        torch.amax(v_new, dim=tuple(i for i in range(nd) if i != r)) for r in range(nd)
-    )
-
-
 def seed_rows(key: Tuple[int, int], L: int) -> torch.Tensor:
     """(L, 2) int64 key words on the host: row ``l`` = ``fold_in(key, l)``."""
     w0, w1 = threefry2x32(key[0], key[1], 0, torch.arange(L, dtype=torch.int64))
@@ -67,8 +59,8 @@ def seed_rows(key: Tuple[int, int], L: int) -> torch.Tensor:
 
 def leaf_operands(p, g, m_s: QuantizedTensor, v_s: QuantizedTensor, b2: float,
                   key: Optional[Tuple[int, int]] = None):
-    """The prepass: a leaf's operands for ``adamw4bit.fused_adamw4`` as a
-    dict of keyword arguments, plus the new rank-1 stats of v (per dim)."""
+    """A leaf's operands for ``adamw4bit.fused_adamw4`` as a dict of keyword
+    arguments, plus the new rank-1 stats of v (per dim) from pass 1."""
     shape = tuple(p.shape)
     R, C = shape[-2], shape[-1]
     L = p.numel() // (R * C)
@@ -78,23 +70,15 @@ def leaf_operands(p, g, m_s: QuantizedTensor, v_s: QuantizedTensor, b2: float,
     v_table = v_s.config.table("cpu")
     g3 = g.to(torch.float32).reshape(L, R, C)
     v_packed = v_s.codes.reshape(L, R, C // 2)
-    v_r, v_c = _rank1_slice_stats(v_s.scales, shape)
-
-    # rank-1 stats of the UPDATED v, with the kernel's rounding:
-    # b2 * v + ((1 - b2) * g) * g
-    v_new = ref.dequant_rank1(v_packed, v_r, v_c, v_table.to(p.device))
-    t = g3 * (1.0 - b2)
-    t.mul_(g3)
-    v_new.mul_(b2).add_(t)
-    del t
-    new_stats = _rank1_new_stats(v_new.reshape(shape))
-    del v_new
+    v_r, v_c = (x.contiguous() for x in _rank1_slice_stats(v_s.scales, shape))
+    # rank-1 stats of the UPDATED v: b2 * v + ((1 - b2) * g) * g
+    new_stats = rank1_new_stats(v_packed, v_r, v_c, g3, v_table, b2, shape)
     v_r_new, v_c_new = _rank1_slice_stats(new_stats, shape)
     operands = dict(
         w=p.reshape(L, R, C), g=g3,
         m_packed=m_s.codes.reshape(L, R, C // 2),
         m_scale=m_s.scales[0].reshape(L, R, C // _BLOCK),
-        v_packed=v_packed, v_r=v_r.contiguous(), v_c=v_c.contiguous(),
+        v_packed=v_packed, v_r=v_r, v_c=v_c,
         v_r_new=v_r_new.contiguous(), v_c_new=v_c_new.contiguous(),
         m_table=m_table, v_table=v_table,
         sr_seed=seed_rows(key, L) if use_sr else None, use_sr=use_sr,

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain torch versions: the fused
-4-bit AdamW kernel, the block-wise 4-bit quantize / dequantize kernels and a
-short q4 serving run.
+"""The port's CUDA kernels against their plain torch versions: both passes
+of the fused 4-bit AdamW step (the rank-1 stats pass and the update pass),
+the block-wise 4-bit quantize / dequantize kernels and a short q4 serving
+run.
 
 Needs an NVIDIA card (the kernel has no CPU mode), so every test here is
 marked ``cuda`` and skips without one. It imports torch and the port only,
@@ -8,9 +9,9 @@ so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Codes and scales must be bit-equal; params equal to 1e-6 relative (both
-sides round every operation alike, so they agree to the bit in practice);
-dequantized weights bit-equal.
+Codes, scales and rank-1 stats must be bit-equal; params equal to 1e-6
+relative (both sides round every operation alike, so they agree to the bit
+in practice); dequantized weights bit-equal.
 """
 
 import dataclasses
@@ -89,6 +90,88 @@ def test_wrapper_rejects_bad_operands(cuda):
             torch.ones(2, 64, device=cuda), torch.ones(256, device=cuda),
             M_4BIT.table("cpu"), V_4BIT.table("cpu"), LR, BC1, BC2, **HP,
         )
+
+
+def _stats_operands(shape, seed, dev):
+    _, grad, _, v_q = _leaf(shape, seed, False)
+    R, C = shape[-2], shape[-1]
+    L = grad.numel() // (R * C)
+    v_r, v_c = ops._rank1_slice_stats(v_q.scales, shape)
+    return (v_q.codes.reshape(L, R, C // 2).to(dev), v_r.contiguous().to(dev),
+            v_c.contiguous().to(dev), grad.reshape(L, R, C).to(dev), V_4BIT.table("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 256), (3, 128, 768), (2, 4, 64, 512), (5, 37, 2304)])
+def test_stats_kernel_matches_plain(cuda, shape):
+    args = _stats_operands(shape, 31, cuda)
+    before = adamw4bit.LAUNCHES["rank1_new_stats"]
+    got = adamw4bit.rank1_new_stats(*args, HP["b2"], shape)
+    assert adamw4bit.LAUNCHES["rank1_new_stats"] - before == 1
+    want = adamw4bit.rank1_new_stats_plain(*args, HP["b2"], shape)
+    cpu = adamw4bit.rank1_new_stats(*(a.cpu() for a in args), HP["b2"], shape)
+    torch.cuda.synchronize()
+    assert len(got) == len(shape)
+    for a, b, c in zip(got, want, cpu):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_sr", [False, True])
+@pytest.mark.parametrize("shape,w_dtype", [
+    ((64, 256), torch.float32),           # a 2-d leaf: L == 1
+    ((5, 37, 256), torch.bfloat16),       # C == 256, odd R: warps cross rows and slices
+    ((1, 8192, 2304), torch.float32),     # R*C > 2^24: the counter's high bits
+])
+def test_update_kernel_edges(cuda, shape, w_dtype, use_sr):
+    w, grad, m_q, v_q = _leaf(shape, 17, use_sr, w_dtype)
+    operands, _ = ops.leaf_operands(w.to(cuda), grad.to(cuda), _to(m_q, cuda), _to(v_q, cuda),
+                                    HP["b2"], sr.PRNGKey(3) if use_sr else None)
+    scal = dict(lr=LR, bc1=BC1, bc2=BC2, **HP)
+    k_out = adamw4bit.fused_adamw4(**operands, **scal)
+    p_out = adamw4bit.fused_adamw4_plain(**operands, **scal)
+    torch.cuda.synchronize()
+    for a, b in zip(k_out[1:], p_out[1:]):
+        assert torch.equal(a, b)
+    assert torch.equal(k_out[0].reshape(p_out[0].shape), p_out[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spike", [1e19, 0.0])
+def test_sr_update_kernel_exact_fallback(cuda, spike):
+    """SR blocks whose operands leave the branch-free arithmetic's range (a
+    huge gradient, or a zero one with a zero moment) are redone exactly:
+    still bit-equal to the plain version."""
+    shape = (3, 64, 512)
+    w, grad, m_q, v_q = _leaf(shape, 23, True)
+    grad[1, 5, :256] = spike
+    operands, _ = ops.leaf_operands(w.to(cuda), grad.to(cuda), _to(m_q, cuda), _to(v_q, cuda),
+                                    HP["b2"], sr.PRNGKey(4))
+    if spike == 0.0:
+        operands["m_packed"][1, 5, :128] = 0  # code 0 and a zero scale: m = 0
+        operands["m_scale"][1, 5, :2] = 0.0
+    scal = dict(lr=LR, bc1=BC1, bc2=BC2, **HP)
+    k_out = adamw4bit.fused_adamw4(**operands, **scal)
+    p_out = adamw4bit.fused_adamw4_plain(**operands, **scal)
+    torch.cuda.synchronize()
+    for a, b in zip(k_out[1:], p_out[1:]):
+        assert torch.equal(a, b)
+    assert torch.equal(k_out[0], p_out[0])
+
+
+@pytest.mark.cuda
+def test_stats_wrapper_rejects_bad_operands(cuda):
+    shape = (2, 64, 256)
+    v_packed, v_r, v_c, g, table = _stats_operands(shape, 3, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw4bit.rank1_new_stats(v_packed, v_r, v_c, g.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), table, HP["b2"], shape)
+    with pytest.raises(TypeError):
+        adamw4bit.rank1_new_stats(v_packed, v_r.double(), v_c, g, table, HP["b2"], shape)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        adamw4bit.rank1_new_stats(v_packed.reshape(2, 128, 64), v_r, v_c, g.reshape(2, 128, 128),
+                                  table, HP["b2"], (2, 128, 128))
 
 
 # ---------------------------------------------------------------------------
