@@ -8,7 +8,8 @@ Phases, each failing the run on error:
    from ``src/repro_torch/csrc`` into ``build/kernels``, one ``nvcc`` per
    source, all started together; print each kernel's registers and spills
    (``-Xptxas -v``) and, where ``cuobjdump`` is there, the integer-ALU
-   instructions that stochastic rounding adds to B1's SASS;
+   instructions that stochastic rounding adds to B1's SASS and the
+   instructions per element in the loop of B2's SASS;
 2. hold both passes of the fused 4-bit AdamW step (B1) against their plain
    torch versions on the card, round-to-nearest and stochastic rounding,
    at every shape the training path gives them: ``wo`` (24, 16, 128,
@@ -21,10 +22,17 @@ Phases, each failing the run on error:
    against its bound, and sum the four leaves of one step;
 3. hold the block-wise 4-bit quantize (B2) and dequantize (B3) kernels
    against their plain versions at every q4 leaf shape of internlm2-1.8b,
-   full size: B2's codes and scales bit-equal from fp32 and from bf16 input,
-   B3's output bit-equal. Time both (CUDA events, median of 21; plain median
-   of 3) and report GB/s, the share of 3.35 TB/s and the byte bound (4.53125
-   B per element), per leaf and summed over the tree's 11 leaves;
+   full size, each input holding a zero block, a NaN block and blocks out of
+   B2's fast division (a scale above 2^60, a subnormal element): B2's codes
+   and scales bit-equal from fp32 and from bf16 input, B3's output
+   bit-equal. Time both with CUDA events (``kernels/timing.py``): one
+   launch per event pair, median of 21, as phase 2 and earlier runs time
+   kernels (the host's time per wrapper call falls inside); beside it 20
+   back-to-back launches, median of 5, where that time hides; plain median
+   of 3. Report GB/s, the share of 3.35 TB/s and the byte bound (4.53125 B per
+   element), and B2's issue floor (its SASS instructions per element at 4
+   warp instructions per SM and clock), per leaf and summed over the tree's
+   11 leaves;
 4. check the card against the CPU on a small input: three reduced-config
    production4bit steps from the same weights. Losses must agree within
    3e-4 relative (measured gap 3.2e-5: bf16 products round differently),
@@ -100,7 +108,8 @@ Q4_LEAVES = (("wq", (24, 2048, 16, 128), 1), ("wk,wv", (24, 2048, 8, 128), 2),
              ("w2", (24, 8192, 2048), 1), ("norm1,norm2", (24, 2048), 2),
              ("embed", (92544, 2048), 1), ("head", (2048, 92544), 1))
 Q4_BYTES_PER_ELEMENT = 4 + 0.5 + 4 / 128  # fp32 one way, codes + scales the other
-Q4_OPS_PER_ELEMENT = 20.0  # quantize: abs, max, divide, 15 compares, pack
+WARP_ISSUE_PER_SM = 4  # Hopper SM: four sub-partitions, one warp instruction a clock each
+Q4_ELEMENTS_PER_STEP = 8  # B2: elements a lane quantizes between two warp votes
 Q4_LEAF_COUNT = sum(count for _, _, count in Q4_LEAVES)  # 11
 WEIGHT_BYTES_Q4 = 1_003_596_800
 VOCAB = 92544
@@ -128,13 +137,17 @@ def _kernel_label(mangled):
 
 def _ptxas_report(log):
     """Per kernel: registers, and spill stores/loads, from nvcc's -v output."""
-    out, name = {}, None
+    out, name, mangled, own = {}, None, None, False
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
+        props = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = _kernel_label(m.group(1))
+            mangled = m.group(1)
+            name = _kernel_label(mangled)
             out[name] = {}
-        elif name and "spill" in line:
+        elif props:
+            own = props.group(1) == mangled
+        elif name and own and "spill" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             out[name].update(spill_stores=int(st), spill_loads=int(ld))
         elif name and "Used" in line and "registers" in line:
@@ -142,24 +155,50 @@ def _ptxas_report(log):
     return out
 
 
-def _sass_sr_alu_per_element(lib):
-    """Rotates (funnel shifts) and xors per element in the SR update
-    kernel's SASS: both over the Threefry words drawn, counted by their
-    rotates by 24 (two in every word, never hoisted or dead). The SASS goes
-    to chiprun_out. None without cuobjdump."""
+def _sass_functions(lib):
+    """{kernel label: its SASS} of a library, the whole listing written to
+    chiprun_out; {} without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return None
+        return {}
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"sass_{lib.stem}.txt").write_text(sass)
-    for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        if _kernel_label(body.split("\n", 1)[0]) == "fused_adamw4_kernel<fp32,SR>":
-            rot = re.findall(r"SHF\.L\.W\.U32(?:\.HI)? R\d+, R\d+, 0x([0-9a-f]+), R\d+", body)
-            xor = re.findall(r"LOP3\.LUT R\d+, R\d+, R\d+, RZ, 0x3c, !PT", body)
-            words = rot.count("18") / 2
-            return 2 * (len(rot) + len(xor)) / words if words else None
-    return None
+    return {_kernel_label(body.split("\n", 1)[0]): body
+            for body in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def _sass_sr_alu_per_element(body):
+    """Rotates (funnel shifts) and xors per element in the SR update
+    kernel's SASS: both over the Threefry words drawn, counted by their
+    rotates by 24 (two in every word, never hoisted or dead)."""
+    rot = re.findall(r"SHF\.L\.W\.U32(?:\.HI)? R\d+, R\d+, 0x([0-9a-f]+), R\d+", body)
+    xor = re.findall(r"LOP3\.LUT R\d+, R\d+, R\d+, RZ, 0x3c, !PT", body)
+    words = rot.count("18") / 2
+    return 2 * (len(rot) + len(xor)) / words if words else None
+
+
+def _sass_loop_per_element(body, elements_per_vote):
+    """Instructions per element in the SASS of a kernel's main loop: the
+    conditional backward branch whose span holds the most warp votes (one
+    vote a step of ``elements_per_vote`` elements a lane; the unconditional
+    jumps back from the divergence handlers after the loop do not count),
+    every instruction from its target to it counted once, over the elements
+    those votes cover. A static count: it includes the few instructions that
+    call the out-of-line exact redo, which the fast path branches around.
+    None when no such loop is found."""
+    code = [(int(a, 16), ins.strip()) for a, ins in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    best = None
+    for addr, ins in code:
+        m = re.match(r"@!?U?P\d\s+BRA(?:\.\w+)*\s+(?:\S+,\s*)?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        span = [i for a, i in code if int(m.group(1), 16) <= a <= addr and not i.startswith("NOP")]
+        votes = sum(bool(re.search(r"\bVOTEU?\.ALL\b", i)) for i in span)
+        if votes and (best is None or (votes, len(span)) > best):
+            best = (votes, len(span))
+    return None if best is None else best[1] / (best[0] * elements_per_vote)
 
 
 def phase_build():
@@ -175,11 +214,20 @@ def phase_build():
     for name, r in report.items():
         print(f"ptxas {name}: {r.get('registers')} registers, spill stores "
               f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B")
-    alu = _sass_sr_alu_per_element(libs[0])
+    b1_sass, q4_sass = (_sass_functions(lib) for lib in libs)
+    sr_body = b1_sass.get("fused_adamw4_kernel<fp32,SR>")
+    alu = _sass_sr_alu_per_element(sr_body) if sr_body else None
     print("SASS: the SR update kernel runs " + ("(cuobjdump not found)" if alu is None
                                                 else f"{alu:.1f}")
           + f" Threefry rotates and xors per element ({SR_ALU_OPS_PER_ELEMENT} needed)")
-    return dict(ptxas=report, sass_sr_alu_per_element=alu)
+    q4_loop = {}
+    for dtype in ("fp32", "bf16"):
+        body = q4_sass.get(f"quantize_kernel<{dtype}>")
+        q4_loop[dtype] = _sass_loop_per_element(body, Q4_ELEMENTS_PER_STEP) if body else None
+        print(f"SASS: B2 quantize_kernel<{dtype}> issues "
+              + ("(not found)" if q4_loop[dtype] is None else f"{q4_loop[dtype]:.2f}")
+              + " instructions per element in its loop (per lane, fast path)")
+    return dict(ptxas=report, sass_sr_alu_per_element=alu, sass_q4_per_element=q4_loop)
 
 
 def _states(shape, sr_on, seed, dev):
@@ -217,22 +265,6 @@ def _compare(shape, k_out, p_out, sr_on):
     if not torch.allclose(k_out[0], p_out[0], rtol=1e-6, atol=0.0):
         fail(f"{shape} sr={sr_on}: params differ (max abs {err})")
     return err
-
-
-def _median_ms(fn, reps):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def _leaf_dims(shape):
@@ -284,6 +316,7 @@ def phase_leaves(dev, card):
     import torch
 
     from repro_torch.kernels import adamw4bit, ops, sr
+    from repro_torch.kernels.timing import event_ms
 
     rows, max_err, stats_err = [], 0.0, 0.0
     for names, shape, count in LEAF_SHAPES:
@@ -311,14 +344,14 @@ def phase_leaves(dev, card):
             kernel = lambda: adamw4bit.fused_adamw4(**operands, **SCAL, **HP, out=operands["w"])
             for _ in range(3):
                 kernel()
-            row["sr_ms" if sr_on else "rtn_ms"] = _median_ms(kernel, 21)
+            row["sr_ms" if sr_on else "rtn_ms"] = event_ms(kernel)
             if sr_on:
-                row["plain_ms"] = _median_ms(
+                row["plain_ms"] = event_ms(
                     lambda: adamw4bit.fused_adamw4_plain(**operands, **SCAL, **HP), 3)
             else:
-                row["stats_ms"] = _median_ms(lambda: adamw4bit.rank1_new_stats(*stats_args), 21)
-                row["prepass_ms"] = _median_ms(
-                    lambda: adamw4bit.rank1_new_stats_plain(*stats_args), 21)
+                row["stats_ms"] = event_ms(lambda: adamw4bit.rank1_new_stats(*stats_args))
+                row["prepass_ms"] = event_ms(
+                    lambda: adamw4bit.rank1_new_stats_plain(*stats_args))
             del w, grad, m_q, v_q, operands, stats, stats_args
             torch.cuda.empty_cache()
         row["bound_ms"], row["bound_by"], row["bytes"] = _bound(shape)
@@ -518,22 +551,37 @@ def phase_profile(dev):
     return model_ms, opt_ms
 
 
-def phase_quant_leaves(dev):
+def _special_blocks(x):
+    """Flat blocks 0-3 of x (R, C) become a zero block, a NaN block and two
+    blocks out of B2's fast division (a scale above 2^60, a subnormal
+    element), in place; returns x. (An inf block would give B3 a scale of
+    inf and NaN outputs; the card tests cover it.)"""
+    flat = x.view(-1, 128)
+    flat[0] = 0.0
+    flat[1, 5] = float("nan")
+    flat[2, 40] = -(2.0**70)
+    flat[3, 11] = 1e-40
+    return x
+
+
+def phase_quant_leaves(dev, card, build_report):
     """B2 and B3 against their plain versions at every q4 leaf shape of
     internlm2-1.8b (the (R, C) view ``prepare_params`` gives the kernel),
     then both timed; sums over the tree's 11 leaves."""
     import torch
 
     from repro_torch.kernels import quant4
+    from repro_torch.kernels.timing import event_ms, per_launch_ms
     from repro_torch.serve.weights import WEIGHT_Q4, kernel_view
 
     table = WEIGHT_Q4.table("cpu")
+    per_element = build_report["sass_q4_per_element"]["fp32"]
+    issue_rate = WARP_ISSUE_PER_SM * card["sms"] * card["max_sm_mhz"] * 1e6  # warp instr/s
     rows, err = [], {"q": 0.0, "dq": 0.0}
     for names, shape, count in Q4_LEAVES:
         R, C = kernel_view(shape)
         g = torch.Generator(device=dev).manual_seed(R + C)
-        x = torch.randn((R, C), generator=g, device=dev) * 0.02
-        x[0, :128] = 0.0  # one guarded all-zero block
+        x = _special_blocks(torch.randn((R, C), generator=g, device=dev) * 0.02)
         for dtype in (torch.float32, torch.bfloat16):
             xi = x.to(dtype)
             ck, sk = quant4.quantize_blockwise_4bit(xi, table)
@@ -559,16 +607,23 @@ def phase_quant_leaves(dev):
         for _ in range(3):
             quant4.quantize_blockwise_4bit(x, table)
             quant4.dequantize_blockwise_4bit(ck, sk, table)
-        row["q_ms"] = _median_ms(lambda: quant4.quantize_blockwise_4bit(x, table), 21)
-        row["dq_ms"] = _median_ms(lambda: quant4.dequantize_blockwise_4bit(ck, sk, table), 21)
-        row["q_plain_ms"] = _median_ms(lambda: quant4.quantize_blockwise_4bit_plain(x, table), 3)
-        row["dq_plain_ms"] = _median_ms(
+        quant = lambda: quant4.quantize_blockwise_4bit(x, table)
+        dequant = lambda: quant4.dequantize_blockwise_4bit(ck, sk, table)
+        row["q_ms"], row["dq_ms"] = event_ms(quant), event_ms(dequant)
+        row["q_b2b_ms"], row["dq_b2b_ms"] = per_launch_ms(quant), per_launch_ms(dequant)
+        row["q_plain_ms"] = event_ms(lambda: quant4.quantize_blockwise_4bit_plain(x, table), 3)
+        row["dq_plain_ms"] = event_ms(
             lambda: quant4.dequantize_blockwise_4bit_plain(ck, sk, table), 3)
         row["bytes"] = Q4_BYTES_PER_ELEMENT * n
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        row["q_bound_ms"] = max(t_bytes, Q4_OPS_PER_ELEMENT * n / FP32_FLOPS_PER_S * 1e3)
+        # B2 divides, compares and packs a handful of values per byte it
+        # moves: bytes bound it, and its own instruction issue is the floor
+        # beside that (from the SASS, at the top SM clock)
+        row["q_bound_ms"] = t_bytes
+        row["q_issue_ms"] = (None if per_element is None else
+                             per_element * n / 32 / issue_rate * 1e3)
         row["dq_bound_ms"] = max(t_bytes, 1.0 * n / FP32_FLOPS_PER_S * 1e3)
-        row["bound_by"] = "bytes" if t_bytes >= row["q_bound_ms"] else "operations"
+        row["bound_by"] = "bytes"
         for k in ("q", "dq"):
             gbs = row["bytes"] / (row[f"{k}_ms"] * 1e-3) / 1e9
             row[f"{k}_gbs"] = gbs
@@ -577,21 +632,33 @@ def phase_quant_leaves(dev):
               f"{row['q_gbs'] * 1e9 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), "
               f"B3 {row['dq_ms']:.4f} ms ({row['dq_gbs']:.0f} GB/s, "
               f"{row['dq_gbs'] * 1e9 / HBM_BYTES_PER_S:.1%}), bound {row['q_bound_ms']:.4f} ms "
-              f"({row['bound_by']}); plain B2 {row['q_plain_ms']:.2f} ms, "
+              f"({row['bound_by']}), B2 issue floor {_ms(row['q_issue_ms'])}; "
+              f"back to back B2 {row['q_b2b_ms']:.4f}, B3 "
+              f"{row['dq_b2b_ms']:.4f} ms a launch; plain B2 {row['q_plain_ms']:.2f} ms, "
               f"B3 {row['dq_plain_ms']:.2f} ms")
         rows.append(row)
         del x, ck, sk
         torch.cuda.empty_cache()
     tree = {k: sum(r[k] * r["count"] for r in rows)
-            for k in ("q_ms", "dq_ms", "q_plain_ms", "dq_plain_ms", "q_bound_ms", "dq_bound_ms",
-                      "bytes")}
-    tree["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+            for k in ("q_ms", "dq_ms", "q_b2b_ms", "dq_b2b_ms", "q_plain_ms", "dq_plain_ms",
+                      "q_bound_ms", "dq_bound_ms", "bytes")}
+    tree["q_issue_ms"] = (None if per_element is None
+                          else sum(r["q_issue_ms"] * r["count"] for r in rows))
+    tree["bound_by"] = "bytes"
     print(f"q4 whole tree ({Q4_LEAF_COUNT} leaves, {tree['bytes'] / 1e9:.3f} GB each way): "
-          f"B2 {tree['q_ms']:.4f} ms, B3 {tree['dq_ms']:.4f} ms, "
-          f"bound {tree['q_bound_ms']:.4f} ms; "
+          f"B2 {tree['q_ms']:.4f} ms ({tree['q_bound_ms'] / tree['q_ms']:.1%} of the bound), "
+          f"B3 {tree['dq_ms']:.4f} ms, bound {tree['q_bound_ms']:.4f} ms (bytes), B2 issue floor "
+          f"{_ms(tree['q_issue_ms'])}"
+          + ("" if per_element is None else f" ({per_element:.2f} SASS instructions per element)")
+          + f"; back to back B2 {tree['q_b2b_ms']:.4f} "
+          f"({tree['q_bound_ms'] / tree['q_b2b_ms']:.1%}), B3 {tree['dq_b2b_ms']:.4f} ms; "
           f"plain B2 {tree['q_plain_ms']:.1f} ms, B3 {tree['dq_plain_ms']:.1f} ms; "
           f"codes, scales and values bit-equal to the plain versions")
     return err, rows, tree
+
+
+def _ms(x):
+    return "not measured (no cuobjdump)" if x is None else f"{x:.4f} ms"
 
 
 def _stream_agreement(a, b):
@@ -774,7 +841,7 @@ def main():
     print(f"card: {card_info['sms']} SMs, SM clock up to {card_info['max_sm_mhz']:g} MHz, "
           f"now {_sm_clock()}")
     max_err, leaves, per_step = phase_leaves(dev, card_info)
-    q4_err, q4_leaves, q4_tree = phase_quant_leaves(dev)
+    q4_err, q4_leaves, q4_tree = phase_quant_leaves(dev, card_info, build_report)
     small = phase_small_reference(dev)
     small_serving = phase_small_serving(dev)
     counts, losses, train_peak = phase_main_path(counters)
@@ -818,7 +885,8 @@ def main():
         "replaces": "src/repro/kernels/quant4.py:47",
         "launches": serving["launches"]["quantize_blockwise_4bit"],
         "max_abs_err": q4_err["q"],  # scales; codes bit-equal
-        # the whole q4 tree of internlm2-1.8b (11 launches, one prepare_params)
+        # the whole q4 tree of internlm2-1.8b (11 launches, one prepare_params),
+        # one launch per event pair (back to back: chip_smoke.json)
         "ms": q4_tree["q_ms"],
         "plain_ms": q4_tree["q_plain_ms"],
         "bound_ms": q4_tree["q_bound_ms"],

@@ -3,7 +3,8 @@ and the checks and host tables their ``ctypes`` wrappers share.
 
 Each source under ``repro_torch/csrc`` compiles on its own into a shared
 library with a plain C interface, loaded with ``ctypes``. The library's name
-carries a hash of the source and the flags, so an edited source never loads
+carries a hash of the source, of every header it includes with quotes
+(``common.cuh``) and of the flags, so an edited source or header never loads
 a stale build; it is written under a temporary name and renamed, so
 concurrent builds never load a half-written file. ``build_libraries`` starts
 one ``nvcc`` per missing library, all together, and waits for them all.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -51,10 +53,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
 
 
+_QUOTED_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _included_files(source: Path) -> List[Path]:
+    """``source`` and every file it includes with quotes, recursively (paths
+    relative to the including file, as nvcc resolves them)."""
+    files: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / name for name in _QUOTED_INCLUDE.findall(path.read_text())]
+    return files
+
+
 def _library_path(source: Path) -> Path:
-    """Where the library of ``source`` lives: named by source and flag hash."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Where the library of ``source`` lives: named by the hash of the
+    source, the headers it includes and the flags."""
+    digest = hashlib.sha256()
+    for path in _included_files(source):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build_libraries(*sources: Path) -> List[Path]:

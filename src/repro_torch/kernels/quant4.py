@@ -30,6 +30,8 @@ __all__ = [
     "dequantize_blockwise_4bit",
     "quantize_blockwise_4bit_plain",
     "dequantize_blockwise_4bit_plain",
+    "bind",
+    "quantize_into",
     "LAUNCHES",
     "SOURCE",
 ]
@@ -43,16 +45,21 @@ LAUNCHES: Dict[str, int] = {"quantize_blockwise_4bit": 0, "dequantize_blockwise_
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded build of ``quant4.cu`` (this
+    tree's, or another version's when two are timed against each other)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.quantize_blockwise_4bit_launch.argtypes = [p, i, p, p, ll, p, p, i, p]
+    lib.dequantize_blockwise_4bit_launch.argtypes = [p, p, p, ll, p, p, i, p]
+    lib.quantize_blockwise_4bit_launch.restype = ctypes.c_int
+    lib.dequantize_blockwise_4bit_launch.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = build.load_library(SOURCE)
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.quantize_blockwise_4bit_launch.argtypes = [p, i, p, p, ll, p, p, i, p]
-        lib.dequantize_blockwise_4bit_launch.argtypes = [p, p, p, ll, p, p, i, p]
-        lib.quantize_blockwise_4bit_launch.restype = ctypes.c_int
-        lib.dequantize_blockwise_4bit_launch.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load_library(SOURCE))
     return _lib
 
 
@@ -77,6 +84,17 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def quantize_into(lib: ctypes.CDLL, x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                  table) -> int:
+    """Launch ``lib``'s quantize kernel on checked CUDA operands and a
+    ``build.host_table``; returns its cudaError_t (0: launched). Counts no
+    launch: the wrapper does."""
+    value, mid, points = table
+    return lib.quantize_blockwise_4bit_launch(
+        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(codes), _ptr(scale), x.numel(),
+        _ptr(value), _ptr(mid), points, _stream(x.device))
+
+
 def quantize_blockwise_4bit(x: torch.Tensor, table: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(R, C) fp32/bf16 -> ((R, C/2) uint8 codes, (R, C/128) fp32 scales),
@@ -96,10 +114,7 @@ def quantize_blockwise_4bit(x: torch.Tensor, table: torch.Tensor
     build.check_operand(name, "x", x, x.dtype, (R, C), dev)
     codes = torch.empty((R, C // 2), dtype=torch.uint8, device=dev)
     scale = torch.empty((R, C // _BLOCK), dtype=torch.float32, device=dev)
-    value, mid, points = build.host_table(table)
-    err = _library().quantize_blockwise_4bit_launch(
-        _ptr(x), int(x.dtype == torch.bfloat16), _ptr(codes), _ptr(scale), R * C,
-        _ptr(value), _ptr(mid), points, _stream(dev))
+    err = quantize_into(_library(), x, codes, scale, build.host_table(table))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
     LAUNCHES[name] += 1

@@ -263,3 +263,109 @@ def test_q4_engine_on_card_matches_cpu(cuda):
         logits[dev] = prefill_with_cache(materialize(tree), cfg, toks.to(dev), lens.to(dev),
                                          cache)[0].cpu()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=2e-2, rtol=0)
+
+
+def _special_blocks(x: torch.Tensor) -> torch.Tensor:
+    """x (R, C) fp32 with one block kind a block, from flat block 1 on, that
+    the quantize kernel's fast division does not take: it redoes them with
+    __fdiv_rn (a normal block shares its warp step with each)."""
+    flat = x.reshape(-1, 128)
+    flat[1, 5] = float("nan")
+    flat[2, 9] = float("inf")
+    flat[3, 9] = float("-inf")
+    flat[4, 5], flat[4, 9], flat[4, 77] = float("nan"), float("inf"), float("-inf")
+    flat[5] = -0.0
+    flat[6] = 0.0
+    flat[7, ::7] = 1e-40 * torch.sign(flat[7, ::7])  # subnormal elements in a normal block
+    flat[8] *= 1e-40                                   # all subnormal: a subnormal scale
+    flat[9, 3], flat[9, 40] = 3.0 * 2.0**61, -(2.0**70)  # a scale above 2^60
+    flat[10, 11] = 2.0**-70                            # a tiny normal element
+    flat[11] *= 1e-15                                  # a scale below 2^-40
+    flat[12, 0] = -(2.0**-40)                          # a scale of exactly 2^-40
+    flat[12, 1:] *= 2.0**-42
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 512), (13, 128), (3, 768)])
+@pytest.mark.parametrize("table_name", ["de", "linear"])
+def test_quant4_kernel_nonfinite_blocks_match_plain(cuda, table_name, shape, x_dtype):
+    """NaN (scale 1, as torch.amax keeps it), +-inf, signed zeros, subnormal
+    elements and scales, scales above 2^60 and below 2^-40: the exact redo
+    path gives the plain version's codes and scales bit for bit, in one
+    launch. The signed linear table has a midpoint at zero, so every block
+    takes the exact path there."""
+    table = mapping_table(table_name, 4, True, "cpu")
+    g = torch.Generator().manual_seed(shape[0] + shape[1])
+    x = _special_blocks(torch.randn(shape, generator=g)).to(x_dtype)
+    before = quant4.LAUNCHES["quantize_blockwise_4bit"]
+    pk, sk = quant4.quantize_blockwise_4bit(x.to(cuda), table)
+    assert quant4.LAUNCHES["quantize_blockwise_4bit"] - before == 1
+    pp, sp = quant4.quantize_blockwise_4bit_plain(x.to(cuda), table)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(sk, sp)
+    assert float(sk.reshape(-1)[1]) == 1.0 and float(sk.reshape(-1)[2]) == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_blocks", [1, 3, 384, 100_003])
+def test_quant4_kernel_ragged_block_counts(cuda, n_blocks, x_dtype):
+    """The persistent grid over ragged work: one block, an odd count (the
+    last pair has no second block), a norm leaf's 384, and a prime count far
+    above one wave of warps (the grid-stride walk's last pass is ragged)."""
+    table = mapping_table("de", 4, True, "cpu")
+    g = torch.Generator(device=cuda).manual_seed(n_blocks)
+    x = (torch.randn((n_blocks, 128), generator=g, device=cuda) * 0.02).to(x_dtype)
+    before = quant4.LAUNCHES["quantize_blockwise_4bit"]
+    pk, sk = quant4.quantize_blockwise_4bit(x, table)
+    assert quant4.LAUNCHES["quantize_blockwise_4bit"] - before == 1
+    pp, sp = quant4.quantize_blockwise_4bit_plain(x, table)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(sk, sp)
+    # C = 256 views of the same flat array give the same bytes
+    if n_blocks % 2 == 0:
+        pk2, sk2 = quant4.quantize_blockwise_4bit(x.reshape(n_blocks // 2, 256), table)
+        assert torch.equal(pk2.reshape(-1), pk.reshape(-1))
+        assert torch.equal(sk2.reshape(-1), sk.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_sr", [False, True])
+def test_update_kernel_nonfinite_gradient_matches_plain(cuda, use_sr):
+    """One NaN and one inf gradient element, two steps (the second from the
+    first's state, whose rank-1 stats then hold NaN and inf), both passes
+    against their plain versions on the card: the m block absmax and the
+    rank-1 min(row, col) keep NaN as torch.amax / torch.minimum do (guarded
+    scale 1), and the stats pass's uint32 max keeps it too. Codes and m
+    scales bit-equal; stats and params equal, NaN counting as equal to NaN."""
+    shape = (3, 64, 512)
+    w, grad, m_q, v_q = _leaf(shape, 29, use_sr)
+    grad[1, 5, 130] = float("nan")
+    grad[2, 7, 300] = float("inf")
+    grad2 = _leaf(shape, 30, use_sr)[1]
+    p, m, v = w.to(cuda), _to(m_q, cuda), _to(v_q, cuda)
+    scal = dict(lr=LR, bc1=BC1, bc2=BC2, **HP)
+    same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for t, g in enumerate((grad, grad2)):
+        operands, stats = ops.leaf_operands(p, g.to(cuda), m, v, HP["b2"],
+                                            sr.PRNGKey(11 + t) if use_sr else None)
+        plain_stats = adamw4bit.rank1_new_stats_plain(
+            operands["v_packed"], operands["v_r"], operands["v_c"], operands["g"],
+            operands["v_table"], HP["b2"], shape)
+        k_out = adamw4bit.fused_adamw4(**operands, **scal)
+        p_out = adamw4bit.fused_adamw4_plain(**operands, **scal)
+        torch.cuda.synchronize()
+        for a, b in zip(stats, plain_stats):
+            same(a, b)
+        for name, a, b in zip(("m codes", "m scales", "v codes"), k_out[1:], p_out[1:]):
+            assert torch.equal(a, b), f"step {t}: {name}"
+        same(k_out[0], p_out[0])
+        if t == 0:
+            assert float(k_out[2][1, 5, 1]) == 1.0  # the NaN's block
+            assert torch.isnan(stats[-1][130]) and torch.isinf(stats[-1][300])
+        p = k_out[0].reshape(shape)
+        m = QuantizedTensor(k_out[1].reshape(m.codes.shape), (k_out[2].reshape(m.scales[0].shape),),
+                            m.shape, m.config)
+        v = QuantizedTensor(k_out[3].reshape(v.codes.shape), stats, v.shape, v.config)
