@@ -62,7 +62,20 @@ Phases, each failing the run on error:
    launches per prefill and per decode chunk, no B1, every stream complete
    and in the vocabulary; report prefill and decode device ms (CUDA
    events), tok/s and peak memory;
-9. list the top device kernels of one decode chunk (``torch.profiler``).
+9. list the top device kernels of one decode chunk (``torch.profiler``);
+10. checkpoint and resume at full size: with phase 6's arguments plus
+    ``--ckpt-dir build/ckpt_smoke --ckpt-every 3 --keep-last 1``, run A
+    trains the 5 steps and saves after step 3 (format v2); then run B, the
+    same command, resumes from step 3 and trains steps 3 and 4 only. Check
+    run A's losses against phase 6's (the save perturbs nothing), the
+    committed step, the manifest's version and the shard file's exact size
+    (12,147,018,628 B, the sum of the manifest's leaves: fp32 params,
+    optimizer state, step, key); run B's losses, 8 launches of each B1 pass
+    and none of B2/B3, every leaf of its final state equal to run A's by
+    digest, and its peak device memory (restore included) no higher than
+    run A's. Report the save's stall, the seconds to its COMMIT and the
+    restore's seconds, with GB/s. Fails, with the space it found, when the
+    disk cannot hold the checkpoint.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -97,6 +110,12 @@ STATS_BYTES_PER_ELEMENT = 4 + 0.5  # fp32 grad + v codes, read once
 EXPECTED_LOSSES = (11.8285, 11.6147, 11.5683, 11.3304, 11.3129)
 STATE_BYTES_INTERNLM2 = 4_590_578_552
 STEPS = 5
+TRAIN_ARGS = ["--arch", "internlm2-1.8b", "--optimizer", "production4bit", "--sr-seed", "0",
+              "--steps", str(STEPS), "--batch", "8", "--seq", "128", "--device", "cuda"]
+# phase 10's checkpoint of that run: fp32 params (1,889,110,016 of them,
+# 7,556,440,064 B) + the optimizer state + .step (4 B) + .key (8 B)
+CKPT_BYTES_INTERNLM2 = 7_556_440_064 + STATE_BYTES_INTERNLM2 + 4 + 8
+CKPT_EVERY = 3
 # the fused leaves of internlm2-1.8b: (names, shape, leaves of that shape)
 LEAF_SHAPES = (("wo", (24, 16, 128, 2048), 1), ("w1,w3", (24, 2048, 8192), 2),
                ("w2", (24, 8192, 2048), 1))
@@ -452,9 +471,7 @@ def phase_main_path(counters):
     from repro_torch.launch import train
 
     _reset(counters)
-    out = train.main(["--arch", "internlm2-1.8b", "--optimizer", "production4bit",
-                      "--sr-seed", "0", "--steps", str(STEPS), "--batch", "8", "--seq", "128",
-                      "--device", "cuda"])
+    out = train.main(TRAIN_ARGS)
     counts = _read(counters)
     losses = [r["loss"] for r in out["steps"]]
     for r in out["steps"]:
@@ -477,9 +494,134 @@ def phase_main_path(counters):
     if not losses[-1] < losses[0]:
         fail(f"loss did not fall: {losses}")
     peak = out["peak_bytes"]
+    steps = out["steps"]
     del out
     torch.cuda.empty_cache()
-    return counts, losses, peak
+    return counts, losses, peak, steps
+
+
+def _state_digests(state):
+    """Per-leaf digest of a port state, one leaf at a time on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.io.format import sha_bytes
+    from repro_torch.io.tree import flatten_with_keys
+
+    out = {}
+    for key, leaf in flatten_with_keys(state):
+        host = leaf.detach().to("cpu").numpy() if isinstance(leaf, torch.Tensor) \
+            else np.asarray(leaf)
+        out[key] = sha_bytes(np.ascontiguousarray(host).reshape(-1).view(np.uint8))
+    return out
+
+
+def _check_losses(losses, expected, what):
+    if len(losses) != len(expected) or any(abs(a - b) > 1e-4 for a, b in zip(losses, expected)):
+        fail(f"{what}: losses {losses} differ from {list(expected)} beyond four decimals")
+
+
+def phase_checkpoint(counters, main_steps):
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.io import format as ckfmt
+    from repro_torch.launch import train
+
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free = shutil.disk_usage(d).free
+    print(f"checkpoint: {free / 1e9:.2f} GB free under {d.relative_to(ROOT)}; "
+          f"one save takes {CKPT_BYTES_INTERNLM2:,} B")
+    if free < CKPT_BYTES_INTERNLM2:
+        fail(f"the disk cannot hold one checkpoint: {free:,} B free, "
+             f"{CKPT_BYTES_INTERNLM2:,} B needed")
+    args = TRAIN_ARGS + ["--ckpt-dir", str(d), "--ckpt-every", str(CKPT_EVERY),
+                         "--keep-last", "1"]
+
+    # run A: 5 steps, saving after step 3
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    a = train.main(args)
+    counts_a = _read(counters)
+    losses_a = [r["loss"] for r in a["steps"]]
+    _check_losses(losses_a, EXPECTED_LOSSES, "run A")
+    for name in ("fused_adamw4", "rank1_new_stats"):
+        if counts_a[name] != 4 * STEPS:
+            fail(f"run A: {name} launched {counts_a[name]} times, expected {4 * STEPS}")
+    if ckfmt.latest_step(str(d)) != CKPT_EVERY:
+        fail(f"run A: latest complete step {ckfmt.latest_step(str(d))}, expected {CKPT_EVERY}")
+    step_d = ckfmt.step_dir(str(d), CKPT_EVERY)
+    manifest = ckfmt.read_manifest(step_d)
+    if manifest["format_version"] != 2 or not os.path.exists(os.path.join(step_d, ckfmt.COMMIT)):
+        fail(f"run A: manifest version {manifest['format_version']} or no COMMIT in {step_d}")
+    bin_bytes = os.path.getsize(os.path.join(step_d, ckfmt.shard_file(0)))
+    leaf_bytes = sum(int(np.prod(m["shape"], dtype=np.int64))
+                     * ckfmt.dtype_from_str(m["dtype"]).itemsize for m in manifest["leaves"])
+    if not bin_bytes == leaf_bytes == CKPT_BYTES_INTERNLM2:
+        fail(f"run A: shard file {bin_bytes:,} B, manifest leaves {leaf_bytes:,} B, "
+             f"expected {CKPT_BYTES_INTERNLM2:,} B")
+    save = a["checkpoint"]["saves"][0]
+    for r in a["steps"]:
+        print(f"run A step {r['step']}: loss {r['loss']:.4f}  {r['ms']:.1f} ms "
+              f"(phase 6: {main_steps[r['step']]['ms']:.1f} ms)")
+    print(f"run A: saved step {CKPT_EVERY}, {len(manifest['leaves'])} leaves, {bin_bytes:,} B; "
+          f"save() stalled {save['stall_ms']:.1f} ms ({bin_bytes / save['stall_ms'] / 1e6:.2f} "
+          f"GB/s device to host), COMMIT after {save['commit_s']:.2f} s "
+          f"({bin_bytes / save['commit_s'] / 1e9:.2f} GB/s)")
+    peak_a = a["peak_bytes"]
+    step_ms_a = [r["ms"] for r in a["steps"]]
+    t0 = time.perf_counter()
+    digests_a = _state_digests(a["state"])
+    digest_s = time.perf_counter() - t0
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run B: the same command resumes from step 3
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    b = train.main(args)
+    counts_b = _read(counters)
+    ck = b["checkpoint"]
+    steps_b = [r["step"] for r in b["steps"]]
+    if ck["resumed_from"] != CKPT_EVERY or steps_b != list(range(CKPT_EVERY, STEPS)):
+        fail(f"run B: resumed from {ck['resumed_from']}, ran steps {steps_b}")
+    losses_b = [r["loss"] for r in b["steps"]]
+    _check_losses(losses_b, EXPECTED_LOSSES[CKPT_EVERY:], "run B")
+    resumed = 4 * (STEPS - CKPT_EVERY)
+    for name in ("fused_adamw4", "rank1_new_stats"):
+        if counts_b[name] != resumed:
+            fail(f"run B: {name} launched {counts_b[name]} times, expected {resumed}")
+    if counts_b["quantize_blockwise_4bit"] or counts_b["dequantize_blockwise_4bit"]:
+        fail(f"run B launched the q4 kernels: {counts_b}")
+    digests_b = _state_digests(b["state"])
+    differ = [k for k in digests_a if digests_b.get(k) != digests_a[k]]
+    if differ or set(digests_b) != set(digests_a):
+        fail(f"run B's final state differs from run A's in {len(differ)} leaves: {differ[:5]}")
+    peak_b = b["peak_bytes"]
+    for r in b["steps"]:
+        print(f"run B step {r['step']}: loss {r['loss']:.4f}  {r['ms']:.1f} ms")
+    print(f"run B: resumed from step {ck['resumed_from']}, restore {ck['restore_s']:.2f} s "
+          f"({bin_bytes / ck['restore_s'] / 1e9:.2f} GB/s); all {len(digests_b)} final leaves "
+          f"equal to run A's; peak device memory {peak_b / 1e9:.2f} GB (run A "
+          f"{peak_a / 1e9:.2f} GB); launches {counts_b}")
+    if peak_b > peak_a:
+        fail(f"run B's peak device memory {peak_b:,} B exceeds run A's {peak_a:,} B")
+    step_ms_b = [r["ms"] for r in b["steps"]]
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d)
+    return dict(free_bytes=free, bin_bytes=bin_bytes, leaves=len(manifest["leaves"]),
+                save_stall_ms=save["stall_ms"], commit_s=save["commit_s"],
+                restore_s=ck["restore_s"], digest_s=digest_s, losses_a=losses_a,
+                losses_b=losses_b, step_ms_a=step_ms_a, step_ms_b=step_ms_b,
+                peak_bytes_a=peak_a, peak_bytes_b=peak_b, launches_b=counts_b)
 
 
 def _top_kernels(prof, path, n=8):
@@ -844,12 +986,13 @@ def main():
     q4_err, q4_leaves, q4_tree = phase_quant_leaves(dev, card_info, build_report)
     small = phase_small_reference(dev)
     small_serving = phase_small_serving(dev)
-    counts, losses, train_peak = phase_main_path(counters)
+    counts, losses, train_peak, main_steps = phase_main_path(counters)
     model_ms, opt_ms = phase_profile(dev)
     serving, eng = phase_serve(counters)
     decode_top = phase_serve_profile(eng)
     del eng
     torch.cuda.empty_cache()
+    checkpoint = phase_checkpoint(counters, main_steps)
 
     kernels = [{
         "name": "fused_adamw4",
@@ -913,7 +1056,7 @@ def main():
          "q4_leaves": q4_leaves, "q4_tree": q4_tree, "small_reference": small,
          "small_serving": small_serving, "losses": losses,
          "step_split_ms": {"model": model_ms, "optimizer": opt_ms}, "serving": serving,
-         "decode_chunk_top_kernels": decode_top,
+         "decode_chunk_top_kernels": decode_top, "checkpoint": checkpoint,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

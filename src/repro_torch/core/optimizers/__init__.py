@@ -1,6 +1,6 @@
-"""Optimizers of the port's first slice (port of ``repro.core.optimizers``):
-``adamw32``, ``adamw4bit`` and ``production4bit`` behind the validated
-``make_optimizer(name, lr, **overrides)`` factory."""
+"""Optimizers of the port (port of ``repro.core.optimizers``): ``adamw32``,
+``adamw8bit``, ``adamw4bit``, ``sgdm``, ``sgdm4bit`` and ``production4bit``
+behind the validated ``make_optimizer(name, lr, **overrides)`` factory."""
 
 from __future__ import annotations
 
@@ -10,15 +10,19 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.core.optimizers.adamw import (
     M_4BIT,
+    M_8BIT,
     V_4BIT,
+    V_8BIT,
     adamw32,
     adamw4bit,
+    adamw8bit,
     adamw_chain,
     quantized_adamw,
 )
 from repro_torch.core.optimizers.base import Optimizer, QuantPolicy, state_nbytes, tree_order
 from repro_torch.core.optimizers.presets import production4bit
 from repro_torch.core.optimizers.schedule import constant, linear_warmup_linear_decay
+from repro_torch.core.optimizers.sgdm import sgdm, sgdm4bit
 
 __all__ = [
     "Optimizer",
@@ -27,7 +31,10 @@ __all__ = [
     "tree_order",
     "adamw_chain",
     "adamw32",
+    "adamw8bit",
     "adamw4bit",
+    "sgdm",
+    "sgdm4bit",
     "production4bit",
     "constant",
     "linear_warmup_linear_decay",
@@ -36,6 +43,8 @@ __all__ = [
     "optimizer_names",
     "M_4BIT",
     "V_4BIT",
+    "M_8BIT",
+    "V_8BIT",
 ]
 
 
@@ -47,9 +56,14 @@ class OptimizerSpec(NamedTuple):
 
 OPTIMIZER_SPECS: Dict[str, OptimizerSpec] = {
     "adamw32": OptimizerSpec(adamw32, "32-bit AdamW (no compression)", quantized_adamw),
+    "adamw8bit": OptimizerSpec(
+        adamw8bit, "8-bit AdamW baseline, B2048/DE, embeddings fp32", quantized_adamw
+    ),
     "adamw4bit": OptimizerSpec(
         adamw4bit, "paper's 4-bit AdamW: m B128/DE, v Rank-1/Linear", quantized_adamw
     ),
+    "sgdm": OptimizerSpec(sgdm, "SGD with momentum (Alg. 2 accumulator form)"),
+    "sgdm4bit": OptimizerSpec(sgdm4bit, "4-bit SGDM with stochastic rounding", sgdm),
     "production4bit": OptimizerSpec(
         production4bit, "production preset: fp32 embed/head/norm/bias + 4-bit SR body"
     ),

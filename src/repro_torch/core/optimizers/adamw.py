@@ -1,5 +1,6 @@
 """AdamW family as transformation chains (port of
-``repro/core/optimizers/adamw.py`` for ``adamw32`` and ``adamw4bit``).
+``repro/core/optimizers/adamw.py`` for ``adamw32``, ``adamw8bit`` and
+``adamw4bit``).
 
 Each is ``chain(compressed(scale_by_adam(...), policies),
 add_decayed_weights(wd), scale_by_learning_rate(lr))``; ``use_kernel``
@@ -24,11 +25,14 @@ from repro_torch.core.optimizers.transform import (
 )
 from repro_torch.core.quantizer import QuantConfig
 
-__all__ = ["adamw_chain", "quantized_adamw", "adamw32", "adamw4bit", "M_4BIT", "V_4BIT"]
+__all__ = ["adamw_chain", "quantized_adamw", "adamw32", "adamw8bit", "adamw4bit", "M_4BIT",
+           "V_4BIT", "M_8BIT", "V_8BIT"]
 
 # Paper-named quantizer presets (Sec. 5).
 M_4BIT = QuantConfig(bits=4, normalization="blockwise", block_size=128, mapping="de", signed=True)
 V_4BIT = QuantConfig(bits=4, normalization="rank1", mapping="linear", signed=False)
+M_8BIT = QuantConfig(bits=8, normalization="blockwise", block_size=2048, mapping="de", signed=True)
+V_8BIT = QuantConfig(bits=8, normalization="blockwise", block_size=2048, mapping="de", signed=False)
 
 
 def adamw_chain(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -62,6 +66,14 @@ def quantized_adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float
 
 def adamw32(lr: Schedule, **kw) -> Optimizer:
     return quantized_adamw(lr, name="adamw32", **kw)
+
+
+def adamw8bit(lr: Schedule, exclude_embeddings: bool = True, **kw) -> Optimizer:
+    """8-bit AdamW baseline [Dettmers et al. 2022]: B2048/DE, embeddings fp32."""
+    exclude = ("embed",) if exclude_embeddings else ()
+    return quantized_adamw(lr, m_policy=QuantPolicy(config=M_8BIT, exclude=exclude),
+                           v_policy=QuantPolicy(config=V_8BIT, exclude=exclude),
+                           name="adamw8bit", **kw)
 
 
 def adamw4bit(lr: Schedule, stochastic_rounding: bool = False, use_kernel: bool = False,

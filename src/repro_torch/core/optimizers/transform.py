@@ -1,6 +1,6 @@
 """Composable gradient transformations with the one compressed-state wrapper
 of Alg. 1 — port of ``repro/core/optimizers/transform.py`` for the rules
-that ``production4bit``, ``adamw32`` and ``adamw4bit`` use.
+that ``production4bit``, the AdamW family and SGDM use.
 
 Trees are ordered ``{path: tensor}`` mappings in the reference's leaf order.
 A ``GradientTransformation`` is an ``(init, update)`` pair over updates:
@@ -48,6 +48,8 @@ __all__ = [
     "as_optimizer",
     "apply_updates",
     "scale_by_adam",
+    "trace",
+    "TraceState",
     "add_decayed_weights",
     "scale_by_learning_rate",
     "FusedAdamWRoute",
@@ -190,6 +192,25 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
             new_m[k] = m2
             new_v[k] = v2
         return out, ScaleByAdamState(count, new_m, new_v)
+
+    return GradientTransformation(init, update)
+
+
+class TraceState(NamedTuple):
+    trace: Params
+
+
+def trace(decay: float) -> GradientTransformation:
+    """SGDM accumulator (paper Alg. 2 line 4): ``t = decay*t + g`` (no
+    ``(1-decay)`` damping)."""
+
+    def init(params):
+        return TraceState({k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                           for k, p in params.items()})
+
+    def update(updates, state, params=None, *, key=None):
+        new_t = {k: decay * state.trace[k] + g.to(torch.float32) for k, g in updates.items()}
+        return new_t, TraceState(new_t)
 
     return GradientTransformation(init, update)
 

@@ -1,0 +1,164 @@
+"""Checkpoint restore (port of ``repro/io/reader.py``).
+
+``restore_checkpoint`` dispatches on ``manifest.json["format_version"]``: v1
+dirs go through the legacy npz reader, v2 dirs are assembled shard-wise. A
+v2 leaf is stitched from whatever shard layout is on disk (one shard per
+leaf from the port, several from a JAX mesh) into one host buffer from
+``_alloc_region``, copying only the overlaps out of memory-mapped shard
+files, each shard's hash checked once. Leaves then move to the device one
+at a time, so a restore never holds two copies of the state:
+
+* a target leaf that is an allocated tensor is filled in place (the train
+  CLI restores into a state allocated as a fresh run allocates it: the
+  model's own parameters, the optimizer state, its host step counts);
+* a ``meta`` tensor becomes a new tensor on ``device``;
+* a numpy or plain-scalar leaf (the port's step and SR key) becomes a host
+  tensor.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.io import format as fmt
+from repro_torch.io.legacy import read_npz
+from repro_torch.io.tree import flatten_with_keys, structure_repr, unflatten
+
+__all__ = ["restore_checkpoint"]
+
+
+def _alloc_region(key: str, shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    """Host buffer for one leaf. Every host-side restore allocation goes
+    through here (the spy tests patch it)."""
+    return np.empty(shape, dtype)
+
+
+def _open_shard(d: str, key: str, rec: Dict, dtype: np.dtype, hash_cache):
+    """Memory-mapped view of one on-disk shard (validated once per shard)."""
+    path = os.path.join(d, rec["file"])
+    shard_shape = tuple(int(e) - int(s) for s, e in rec["index"])
+    n = int(rec["nbytes"])
+    expected = int(np.prod(shard_shape, dtype=np.int64)) * dtype.itemsize
+    if n != expected:
+        raise IOError(f"checkpoint corruption at {key}: shard in {rec['file']} records "
+                      f"{n} bytes for shape {shard_shape} ({expected} expected)")
+    try:
+        size = os.path.getsize(path)
+    except OSError as e:
+        raise IOError(f"checkpoint missing shard file {rec['file']}") from e
+    if size < rec["offset"] + n:
+        raise IOError(f"checkpoint corruption at {key}: {rec['file']} truncated "
+                      f"({size} bytes, shard ends at {rec['offset'] + n})")
+    if n == 0 or shard_shape == ():
+        with open(path, "rb") as f:
+            f.seek(rec["offset"])
+            buf = f.read(n)
+        if hash_cache is not None and fmt.sha_bytes(buf) != rec["sha256"]:
+            raise IOError(f"checkpoint corruption at {key} (hash mismatch)")
+        return np.frombuffer(buf, dtype=dtype).reshape(shard_shape)
+    mm = np.memmap(path, dtype=dtype, mode="r", offset=rec["offset"], shape=shard_shape)
+    if hash_cache is not None:
+        ck = (rec["file"], rec["offset"])
+        if ck not in hash_cache:
+            hash_cache[ck] = fmt.sha_bytes(mm.reshape(-1).view(np.uint8))
+        if hash_cache[ck] != rec["sha256"]:
+            raise IOError(f"checkpoint corruption at {key} (hash mismatch)")
+    return mm
+
+
+def _assemble(d: str, key: str, shape: Tuple[int, ...], dtype: np.dtype,
+              shards: List[Dict], hash_cache) -> np.ndarray:
+    """One whole leaf, stitched from its on-disk shards."""
+    region = _alloc_region(key, shape, dtype)
+    filled = 0
+    for rec in shards:
+        ranges = [(int(s), int(e)) for s, e in rec["index"]]
+        if any(s >= e for s, e in ranges):
+            continue  # an empty shard
+        src = _open_shard(d, key, rec, dtype, hash_cache)
+        region[tuple(slice(s, e) for s, e in ranges)] = src
+        filled += int(np.prod([e - s for s, e in ranges], dtype=np.int64))
+    if filled < region.size:
+        raise IOError(f"checkpoint incomplete at {key}: on-disk shards cover only "
+                      f"{filled}/{region.size} elements (missing host shard file?)")
+    return region
+
+
+def _read_sharded(d: str, manifest: Dict, keys: List[str], validate: bool):
+    """Host arrays (storage dtype) of ``keys``, one at a time."""
+    shard_map = fmt.merged_shard_index(d)
+    meta = {m["key"]: m for m in manifest["leaves"]}
+    hash_cache: Optional[Dict] = {} if validate else None
+    for key in keys:
+        m = meta[key]
+        yield _assemble(d, key, tuple(int(x) for x in m["shape"]),
+                        fmt.dtype_from_str(m["dtype"]), shard_map.get(key, []), hash_cache)
+
+
+def _check(key: str, tleaf, m: Dict) -> None:
+    shape = tuple(int(x) for x in m["shape"])
+    t_shape = getattr(tleaf, "shape", None)  # plain-scalar leaves have none
+    if t_shape is None:
+        return
+    if tuple(t_shape) != shape:
+        raise ValueError(f"checkpoint leaf {key} has shape {shape}, target expects "
+                         f"{tuple(t_shape)}")
+    if fmt.dtype_name(tleaf) != m["dtype"]:
+        raise ValueError(f"checkpoint leaf {key} has dtype {m['dtype']}, target expects "
+                         f"{fmt.dtype_name(tleaf)}")
+
+
+@torch.no_grad()
+def _place(host: np.ndarray, dtype: str, tleaf, device) -> torch.Tensor:
+    t = torch.from_numpy(host).view(fmt.torch_dtype(dtype))
+    if isinstance(tleaf, torch.Tensor):
+        return t.to(resolve_device(device)) if tleaf.is_meta else tleaf.copy_(t)
+    return t  # numpy or scalar target (the step, the key): stays on the host
+
+
+def restore_checkpoint(directory: str, target: Any, step: Optional[int] = None,
+                       device="cuda", validate: bool = True) -> Tuple[Any, Dict]:
+    """Restore into the structure of ``target`` (a port state whose leaves
+    may be ``meta`` tensors) -> (state, the save's ``extra``). New tensors
+    land on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    if step is None:
+        step = fmt.latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+    d = fmt.step_dir(directory, step)
+    manifest = fmt.read_manifest(d)
+
+    if validate and "structure" in manifest:
+        got = structure_repr(target)
+        if got != manifest["structure"]:
+            raise ValueError(
+                "checkpoint structure mismatch: the restore target's tree does not "
+                "match what was saved.\n"
+                f"  saved:  {manifest['structure'][:512]}\n"
+                f"  target: {got[:512]}\n"
+                "If the checkpoint predates the transform-chain state layout "
+                "(dict {'m','v','step'}), restore into the legacy structure and "
+                "convert with migrate_legacy_state(state, tx)."
+            )
+
+    flat = flatten_with_keys(target)
+    keys = [k for k, _ in flat]
+    meta = {m["key"]: m for m in manifest["leaves"]}
+    for key, tleaf in flat:
+        if key not in meta:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        _check(key, tleaf, meta[key])
+    if manifest.get("format_version", 1) < 2:
+        hosts = iter(read_npz(d, manifest, keys, validate))
+    else:
+        hosts = _read_sharded(d, manifest, keys, validate)
+    out = []
+    for (key, tleaf), host in zip(flat, hosts):
+        out.append(_place(host, meta[key]["dtype"], tleaf, device))
+        del host
+    return unflatten(target, out), manifest["extra"]

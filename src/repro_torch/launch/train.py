@@ -6,8 +6,17 @@ Port of ``repro/launch/train.py`` for one device:
         --optimizer production4bit --sr-seed 0 --steps 5
 
 runs on ``cuda`` (``--device cpu --reduced`` runs the same path at CPU
-scale). The flags are the reference's; ``--mesh``, ``--grad-comm`` other than
-fp32 and ``--ckpt-dir`` are not ported yet and are refused.
+scale). The flags are the reference's; ``--mesh`` and ``--grad-comm`` other
+than fp32 are not ported yet and are refused.
+
+With ``--ckpt-dir`` the run saves its state (format v2, asynchronously)
+after every step ``t`` with ``(t + 1) % --ckpt-every == 0``, keeps the
+newest ``--keep-last`` complete saves (and every ``--keep-every``-th step),
+and a rerun resumes from the newest complete save: it restores into the
+storage of a model and optimizer state allocated as a fresh run allocates
+them (``abstract_train_state(..., device=)``), one leaf at a time and
+straight into the model's own parameters, and continues bit for bit as the
+uninterrupted run would.
 """
 
 from __future__ import annotations
@@ -28,11 +37,12 @@ from repro_torch.core.optimizers import (
     state_nbytes,
 )
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.io import CheckpointManager
 from repro_torch.kernels import sr
-from repro_torch.models import init_model
+from repro_torch.models import Transformer, init_model
 from repro_torch.train.train_loop import build_train_step, make_train_state
 
-__all__ = ["main", "parse_args"]
+__all__ = ["main", "parse_args", "abstract_train_state"]
 
 
 def _parse_value(v: str):
@@ -62,23 +72,45 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--grad-comm", default="fp32", help="only fp32 in the port so far")
     ap.add_argument("--mesh", default=None, help="not ported yet")
-    ap.add_argument("--ckpt-dir", default=None, help="not ported yet")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="retention: keep the newest N complete checkpoints")
+    ap.add_argument("--keep-every", type=int, default=None,
+                    help="retention: also keep every K-th step")
     args = ap.parse_args(argv)
     if args.mesh is not None:
         ap.error("--mesh: the port runs on one device; the mesh path is not ported yet")
     if args.grad_comm != "fp32":
         ap.error("--grad-comm: only fp32 (no gradient collective on one device) is ported")
-    if args.ckpt_dir is not None:
-        ap.error("--ckpt-dir: checkpoints are not ported yet")
+    if args.ckpt_every < 1:
+        ap.error("--ckpt-every: must be at least 1")
     for kv in args.opt_arg:
         if "=" not in kv:
             ap.error(f"--opt-arg {kv!r}: expected K=V (e.g. use_kernel=true)")
     return args
 
 
+def abstract_train_state(cfg, optimizer, key=None, device=None):
+    """(model, TrainState) to restore into, counterpart of the reference's
+    ``abstract_train_state``. By default on ``meta``: no parameter or moment
+    has storage (the optimizer's step counts are 4-byte host tensors, as in
+    every state of the port). With ``device``, the model and the optimizer
+    state get uninitialised storage there, allocated as a fresh run
+    allocates them (the model's parameters, then the optimizer's init), so
+    a restore fills the model's own parameters in place and the resumed
+    run's device memory peaks where a fresh run's does."""
+    if device is None:
+        model = init_model(cfg, device="meta")
+    else:
+        model = Transformer(cfg, device=resolve_device(device))
+    return model, make_train_state(model, optimizer, key=key)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the CLI; returns a summary (per-step loss and ms, state bytes,
-    peak device memory) for callers such as ``chip_smoke.py``."""
+    peak device memory, checkpoint times) for callers such as
+    ``chip_smoke.py``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -89,9 +121,27 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         **overrides,
     )
     sr_key = sr.PRNGKey(args.sr_seed) if args.sr_seed is not None else None
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
-    model = init_model(cfg, seed=0, device=device)
-    state = make_train_state(model, opt, key=sr_key)
+    mgr = (CheckpointManager(args.ckpt_dir, keep_last=args.keep_last,
+                             keep_every=args.keep_every) if args.ckpt_dir else None)
+    # the newest complete step: a save killed mid-write is skipped
+    start = (mgr.latest_step() or 0) if mgr else 0
+    ckpt = {"resumed_from": start, "restore_s": None, "saves": []}
+    if start:
+        # one name for the target and the restored state: a reference kept to
+        # the target would keep its optimizer state alive after the first step
+        model, state = abstract_train_state(cfg, opt, key=sr_key, device=device)
+        t0 = time.perf_counter()
+        state, _ = mgr.restore(state, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ckpt["restore_s"] = time.perf_counter() - t0
+        print(f"resumed from step {start} ({ckpt['restore_s']:.1f} s)")
+    else:
+        model = init_model(cfg, seed=0, device=device)
+        state = make_train_state(model, opt, key=sr_key)
     nbytes = state_nbytes(state.opt_state)
     n_params = sum(p.numel() for p in state.params.values())
     print(f"arch={cfg.name} params={n_params:,} optimizer={opt.name} "
@@ -99,10 +149,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
     step_fn = build_train_step(model, opt)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     records = []
-    for t in range(args.steps):
+    for t in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(t).items()}
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
@@ -112,11 +160,23 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         ms = (time.perf_counter() - t0) * 1e3
         records.append({"step": t, "loss": loss, "ms": ms,
                         "grad_norm": float(metrics["grad_norm"])})
+        if mgr and (t + 1) % args.ckpt_every == 0:
+            t0 = time.perf_counter()
+            mgr.save(t + 1, state)
+            ckpt["saves"].append({"step": t + 1, "t0": t0,
+                                  "stall_ms": (time.perf_counter() - t0) * 1e3})
         if t % 5 == 0:
             print(f"step {t:4d} loss {loss:.4f} ({ms:.0f} ms)")
+    if mgr:
+        mgr.wait()
+        for rec in ckpt["saves"]:
+            rec["commit_s"] = mgr.commit_times[rec["step"]] - rec.pop("t0")
+            print(f"checkpoint step {rec['step']}: save() stalled {rec['stall_ms']:.0f} ms, "
+                  f"committed after {rec['commit_s']:.1f} s")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     return {"arch": cfg.name, "optimizer": opt.name, "state_bytes": nbytes,
-            "n_params": n_params, "steps": records, "peak_bytes": peak, "state": state}
+            "n_params": n_params, "steps": records, "peak_bytes": peak, "state": state,
+            "checkpoint": ckpt if mgr else None}
 
 
 if __name__ == "__main__":
