@@ -75,7 +75,27 @@ Phases, each failing the run on error:
     digest, and its peak device memory (restore included) no higher than
     run A's. Report the save's stall, the seconds to its COMMIT and the
     restore's seconds, with GB/s. Fails, with the space it found, when the
-    disk cannot hold the checkpoint.
+    disk cannot hold the checkpoint;
+11. drive the optimizers that have no kernel route through the CLI at full
+    width, 4 steps of batch 8 x seq 128 each, with every launch count set
+    to 0 just before each run: sm3, adafactor and factor4bit at full depth,
+    shampoo4bit on the first of the 24 layers (its first step runs one
+    ``torch.linalg.eigh`` per 128 x 128 Kronecker block), each at the
+    learning rate ``NEW_OPTIMIZERS`` gives it and says why; check state bytes
+    against the reference's counts, no kernel launched, losses finite and
+    the last below the first; report step ms split into model and optimizer
+    (CUDA events), peak memory, shampoo4bit's recompute step against a
+    stale one, the host time of its eigh calls and of one eigh alone;
+12. card against CPU on the reduced config, three steps from the same
+    weights: the five new optimizers and production4bit with ``--grad-comm``
+    bf16, int8 and int4 (SR seed 0); losses within 3e-4 relative (shampoo32
+    2e-3, shampoo4bit 5e-4: ``SMALL_NEW_RUNS``), a gap that the same model
+    without its steps must exceed five times over; the agreement of 4-bit
+    first-moment codes printed;
+13. phase 6's command with ``--grad-comm int4``: wire bytes
+    (1,003,596,800), 4 launches of each B1 pass per step, losses finite;
+    step time and peak memory against phase 6's, and the step split into
+    model, gradient wire format and optimizer.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -134,6 +154,45 @@ WEIGHT_BYTES_Q4 = 1_003_596_800
 VOCAB = 92544
 SERVE_ATOL = 2e-2
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_DRAIN = 8, 64, 8
+# phase 11: the optimizers without a kernel route at full width, 4 steps,
+# with their learning rates. At the CLI's 1e-3 the loss of adafactor (11.83
+# -> 12.94 on an H100 80GB HBM3 at 700 W) and of factor4bit rose over the 4
+# steps: full-strength steps on every leaf of a random 24-layer model, so
+# they take 1e-4. shampoo4bit's steps at 1e-3 did not move the model past
+# the batches' own spread: its zero-excluding 4-bit v starts at 1/16 of its
+# scale, far above the squared gradients, and the graft gives the Shampoo
+# direction that damped AdamW step's norm; it takes 1e-1
+NEW_OPTIMIZERS = (("sm3", 1e-3), ("adafactor", 1e-4), ("factor4bit", 1e-4),
+                  ("shampoo4bit", 1e-1))
+NEW_ARGS = ["--arch", "internlm2-1.8b", "--steps", "4", "--batch", "8", "--seq", "128",
+            "--device", "cuda"]
+# shampoo4bit's first step decomposes every 128 x 128 Kronecker block with
+# one cuSOLVER call each (torch.linalg.eigh): 54,016 matrices in ~54 s at 1
+# layer on an H100 80GB HBM3 at 700 W. Embed and head alone are 46,272 of
+# them at any depth, and the full 24 layers ~230,000 (~4 min), so its run
+# keeps 1 of the 24 layers
+SHAMPOO_LAYERS = 1
+# the reference's eval_shape counts (full depth; shampoo4bit at 1 layer,
+# tests/test_torch_optimizers.py)
+NEW_STATE_BYTES = {"sm3": 7_557_380_132, "adafactor": 7_645_301_960,
+                   "factor4bit": 1_092_458_700, "shampoo4bit": 1_400_141_288}
+EIGH_PROBE = 1024
+# phase 12: (optimizer, lr, grad-comm, SR seed, loss tolerance card vs CPU).
+# shampoo4bit's 4-bit zero-excluding v damps its first steps, so it needs lr
+# 0.1 to move the loss past five times the tolerance; lr 0.1 makes shampoo32
+# and factor4bit diverge, so the others take 3e-2. shampoo32's full-size
+# steps carry the bf16 and eigh differences furthest: 7.46e-4 measured on
+# an H100 80GB HBM3 at 700 W, held to 2e-3
+SMALL_NEW_RUNS = (("sm3", 3e-2, "fp32", None, SMALL_RTOL),
+                  ("adafactor", 3e-2, "fp32", None, SMALL_RTOL),
+                  ("factor4bit", 3e-2, "fp32", None, SMALL_RTOL),
+                  ("shampoo32", 3e-2, "fp32", None, 2e-3),
+                  ("shampoo4bit", 1e-1, "fp32", None, 5e-4),
+                  ("production4bit", 1e-3, "bf16", 0, SMALL_RTOL),
+                  ("production4bit", 1e-3, "int8", 0, SMALL_RTOL),
+                  ("production4bit", 1e-3, "int4", 0, SMALL_RTOL))
+# phase 13: int4 gradient wire bytes of internlm2-1.8b (the reference's)
+WIRE_BYTES_INT4 = 1_003_596_800
 
 
 def fail(msg: str) -> None:
@@ -411,36 +470,7 @@ def phase_leaves(dev, card):
 def phase_small_reference(dev):
     """Three reduced-config production4bit SR steps from the same weights
     on the card and on the CPU (the CPU runs the plain version)."""
-    import torch
-
-    from repro_torch.configs import reduced_config
-    from repro_torch.convert import load_params
-    from repro_torch.core.optimizers import linear_warmup_linear_decay, make_optimizer
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import sr
-    from repro_torch.models import init_model, loss_fn, named_params
-    from repro_torch.train.train_loop import build_train_step, make_train_state
-
-    cfg = reduced_config("internlm2-1.8b")
-    cpu_model = init_model(cfg, seed=0, device="cpu")
-    dev_model = init_model(cfg, device="meta").to_empty(device=dev)
-    load_params(dev_model, {k: p.detach() for k, p in named_params(cpu_model).items()})
-    data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4))
-    cpu_batch = lambda t: {k: torch.from_numpy(v) for k, v in data.batch_at(t).items()}
-    with torch.no_grad():  # the same model with no optimizer steps
-        still = [float(loss_fn(cpu_model, cpu_batch(t))[0]) for t in range(3)]
-    losses, m_codes = {}, {}
-    for name, model, d in (("card", dev_model, dev), ("cpu", cpu_model, torch.device("cpu"))):
-        opt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, 3))
-        state = make_train_state(model, opt, key=sr.PRNGKey(0))
-        step = build_train_step(model, opt)
-        losses[name] = []
-        for t in range(3):
-            state, metrics = step(state, {k: v.to(d) for k, v in cpu_batch(t).items()})
-            losses[name].append(float(metrics["loss"]))
-        m = state.opt_state.states["4bit"].states[0].inner.m
-        m_codes[name] = [m[f"decoder/0/sub0/mlp/{w}"].codes.cpu() & 0xF for w in ("w1", "w2", "w3")]
-    card, cpu = losses["card"], losses["cpu"]
+    card, cpu, still, agree = _small_pair("production4bit", 1e-3, "fp32", 0, dev)
     print("reduced production4bit, card / CPU / without steps losses: "
           + ", ".join(f"{a:.6f}/{b:.6f}/{c:.6f}" for a, b, c in zip(card, cpu, still)))
     for a, b in zip(card, cpu):
@@ -448,7 +478,8 @@ def phase_small_reference(dev):
             fail(f"reduced run: card losses {card} vs CPU {cpu} (rtol {SMALL_RTOL})")
     if not abs(still[-1] - cpu[-1]) > 5 * SMALL_RTOL * abs(cpu[-1]):
         fail(f"reduced run: the steps moved the loss too little to test ({still} vs {cpu})")
-    agree = [float((a == b).float().mean()) for a, b in zip(m_codes["card"], m_codes["cpu"])]
+    agree = [agree[f"['4bit'].states[0].inner.m['decoder'][0]['sub0']['mlp']['{w}'].codes"]
+             for w in ("w1", "w2", "w3")]
     print(f"reduced production4bit, card vs CPU 4-bit m code agreement (w1, w2, w3): {agree}")
     if min(agree) < 0.9:
         fail(f"reduced run: 4-bit m codes agree at {agree}")
@@ -950,6 +981,304 @@ def phase_serve_profile(eng):
     return top
 
 
+class _StepSplit:
+    """CUDA events around the parts of every train step of the CLI runs
+    made inside it: the model (from the loss to the gradient wire format or
+    the optimizer), the wire format (``reduce_grads``) and the optimizer
+    update; and the host time of every ``torch.linalg.eigh`` call
+    (synchronised before and after). It wraps the train loop's own names
+    for the duration and restores them on exit."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.launch import train
+        from repro_torch.train import train_loop
+
+        self.steps, self.eigh = [], []
+        self._saved = (train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads,
+                       torch.linalg.eigh)
+        make, loss, reduce, eigh = self._saved
+
+        def ev():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_loss(*a, **k):
+            self.steps.append({"start": ev()})
+            return loss(*a, **k)
+
+        def timed_reduce(*a, **k):
+            self.steps[-1]["comms0"] = ev()
+            out = reduce(*a, **k)
+            self.steps[-1]["comms1"] = ev()
+            return out
+
+        def timed_make(*a, **k):
+            opt = make(*a, **k)
+
+            def update(*ua, **uk):
+                self.steps[-1]["opt0"] = ev()
+                out = opt.update(*ua, **uk)
+                self.steps[-1]["opt1"] = ev()
+                return out
+
+            return opt._replace(update=update)
+
+        def timed_eigh(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eigh(*a, **k)
+            torch.cuda.synchronize()
+            self.eigh.append((len(self.steps) - 1, a[0].shape[0], time.perf_counter() - t0))
+            return out
+
+        train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads = (
+            timed_make, timed_loss, timed_reduce)
+        torch.linalg.eigh = timed_eigh
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from repro_torch.launch import train
+        from repro_torch.train import train_loop
+
+        train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads, torch.linalg.eigh = (
+            self._saved)
+        return False
+
+    def split(self):
+        """Per step: model, comms and optimizer ms, and the eigh seconds."""
+        out = []
+        for i, s in enumerate(self.steps):
+            model_end = s.get("comms0", s["opt0"])
+            out.append({"model_ms": s["start"].elapsed_time(model_end),
+                        "comms_ms": (s["comms0"].elapsed_time(s["comms1"])
+                                     if "comms0" in s else 0.0),
+                        "optimizer_ms": s["opt0"].elapsed_time(s["opt1"]),
+                        "eigh_s": sum(t for step, _, t in self.eigh if step == i),
+                        "eigh_calls": sum(n for step, n, _ in self.eigh if step == i)})
+        return out
+
+
+class _Depth:
+    """The CLI's ``--arch`` config (not ``--reduced``) cut to its first
+    ``layers`` layers, its width kept, while inside; ``None`` leaves it
+    whole."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __enter__(self):
+        import dataclasses
+
+        from repro_torch.launch import train
+
+        self._saved = real = train.get_config
+        if self.layers is not None:
+            n = self.layers
+            train.get_config = lambda name: dataclasses.replace(
+                real(name), num_layers=n, blocks=real(name).blocks[:n])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+
+        train.get_config = self._saved
+        return False
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+
+def _cli_run(counters, args, layers=None):
+    """One CLI run with its launch counts and per-step split; frees it."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train
+
+    _reset(counters)
+    with _StepSplit() as timer, _Depth(layers):
+        out = train.main(args)
+    counts = _read(counters)
+    split = timer.split()
+    res = dict(optimizer=out["optimizer"], state_bytes=out["state_bytes"],
+               n_params=out["n_params"], wire=dict((k, v) for k, v in out["wire"].items()
+                                                   if k != "leaves"),
+               losses=[r["loss"] for r in out["steps"]], step_ms=[r["ms"] for r in out["steps"]],
+               peak_bytes=out["peak_bytes"], launches=counts, split=split)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _check_trains(res, what):
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{what}: loss did not fall: {losses}")
+
+
+def _print_run(res, what):
+    for i, (loss, ms, s) in enumerate(zip(res["losses"], res["step_ms"], res["split"])):
+        print(f"{what} step {i}: loss {loss:.4f}  {ms:.1f} ms (model {s['model_ms']:.1f}, "
+              f"comms {s['comms_ms']:.1f}, optimizer {s['optimizer_ms']:.1f} ms"
+              + (f"; {s['eigh_calls']} eigh matrices in {s['eigh_s']:.2f} s"
+                 if s["eigh_calls"] else "") + ")")
+    print(f"{what}: params {res['n_params']:,}, state_bytes {res['state_bytes']:,}, peak device "
+          f"memory {res['peak_bytes']:,} B ({res['peak_bytes'] / 1e9:.2f} GB), launches "
+          f"{res['launches']}")
+
+
+def _eigh_alone(dev, n=EIGH_PROBE):
+    """One torch.linalg.eigh of an (n, 128, 128) fp32 batch of SPD matrices
+    (host clock, synchronised): seconds."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, 128, 128, generator=g, device=dev)
+    a = x @ x.transpose(-1, -2) / 128 + 1e-3 * torch.eye(128, device=dev)
+    torch.linalg.eigh(a[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.linalg.eigh(a)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_new_optimizers(counters, dev):
+    """sm3, adafactor, factor4bit (full depth) and shampoo4bit (its first
+    SHAMPOO_LAYERS layers) at full width through the CLI, 4 steps each."""
+    import torch
+
+    runs = {}
+    for name, lr in NEW_OPTIMIZERS:
+        layers = SHAMPOO_LAYERS if name == "shampoo4bit" else None
+        res = _cli_run(counters, NEW_ARGS + ["--optimizer", name, "--lr", str(lr)], layers)
+        res["lr"] = lr
+        what = f"{name} lr {lr:g}" + (f" ({layers} of 24 layers)" if layers else "")
+        _print_run(res, what)
+        if res["state_bytes"] != NEW_STATE_BYTES[name]:
+            fail(f"{what}: state_bytes {res['state_bytes']:,} != {NEW_STATE_BYTES[name]:,}")
+        if any(res["launches"].values()):
+            fail(f"{what} launched a kernel no route of it has: {res['launches']}")
+        _check_trains(res, what)
+        runs[name] = res
+    sh = runs["shampoo4bit"]
+    probe_s = _eigh_alone(dev)
+    per_matrix_ms = probe_s * 1e3 / EIGH_PROBE
+    recompute, stale = sh["step_ms"][0], _median(sh["step_ms"][1:])
+    s0 = sh["split"][0]
+    sh.update(recompute_ms=recompute, stale_ms=stale, eigh_probe_s=probe_s,
+              eigh_per_matrix_ms=per_matrix_ms, torch=torch.__version__,
+              cuda=torch.version.cuda)
+    print(f"shampoo4bit: recompute step {recompute:.1f} ms against a stale step {stale:.1f} ms "
+          f"(median of steps 1-3); step 0 ran {s0['eigh_calls']} eigh matrices of at most "
+          f"128 x 128 in {s0['eigh_s']:.2f} s; alone, eigh of ({EIGH_PROBE}, 128, 128) fp32 took "
+          f"{probe_s:.3f} s ({per_matrix_ms:.3f} ms a matrix; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda})")
+    return runs
+
+
+def _small_pair(name, lr, mode, seed, dev):
+    """Three reduced-config steps from the same weights on the card and the
+    CPU: losses, the same model's losses without steps, and the agreement
+    of the first-moment 4-bit codes."""
+    import torch
+
+    from repro_torch.comms import CommsConfig
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import load_params
+    from repro_torch.core.optimizers import linear_warmup_linear_decay, make_optimizer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.io.tree import flatten_with_keys
+    from repro_torch.kernels import sr
+    from repro_torch.models import init_model, loss_fn, named_params
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    cfg = reduced_config("internlm2-1.8b")
+    cpu_model = init_model(cfg, seed=0, device="cpu")
+    dev_model = init_model(cfg, device="meta").to_empty(device=dev)
+    load_params(dev_model, {k: p.detach() for k, p in named_params(cpu_model).items()})
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4))
+    cpu_batch = lambda t: {k: torch.from_numpy(v) for k, v in data.batch_at(t).items()}
+    with torch.no_grad():
+        still = [float(loss_fn(cpu_model, cpu_batch(t))[0]) for t in range(3)]
+    losses, codes = {}, {}
+    for tag, model, d in (("card", dev_model, dev), ("cpu", cpu_model, torch.device("cpu"))):
+        opt = make_optimizer(name, linear_warmup_linear_decay(lr, 1, 3))
+        state = make_train_state(model, opt, key=sr.PRNGKey(seed) if seed is not None else None)
+        step = build_train_step(model, opt, comms=CommsConfig(mode=mode))
+        losses[tag] = []
+        for t in range(3):
+            state, metrics = step(state, {k: v.to(d) for k, v in cpu_batch(t).items()})
+            losses[tag].append(float(metrics["loss"]))
+        codes[tag] = {k: v.cpu() for k, v in flatten_with_keys(state.opt_state)
+                      if ".m[" in k and k.endswith(".codes")}
+    agree = {k: float(torch.cat([(a & 15) == (codes["cpu"][k] & 15),
+                                 (a >> 4) == (codes["cpu"][k] >> 4)]).float().mean())
+             for k, a in codes["card"].items()}
+    return losses["card"], losses["cpu"], still, agree
+
+
+def phase_small_new(dev):
+    """The five new optimizers and production4bit under each quantizing or
+    casting wire format, card against CPU on the reduced config."""
+    out = {}
+    for name, lr, mode, seed, rtol in SMALL_NEW_RUNS:
+        card, cpu, still, agree = _small_pair(name, lr, mode, seed, dev)
+        what = f"reduced {name} lr {lr:g} grad-comm {mode}" + (f" SR seed {seed}"
+                                                              if seed is not None else "")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        gap = abs(still[-1] - cpu[-1]) / abs(cpu[-1])
+        print(f"{what}: card / CPU / without steps losses "
+              + ", ".join(f"{a:.6f}/{b:.6f}/{c:.6f}" for a, b, c in zip(card, cpu, still))
+              + f"; max relative gap card-CPU {rel:.3g} (held to {rtol:g}), steps moved the "
+              f"last loss {gap:.3g}"
+              + (f"; 4-bit m code agreement min {min(agree.values()):.4f} over "
+                 f"{len(agree)} leaves" if agree else ""))
+        if not all(math.isfinite(a) for a in card) or rel > rtol:
+            fail(f"{what}: card losses {card} vs CPU {cpu} (rtol {rtol})")
+        if not gap > 5 * rtol:
+            fail(f"{what}: the steps moved the loss too little to test ({still} vs {cpu})")
+        out[f"{name}/{mode}"] = dict(card=card, cpu=cpu, without_steps=still, max_rel=rel,
+                                    rtol=rtol, gap=gap, m_code_agreement=agree)
+    return out
+
+
+def phase_comms(counters, main_steps, main_peak):
+    """Phase 6's command with --grad-comm int4."""
+    res = _cli_run(counters, TRAIN_ARGS + ["--grad-comm", "int4"])
+    _print_run(res, "int4 comms")
+    wire = res["wire"]
+    if wire["total_wire_bytes"] != WIRE_BYTES_INT4 or wire["quantized_leaves"] != 11:
+        fail(f"int4 wire bytes {wire['total_wire_bytes']:,} ({wire['quantized_leaves']} "
+             f"quantized leaves), expected {WIRE_BYTES_INT4:,} (11)")
+    for name in ("fused_adamw4", "rank1_new_stats"):
+        if res["launches"][name] != 4 * STEPS:
+            fail(f"int4 comms: {name} launched {res['launches'][name]} times, "
+                 f"expected {4 * STEPS}")
+    if res["launches"]["quantize_blockwise_4bit"] or res["launches"]["dequantize_blockwise_4bit"]:
+        fail(f"int4 comms launched the q4 kernels: {res['launches']}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        fail(f"int4 comms: non-finite loss {res['losses']}")
+    fp32_ms = _median([r["ms"] for r in main_steps[1:]])
+    int4_ms = _median(res["step_ms"][1:])
+    res.update(step_ms_median=int4_ms, fp32_step_ms_median=fp32_ms, fp32_peak_bytes=main_peak)
+    print(f"int4 comms: {wire['total_wire_bytes']:,} wire bytes a step ({wire['ratio_vs_fp32']}x "
+          f"fewer than fp32); step {int4_ms:.1f} ms against phase 6's {fp32_ms:.1f} ms (medians "
+          f"of steps 1-4); peak {res['peak_bytes']:,} B against phase 6's {main_peak:,} B")
+    return res
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -993,6 +1322,9 @@ def main():
     del eng
     torch.cuda.empty_cache()
     checkpoint = phase_checkpoint(counters, main_steps)
+    new_optimizers = phase_new_optimizers(counters, dev)
+    small_new = phase_small_new(dev)
+    comms = phase_comms(counters, main_steps, train_peak)
 
     kernels = [{
         "name": "fused_adamw4",
@@ -1057,6 +1389,7 @@ def main():
          "small_serving": small_serving, "losses": losses,
          "step_split_ms": {"model": model_ms, "optimizer": opt_ms}, "serving": serving,
          "decode_chunk_top_kernels": decode_top, "checkpoint": checkpoint,
+         "new_optimizers": new_optimizers, "small_new": small_new, "comms": comms,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -1,5 +1,5 @@
-"""Optimizers of the port (port of ``repro.core.optimizers``): ``adamw32``,
-``adamw8bit``, ``adamw4bit``, ``sgdm``, ``sgdm4bit`` and ``production4bit``
+"""Optimizers of the port (port of ``repro.core.optimizers``): the paper's
+4-bit optimizers and every compared baseline, the reference's eleven names,
 behind the validated ``make_optimizer(name, lr, **overrides)`` factory."""
 
 from __future__ import annotations
@@ -8,6 +8,7 @@ import difflib
 import inspect
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+from repro_torch.core.optimizers.adafactor import adafactor
 from repro_torch.core.optimizers.adamw import (
     M_4BIT,
     M_8BIT,
@@ -17,25 +18,49 @@ from repro_torch.core.optimizers.adamw import (
     adamw4bit,
     adamw8bit,
     adamw_chain,
+    factor4bit,
     quantized_adamw,
 )
-from repro_torch.core.optimizers.base import Optimizer, QuantPolicy, state_nbytes, tree_order
+from repro_torch.core.optimizers.base import (
+    FactoredMoment,
+    Optimizer,
+    QuantPolicy,
+    state_nbytes,
+    tree_order,
+)
 from repro_torch.core.optimizers.presets import production4bit
 from repro_torch.core.optimizers.schedule import constant, linear_warmup_linear_decay
 from repro_torch.core.optimizers.sgdm import sgdm, sgdm4bit
+from repro_torch.core.optimizers.shampoo import FACTOR_4BIT, shampoo32, shampoo4bit, shampoo_chain
+from repro_torch.core.optimizers.sm3 import sm3
+from repro_torch.core.optimizers.transform import (
+    scale_by_factored_rms,
+    scale_by_shampoo,
+    scale_by_sm3,
+)
 
 __all__ = [
     "Optimizer",
     "QuantPolicy",
+    "FactoredMoment",
     "state_nbytes",
     "tree_order",
+    "scale_by_sm3",
+    "scale_by_factored_rms",
+    "scale_by_shampoo",
     "adamw_chain",
     "adamw32",
     "adamw8bit",
     "adamw4bit",
+    "factor4bit",
+    "adafactor",
+    "sm3",
     "sgdm",
     "sgdm4bit",
     "production4bit",
+    "shampoo_chain",
+    "shampoo32",
+    "shampoo4bit",
     "constant",
     "linear_warmup_linear_decay",
     "OPTIMIZER_SPECS",
@@ -45,6 +70,7 @@ __all__ = [
     "V_4BIT",
     "M_8BIT",
     "V_8BIT",
+    "FACTOR_4BIT",
 ]
 
 
@@ -62,10 +88,22 @@ OPTIMIZER_SPECS: Dict[str, OptimizerSpec] = {
     "adamw4bit": OptimizerSpec(
         adamw4bit, "paper's 4-bit AdamW: m B128/DE, v Rank-1/Linear", quantized_adamw
     ),
+    "factor4bit": OptimizerSpec(
+        factor4bit, "paper's 4-bit Factor: m B128/DE, v factored for ndim>=2", quantized_adamw
+    ),
+    "adafactor": OptimizerSpec(adafactor, "Adafactor baseline (factored v)"),
+    "sm3": OptimizerSpec(sm3, "SM3 baseline (sublinear accumulators)"),
     "sgdm": OptimizerSpec(sgdm, "SGD with momentum (Alg. 2 accumulator form)"),
     "sgdm4bit": OptimizerSpec(sgdm4bit, "4-bit SGDM with stochastic rounding", sgdm),
     "production4bit": OptimizerSpec(
         production4bit, "production preset: fp32 embed/head/norm/bias + 4-bit SR body"
+    ),
+    "shampoo32": OptimizerSpec(
+        shampoo32, "fp32 blocked Shampoo with AdamW grafting (parity oracle)", shampoo_chain
+    ),
+    "shampoo4bit": OptimizerSpec(
+        shampoo4bit, "4-bit Shampoo: B128/Dyn Kronecker factors + 4-bit AdamW moments",
+        shampoo_chain,
     ),
 }
 

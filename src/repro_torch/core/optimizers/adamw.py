@@ -1,6 +1,6 @@
 """AdamW family as transformation chains (port of
-``repro/core/optimizers/adamw.py`` for ``adamw32``, ``adamw8bit`` and
-``adamw4bit``).
+``repro/core/optimizers/adamw.py``: ``adamw32``, ``adamw8bit``,
+``adamw4bit`` and ``factor4bit``).
 
 Each is ``chain(compressed(scale_by_adam(...), policies),
 add_decayed_weights(wd), scale_by_learning_rate(lr))``; ``use_kernel``
@@ -25,8 +25,8 @@ from repro_torch.core.optimizers.transform import (
 )
 from repro_torch.core.quantizer import QuantConfig
 
-__all__ = ["adamw_chain", "quantized_adamw", "adamw32", "adamw8bit", "adamw4bit", "M_4BIT",
-           "V_4BIT", "M_8BIT", "V_8BIT"]
+__all__ = ["adamw_chain", "quantized_adamw", "adamw32", "adamw8bit", "adamw4bit", "factor4bit",
+           "M_4BIT", "V_4BIT", "M_8BIT", "V_8BIT"]
 
 # Paper-named quantizer presets (Sec. 5).
 M_4BIT = QuantConfig(bits=4, normalization="blockwise", block_size=128, mapping="de", signed=True)
@@ -86,3 +86,10 @@ def adamw4bit(lr: Schedule, stochastic_rounding: bool = False, use_kernel: bool 
     return quantized_adamw(lr, m_policy=QuantPolicy(config=m_cfg),
                            v_policy=QuantPolicy(config=v_cfg), use_kernel=use_kernel,
                            name="adamw4bit", **kw)
+
+
+def factor4bit(lr: Schedule, **kw) -> Optimizer:
+    """The paper's 4-bit Factor: m B128/DE; v factored (>=2-d) else 4-bit."""
+    return quantized_adamw(lr, m_policy=QuantPolicy(config=M_4BIT),
+                           v_policy=QuantPolicy(config=V_4BIT, factor_2d=True),
+                           name="factor4bit", **kw)

@@ -1,9 +1,11 @@
 """Optimizer interface + the compression framework of Alg. 1.
 
-Port of ``repro/core/optimizers/base.py`` for the slice's optimizers. A
-parameter tree is an ordered ``{path: tensor}`` mapping whose order is the
-reference's leaf order (``tree_order``), so leaf indices — and with them
-the stochastic-rounding key stream — are the reference's.
+Port of ``repro/core/optimizers/base.py``. A parameter tree is an ordered
+``{path: tensor}`` mapping whose order is the reference's leaf order
+(``tree_order``), so leaf indices — and with them the stochastic-rounding
+key stream — are the reference's. State moments are stored compressed
+(``QuantizedTensor``), factored (``FactoredMoment``) or raw fp32, decided
+per leaf at init by a ``QuantPolicy``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.core.quantizer import QuantConfig, QuantizedTensor, dequantize,
 __all__ = [
     "Optimizer",
     "QuantPolicy",
+    "FactoredMoment",
     "compress_moment",
     "decompress_moment",
     "tree_order",
@@ -48,25 +51,71 @@ def tree_order(params: Mapping[str, Any]) -> Dict[str, Any]:
     return {k: params[k] for k in sorted(params, key=_path_key)}
 
 
+class FactoredMoment:
+    """Adafactor-style factored second moment over the trailing two dims:
+    for a tensor of shape (..., n, m), ``row`` (..., n) and ``col`` (..., m)
+    are its means over m and over n; the reconstruction is
+    row ⊗ col / mean(row) (Shazeer & Stern, 2018)."""
+
+    __slots__ = ("row", "col", "shape")
+
+    def __init__(self, row: torch.Tensor, col: torch.Tensor, shape: Tuple[int, ...]):
+        self.row = row
+        self.col = col
+        self.shape = tuple(shape)
+
+    @staticmethod
+    def zeros(shape: Tuple[int, ...], device=None) -> "FactoredMoment":
+        shape = tuple(shape)
+        return FactoredMoment(torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                              torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32,
+                                          device=device), shape)
+
+    def reconstruct(self) -> torch.Tensor:
+        """v̂ = row ⊗ col / mean(row); all-zero rows at t=0 are guarded."""
+        denom = torch.clamp_min(torch.mean(self.row, dim=-1, keepdim=True), 1e-30)
+        return (self.row / denom)[..., :, None] * self.col[..., None, :]
+
+    def ema_update(self, sq: torch.Tensor, b2: float) -> "FactoredMoment":
+        row = b2 * self.row + (1 - b2) * torch.mean(sq, dim=-1)
+        col = b2 * self.col + (1 - b2) * torch.mean(sq, dim=-2)
+        return FactoredMoment(row, col, self.shape)
+
+    def nbytes(self) -> int:
+        return int(self.row.numel() * 4 + self.col.numel() * 4)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"FactoredMoment(shape={self.shape})"
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
     """Per-leaf compression decision (paper App. D.1): leaves with <=
-    ``threshold`` elements, matching an ``exclude`` regex or of fewer than
-    ``min_ndim`` dims stay fp32."""
+    ``threshold`` elements, of fewer than ``min_ndim`` dims (Shampoo's
+    placeholders of vector params) or matching an ``exclude`` regex stay
+    fp32; ``factor_2d`` factors the second moment of ndim >= 2 leaves
+    (the 4-bit Factor optimizer)."""
 
     config: Optional[QuantConfig] = None
     threshold: int = 4096
     exclude: Tuple[str, ...] = ()
+    factor_2d: bool = False
     min_ndim: int = 0
 
     def mode(self, path: str, shape: Tuple[int, ...]) -> str:
-        """-> 'raw' | 'quant'."""
+        """-> 'raw' | 'quant' | 'factor'."""
         size = 1
         for d in shape:
             size *= d
-        if self.config is None or size <= self.threshold or len(shape) < self.min_ndim:
+        if self.config is None and not self.factor_2d:
+            return "raw"
+        if size <= self.threshold or len(shape) < self.min_ndim:
             return "raw"
         if any(re.search(pat, path) for pat in self.exclude):
+            return "raw"
+        if self.factor_2d and len(shape) >= 2:
+            return "factor"
+        if self.config is None:
             return "raw"
         return "quant"
 
@@ -82,11 +131,13 @@ def decompress_moment(s) -> torch.Tensor:
     """Alg. 1 line 3 for one leaf."""
     if isinstance(s, QuantizedTensor):
         return dequantize(s)
+    if isinstance(s, FactoredMoment):
+        return s.reconstruct()
     return s
 
 
 def _leaves(node):
-    if isinstance(node, (QuantizedTensor, torch.Tensor)):
+    if isinstance(node, (QuantizedTensor, FactoredMoment, torch.Tensor)):
         yield node
     elif isinstance(node, dict):
         for v in node.values():
@@ -100,10 +151,11 @@ def _leaves(node):
 
 def state_nbytes(state) -> int:
     """Persistent bytes of an optimizer state (Tab. 4/5 accounting): packed
-    codes and scales of quantized leaves, raw tensors (step counts too)."""
+    codes and scales of quantized leaves, rows and columns of factored ones,
+    raw tensors (step counts too)."""
     total = 0
     for leaf in _leaves(state):
-        if isinstance(leaf, QuantizedTensor):
+        if isinstance(leaf, (QuantizedTensor, FactoredMoment)):
             total += leaf.nbytes()
         else:
             total += leaf.numel() * leaf.element_size()

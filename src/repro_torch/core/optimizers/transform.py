@@ -1,6 +1,8 @@
 """Composable gradient transformations with the one compressed-state wrapper
-of Alg. 1 — port of ``repro/core/optimizers/transform.py`` for the rules
-that ``production4bit``, the AdamW family and SGDM use.
+of Alg. 1 — port of ``repro/core/optimizers/transform.py``: ``scale_by_adam``
+(with factored second moments), ``trace``, ``scale_by_sm3``,
+``scale_by_factored_rms``, ``scale_by_shampoo``, weight decay, the learning
+rate, ``compressed``, ``partition`` and ``chain``.
 
 Trees are ordered ``{path: tensor}`` mappings in the reference's leaf order.
 A ``GradientTransformation`` is an ``(init, update)`` pair over updates:
@@ -10,9 +12,13 @@ counts are host-side int32 tensors, so learning rates and bias corrections
 are host fp32 values and reading them never waits for the device.
 
 Differences from the functional reference, all for memory on the card:
-the inner rule runs only on leaves that the fused kernel does not carry
-(the reference computes them all and lets jit drop the unused ones), and
-``apply_updates`` and the fused kernel update fp32 params in place.
+``compressed()`` runs the inner rule one leaf at a time (decompress one
+leaf, update it, recompress it, then the next; the reference hands the
+whole tree to the rule and leaves the scheduling to XLA), and only on the
+leaves that the fused kernel does not carry; ``apply_updates`` and the
+fused kernel update fp32 params in place. Every inner rule of the repo is
+leafwise (per-leaf norms, one shared count), so the result is the
+reference's.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Un
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.optimizers.base import (
+    FactoredMoment,
     Optimizer,
     QuantPolicy,
     compress_moment,
@@ -50,6 +58,12 @@ __all__ = [
     "scale_by_adam",
     "trace",
     "TraceState",
+    "scale_by_sm3",
+    "Sm3State",
+    "scale_by_factored_rms",
+    "FactoredRmsState",
+    "scale_by_shampoo",
+    "ScaleByShampooState",
     "add_decayed_weights",
     "scale_by_learning_rate",
     "FusedAdamWRoute",
@@ -171,7 +185,10 @@ class ScaleByAdamState(NamedTuple):
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
-    """Bias-corrected Adam direction (paper Eq. 1): ``m̂ / (sqrt(v̂)+eps)``."""
+    """Bias-corrected Adam direction (paper Eq. 1): ``m̂ / (sqrt(v̂)+eps)``.
+    A second-moment leaf may be a ``FactoredMoment`` (installed by
+    ``compressed`` under a ``factor_2d`` policy): it is updated by its
+    row/col EMA and reconstructed for the denominator."""
 
     def init(params):
         zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -187,8 +204,15 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
         for k, g in updates.items():
             g = g.to(torch.float32)
             m2 = b1 * state.m[k] + (1.0 - b1) * g
-            v2 = b2 * state.v[k] + (1.0 - b2) * g * g
-            out[k] = (m2 / _dev_scalar(bc1, g)) / (torch.sqrt(v2 / _dev_scalar(bc2, g)) + eps)
+            v = state.v[k]
+            if isinstance(v, FactoredMoment):
+                v2 = v.ema_update(g * g, b2)
+                v_full = v2.reconstruct()
+            else:
+                v2 = b2 * v + (1.0 - b2) * g * g
+                v_full = v2
+            out[k] = (m2 / _dev_scalar(bc1, g)) / (torch.sqrt(v_full / _dev_scalar(bc2, g)) + eps)
+            del v_full
             new_m[k] = m2
             new_v[k] = v2
         return out, ScaleByAdamState(count, new_m, new_v)
@@ -211,6 +235,248 @@ def trace(decay: float) -> GradientTransformation:
     def update(updates, state, params=None, *, key=None):
         new_t = {k: decay * state.trace[k] + g.to(torch.float32) for k, g in updates.items()}
         return new_t, TraceState(new_t)
+
+    return GradientTransformation(init, update)
+
+
+class Sm3State(NamedTuple):
+    acc: Dict[str, Tuple[torch.Tensor, ...]]
+    m: Params
+
+
+def _broadcast_min(accs, shape):
+    """nu_ij = min_r acc_r[i_r] broadcast to ``shape`` (SM3 Alg. 4 style)."""
+    out = None
+    for r, acc in enumerate(accs):
+        view = [1] * len(shape)
+        view[r] = shape[r]
+        b = acc.reshape(view)
+        out = b if out is None else torch.minimum(out, b)
+    return out.expand(shape)
+
+
+def scale_by_sm3(b1: float = 0.9, eps: float = 1e-8) -> GradientTransformation:
+    """SM3 (Anil et al. 2019): sublinear accumulators (one vector per tensor
+    dim; a 0-d param gets one of shape (1,)) + the β1>0 momentum variant."""
+
+    def init(params):
+        def init_acc(p):
+            dims = tuple(p.shape) if p.ndim > 0 else (1,)
+            return tuple(torch.zeros((d,), dtype=torch.float32, device=p.device) for d in dims)
+
+        return Sm3State({k: init_acc(p) for k, p in params.items()},
+                        {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for k, p in params.items()})
+
+    def update(updates, state, params=None, *, key=None):
+        out, new_acc = {}, {}
+        for k, g in updates.items():
+            g = g.to(torch.float32)
+            shape = tuple(g.shape) if g.ndim > 0 else (1,)
+            g_ = g.reshape(shape)
+            nu = _broadcast_min(state.acc[k], shape) + g_ * g_
+            # the max over every other dim (a 1-d leaf's accumulator is nu)
+            new_acc[k] = tuple(
+                torch.amax(nu, dim=tuple(i for i in range(len(shape)) if i != r))
+                if len(shape) > 1 else nu
+                for r in range(len(shape))
+            )
+            u = (g_ / (torch.sqrt(nu) + eps)).reshape(g.shape)
+            out[k] = b1 * state.m[k] + (1 - b1) * u
+        return out, Sm3State(new_acc, out)
+
+    return GradientTransformation(init, update)
+
+
+class FactoredRmsState(NamedTuple):
+    count: torch.Tensor
+    v: Dict[str, Any]
+    m: Optional[Params]
+
+
+def scale_by_factored_rms(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-30,
+                          clip_threshold: float = 1.0) -> GradientTransformation:
+    """Adafactor (Shazeer & Stern 2018): factored second moment for ndim>=2,
+    RMS update clipping, optional first moment (``b1 == 0`` disables it)."""
+
+    def init(params):
+        v = {k: FactoredMoment.zeros(tuple(p.shape), device=p.device) if p.ndim >= 2
+             else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in params.items()}
+        m = None
+        if b1 > 0:
+            m = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for k, p in params.items()}
+        return FactoredRmsState(_count0(), v, m)
+
+    def update(updates, state, params=None, *, key=None):
+        count = state.count + 1
+        bc2 = np.float32(1.0) - fp32_power(b2, int(count))
+        out, new_v, new_m = {}, {}, {}
+        for k, g in updates.items():
+            g = g.to(torch.float32)
+            sq = g * g + eps
+            v = state.v[k]
+            if isinstance(v, FactoredMoment):
+                v2 = v.ema_update(sq, b2)
+                v_hat = v2.reconstruct() / _dev_scalar(bc2, g)
+            else:
+                v2 = b2 * v + (1 - b2) * sq
+                v_hat = v2 / _dev_scalar(bc2, g)
+            del sq
+            u = g / torch.sqrt(torch.clamp_min(v_hat, eps))
+            del v_hat
+            # update clipping: divide by max(1, RMS(u)/d)
+            rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+            u = u / torch.clamp_min(rms_u / _dev_scalar(clip_threshold, g), 1.0)
+            if state.m is not None:
+                u = b1 * state.m[k] + (1 - b1) * u
+                new_m[k] = u
+            out[k] = u
+            new_v[k] = v2
+        return out, FactoredRmsState(count, new_v, new_m if state.m is not None else None)
+
+    return GradientTransformation(init, update)
+
+
+class ScaleByShampooState(NamedTuple):
+    count: torch.Tensor
+    m: Params  # grafting first moment (Adam m)
+    v: Params  # grafting second moment (Adam v)
+    stats_l: Params  # (nblocks, Br, Br) left Kronecker statistics L += G Gᵀ
+    stats_r: Params  # (nblocks, Bc, Bc) right Kronecker statistics R += Gᵀ G
+    precond_l: Params  # (nblocks, Br, Br) L^{-1/4}
+    precond_r: Params  # (nblocks, Bc, Bc) R^{-1/4}
+
+
+def _shampoo_geometry(shape: Tuple[int, ...], block_size: int):
+    """Static blocking of a >=2-d param: leading dims merge into rows, the
+    trailing dim is columns; each dim tiles at min(block_size, dim)."""
+    n = 1
+    for d in shape[:-1]:
+        n *= int(d)
+    m = int(shape[-1])
+    br = min(block_size, n)
+    bc = min(block_size, m)
+    return n, m, br, bc, -(-n // br), -(-m // bc)
+
+
+def _shampoo_to_blocks(x2d, n, m, br, bc, nb_r, nb_c):
+    x = F.pad(x2d, (0, nb_c * bc - m, 0, nb_r * br - n))
+    x = x.reshape(nb_r, br, nb_c, bc).permute(0, 2, 1, 3)
+    return x.reshape(nb_r * nb_c, br, bc)
+
+
+def _shampoo_from_blocks(bx, n, m, br, bc, nb_r, nb_c):
+    x = bx.reshape(nb_r, nb_c, br, bc).permute(0, 2, 1, 3)
+    return x.reshape(nb_r * br, nb_c * bc)[:n, :m]
+
+
+def _shampoo_pad_diag(n, m, br, bc, nb_r, nb_c, device=None):
+    """Per-block diagonal indicators of padded rows/cols: padded dims get
+    +1.0 on the statistics diagonal before the inverse root, so their
+    eigenvalues sit at ~1.0 (inert) instead of at the ridge, whose
+    ridge^{-1/4} would poison the blockwise scales of quantized factors."""
+    rows = np.arange(nb_r * br).reshape(nb_r, br) >= n
+    cols = np.arange(nb_c * bc).reshape(nb_c, bc) >= m
+    pad_l = np.repeat(rows, nb_c, axis=0).astype(np.float32)  # (nb, br)
+    pad_r = np.tile(cols, (nb_r, 1)).astype(np.float32)  # (nb, bc)
+    return torch.from_numpy(pad_l).to(device), torch.from_numpy(pad_r).to(device)
+
+
+def _inv_quarter_root(stats, pad_diag, ridge, floor_rel):
+    """(stats + ridge*I + diag(pad))^{-1/4} per block, by batched eigh, with
+    eigenvalues floored at ``max(ridge, floor_rel * λ_max)`` per block: the
+    relative floor caps the amplification of the spurious near-zero
+    eigenvalues that 4-bit requantization noise manufactures. The input is
+    symmetrized first, as ``jnp.linalg.eigh`` does by default: a factor
+    dequantized from row-wise blocks is not symmetric, and
+    ``torch.linalg.eigh`` would read its lower triangle alone."""
+    d = stats.shape[-1]
+    eye = torch.eye(d, dtype=torch.float32, device=stats.device)
+    a = stats + ridge * eye + pad_diag[:, :, None] * eye
+    a = (a + a.transpose(-1, -2)) / 2
+    w, u = torch.linalg.eigh(a)
+    del a
+    wmax = torch.amax(w, dim=-1, keepdim=True)
+    w = torch.maximum(w, torch.clamp_min(floor_rel * wmax, ridge))
+    return (u * w.pow(-0.25)[:, None, :]) @ u.transpose(-1, -2)
+
+
+def scale_by_shampoo(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
+                     block_size: int = 128, precond_every: int = 10, matrix_eps: float = 1e-6,
+                     floor_rel: float = 0.01) -> GradientTransformation:
+    """Blocked Shampoo (Gupta et al. 2018, block-diagonal as in Anil et al.
+    2020) with AdamW grafting. Each >=2-d param is matricized (leading dims
+    -> rows) and tiled into blocks of at most ``block_size`` a side; per
+    block ``L <- b2 L + (1-b2) G Gᵀ``, ``R <- b2 R + (1-b2) Gᵀ G``, the
+    inverse fourth roots recomputed at step 1 and every ``precond_every``
+    steps after (a host decision on the host count; the stale roots are
+    reused between), and the direction ``P_L m̂ P_R`` grafted onto the AdamW
+    direction's norm per leaf. Params with ndim < 2 take the AdamW
+    direction and hold ``(0,)`` factor placeholders."""
+
+    def _placeholder(p):
+        return torch.zeros((0,), dtype=torch.float32, device=p.device)
+
+    def init(params):
+        zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                         for k, p in params.items()}
+
+        def factor(p, side, identity):
+            if p.ndim < 2:
+                return _placeholder(p)
+            n, m, br, bc, nb_r, nb_c = _shampoo_geometry(tuple(p.shape), block_size)
+            d = br if side == "l" else bc
+            base = torch.zeros((nb_r * nb_c, d, d), dtype=torch.float32, device=p.device)
+            return base + torch.eye(d, dtype=torch.float32, device=p.device) if identity else base
+
+        f = lambda side, identity: {k: factor(p, side, identity) for k, p in params.items()}
+        return ScaleByShampooState(_count0(), zeros(), zeros(), f("l", False), f("r", False),
+                                   f("l", True), f("r", True))
+
+    def update(updates, state, params=None, *, key=None):
+        count = state.count + 1
+        t = int(count)
+        bc1 = np.float32(1.0) - fp32_power(b1, t)
+        bc2 = np.float32(1.0) - fp32_power(b2, t)
+        recompute = (t - 1) % precond_every == 0
+        out = {}
+        new = {name: {} for name in ScaleByShampooState._fields[1:]}
+        for k, g in updates.items():
+            g = g.to(torch.float32)
+            m2 = b1 * state.m[k] + (1.0 - b1) * g
+            v2 = b2 * state.v[k] + (1.0 - b2) * g * g
+            m_hat = m2 / _dev_scalar(bc1, g)
+            adam_dir = m_hat / (torch.sqrt(v2 / _dev_scalar(bc2, g)) + eps)
+            new["m"][k], new["v"][k] = m2, v2
+            if g.ndim < 2:
+                out[k] = adam_dir
+                for name in ("stats_l", "stats_r", "precond_l", "precond_r"):
+                    new[name][k] = getattr(state, name)[k]
+                continue
+            geo = _shampoo_geometry(tuple(g.shape), block_size)
+            n, mm = geo[0], geo[1]
+            gb = _shampoo_to_blocks(g.reshape(n, mm), *geo)
+            sl2 = b2 * state.stats_l[k] + (1.0 - b2) * (gb @ gb.transpose(-1, -2))
+            sr2 = b2 * state.stats_r[k] + (1.0 - b2) * (gb.transpose(-1, -2) @ gb)
+            del gb
+            if recompute:
+                pad_l, pad_r = _shampoo_pad_diag(*geo, device=g.device)
+                pl2 = _inv_quarter_root(sl2 / _dev_scalar(bc2, g), pad_l, matrix_eps, floor_rel)
+                pr2 = _inv_quarter_root(sr2 / _dev_scalar(bc2, g), pad_r, matrix_eps, floor_rel)
+            else:
+                pl2, pr2 = state.precond_l[k], state.precond_r[k]
+            db = pl2 @ _shampoo_to_blocks(m_hat.reshape(n, mm), *geo) @ pr2
+            d = _shampoo_from_blocks(db, *geo).reshape(g.shape)
+            del db, m_hat
+            a_norm = torch.sqrt(torch.sum(adam_dir * adam_dir))
+            d_norm = torch.sqrt(torch.sum(d * d))
+            out[k] = d * (a_norm / (d_norm + 1e-30))
+            del d, adam_dir
+            new["stats_l"][k], new["stats_r"][k] = sl2, sr2
+            new["precond_l"][k], new["precond_r"][k] = pl2, pr2
+        return out, ScaleByShampooState(count, **new)
 
     return GradientTransformation(init, update)
 
@@ -303,64 +569,76 @@ class FusedAdamWRoute:
 def compressed(inner: GradientTransformation, policies: Mapping[str, QuantPolicy], *,
                kernel: Optional[FusedAdamWRoute] = None) -> GradientTransformation:
     """Wrap ``inner`` so the state fields named by ``policies`` persist
-    compressed (Alg. 1); ``kernel`` routes eligible leaves through the fused
-    whole-step kernel."""
+    compressed (Alg. 1): quantized, factored or raw per leaf; ``kernel``
+    routes eligible leaves through the fused whole-step kernel.
+
+    Both ``init`` and ``update`` go one leaf at a time, so no whole fp32 tree
+    of a compressed field ever exists: the inner rule sees a one-leaf state
+    (its per-leaf fields cut to the leaf, its shared fields, the count, as
+    they were), and one call on an empty tree advances the shared fields
+    once per step. SR keys are ``fold_in(key, i)`` over the full leaf order
+    and ``split`` over the fields, as in the reference."""
     policies = dict(policies)
     names = tuple(policies)
 
+    def per_leaf_fields(state):
+        return tuple(f for f in state._fields if isinstance(getattr(state, f), dict))
+
     def init(params):
-        inner_state = inner.init(params)
-        repl = {}
-        for name, pol in policies.items():
-            field = getattr(inner_state, name)
-            repl[name] = {
-                k: compress_moment(field[k], pol.mode(k, tuple(p.shape)), pol.config)
-                for k, p in params.items()
-            }
-        return CompressedState(_count0(), inner_state._replace(**repl))
+        skeleton = inner.init({})  # the shared fields; the per-leaf ones empty
+        fields = per_leaf_fields(skeleton)
+        out = {f: {} for f in fields}
+        for k, p in params.items():
+            one = inner.init({k: p})
+            for f in fields:
+                pol = policies.get(f)
+                mode = pol.mode(k, tuple(p.shape)) if pol is not None else "raw"
+                if mode == "factor":
+                    out[f][k] = FactoredMoment.zeros(tuple(p.shape), device=p.device)
+                elif pol is not None:
+                    out[f][k] = compress_moment(getattr(one, f)[k], mode, pol.config)
+                else:
+                    out[f][k] = getattr(one, f)[k]
+            del one
+        return CompressedState(_count0(), skeleton._replace(**out))
 
     @torch.no_grad()
     def update(updates, state, params=None, *, key=None):
         count = state.count + 1
         step = int(count)
-        comp = {name: getattr(state.inner, name) for name in names}
-        keys = list(updates)
-        leaf_keys = {k: (sr.fold_in(key, i) if key is not None else None)
-                     for i, k in enumerate(keys)}
-        fused = [
-            k for k in keys
-            if kernel is not None and kernel.eligible({n: comp[n][k] for n in names}, params[k])
-        ]
-        rest = [k for k in keys if k not in set(fused)]
-
-        # Alg. 1 lines 3-4 on the leaves the kernel does not carry
-        sub = lambda d: {k: d[k] for k in rest}
-        dec = {name: {k: decompress_moment(comp[name][k]) for k in rest} for name in names}
-        inner_u, new_inner = inner.update(
-            sub(updates), state.inner._replace(**dec), sub(params), key=key
-        )
-
+        fields = per_leaf_fields(state.inner)
+        _, shared = inner.update({}, state.inner._replace(**{f: {} for f in fields}), {},
+                                 key=key)
         out_u: Params = {}
-        new_comp = {name: {} for name in names}
-        for k in keys:
-            if k in inner_u:
-                out_u[k] = inner_u[k]
-                # Alg. 1 line 5: recompress with per-leaf, per-moment SR keys
-                lk = leaf_keys[k]
-                fkeys = (dict(zip(names, sr.split(lk, len(names))))
-                         if lk is not None and len(names) > 1 else {n: lk for n in names})
-                for name in names:
-                    old = comp[name][k]
-                    new = getattr(new_inner, name)[k]
-                    new_comp[name][k] = (quantize(new, old.config, key=fkeys[name])
-                                         if isinstance(old, QuantizedTensor) else new)
-            else:
-                w_new, nc = kernel.run(params[k], updates[k],
-                                       {n: comp[n][k] for n in names}, step, key=leaf_keys[k])
+        new = {f: {} for f in fields}
+        for i, k in enumerate(updates):
+            lk = sr.fold_in(key, i) if key is not None else None
+            comp = {name: getattr(state.inner, name)[k] for name in names}
+            if kernel is not None and kernel.eligible(comp, params[k]):
+                w_new, nc = kernel.run(params[k], updates[k], comp, step, key=lk)
                 out_u[k] = Replace(w_new)
-                for name in names:
-                    new_comp[name][k] = nc[name]
-        return out_u, CompressedState(count, new_inner._replace(**new_comp))
+                for f in fields:
+                    new[f][k] = nc[f] if f in nc else getattr(state.inner, f)[k]
+                continue
+            # Alg. 1 lines 3-4 on this leaf alone: fp32 views of quantized
+            # moments (FactoredMoment and raw leaves pass through structurally)
+            view = {}
+            for f in fields:
+                x = getattr(state.inner, f)[k]
+                view[f] = {k: decompress_moment(x) if isinstance(x, QuantizedTensor) else x}
+            u, one = inner.update({k: updates[k]}, state.inner._replace(**view),
+                                  {k: params[k]} if params is not None else None, key=key)
+            del view
+            out_u[k] = u[k]
+            # Alg. 1 line 5: recompress with per-leaf, per-field SR keys
+            fkeys = (dict(zip(names, sr.split(lk, len(names))))
+                     if lk is not None and len(names) > 1 else {n: lk for n in names})
+            for f in fields:
+                old, x = getattr(state.inner, f)[k], getattr(one, f)[k]
+                new[f][k] = (quantize(x, old.config, key=fkeys[f])
+                             if isinstance(old, QuantizedTensor) else x)
+            del u, one
+        return out_u, CompressedState(count, shared._replace(**new))
 
     return GradientTransformation(init, update)
 

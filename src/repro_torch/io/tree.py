@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.optimizers.base import FactoredMoment
 from repro_torch.core.optimizers.transform import ChainState, PartitionState
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.train.train_loop import TrainState
@@ -87,6 +88,11 @@ def _walk(node: Any, key: str, fn: Visit, masked: Optional[Tuple[str, ...]]):
         aux = repr((tuple(int(d) for d in node.shape), node.config))
         return (QuantizedTensor(codes, scales, node.shape, node.config),
                 f"CustomNode(QuantizedTensor[{aux}], [*, {_tuple(['*'] * len(scales))}])")
+    if isinstance(node, FactoredMoment):
+        row, col = fn(key + ".row", node.row), fn(key + ".col", node.col)
+        return (FactoredMoment(row, col, node.shape),
+                f"CustomNode(FactoredMoment[{repr((tuple(int(d) for d in node.shape),))}], "
+                "[*, *])")
     if isinstance(node, tuple) and hasattr(node, "_fields"):  # the NamedTuple states
         vals, parts = [], []
         for f in node._fields:
@@ -143,6 +149,10 @@ def _walk_dict(d: Mapping, key: str, fn: Visit, masked: Optional[Tuple[str, ...]
         return s
 
     s = render(root, key)
+    # render and child close over each other: clear the cells, or the cycle
+    # keeps ``fn`` (and through it a restore's leaves) alive until the next
+    # cyclic collection
+    render = child = None
     extra = set(d) - set(rebuilt)
     if extra:
         raise ValueError(f"checkpoint tree: entries {sorted(extra)} are not parameter paths "

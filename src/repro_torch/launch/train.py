@@ -6,8 +6,10 @@ Port of ``repro/launch/train.py`` for one device:
         --optimizer production4bit --sr-seed 0 --steps 5
 
 runs on ``cuda`` (``--device cpu --reduced`` runs the same path at CPU
-scale). The flags are the reference's; ``--mesh`` and ``--grad-comm`` other
-than fp32 are not ported yet and are refused.
+scale). The flags are the reference's; ``--mesh`` is not ported yet and is
+refused. ``--grad-comm {fp32,bf16,int8,int4}`` applies the gradient wire
+format on the one device (int8/int4: block-quantized transport with
+stochastic rounding keyed off the ``--sr-seed`` stream).
 
 With ``--ckpt-dir`` the run saves its state (format v2, asynchronously)
 after every step ``t`` with ``(t + 1) % --ckpt-every == 0``, keeps the
@@ -29,6 +31,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.comms import GRAD_COMM_MODES, CommsConfig, wire_report
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.core.optimizers import (
     linear_warmup_linear_decay,
@@ -36,6 +39,8 @@ from repro_torch.core.optimizers import (
     optimizer_names,
     state_nbytes,
 )
+from repro_torch.core.optimizers.base import _leaves
+from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.io import CheckpointManager
 from repro_torch.kernels import sr
@@ -70,7 +75,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--sr-seed", type=int, default=None,
                     help="seed of the stochastic-rounding key stream (omit for round-to-nearest)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--grad-comm", default="fp32", help="only fp32 in the port so far")
+    ap.add_argument("--grad-comm", default="fp32", choices=list(GRAD_COMM_MODES),
+                    help="gradient wire format; int8/int4 block-quantize the gradients")
     ap.add_argument("--mesh", default=None, help="not ported yet")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -81,14 +87,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.mesh is not None:
         ap.error("--mesh: the port runs on one device; the mesh path is not ported yet")
-    if args.grad_comm != "fp32":
-        ap.error("--grad-comm: only fp32 (no gradient collective on one device) is ported")
     if args.ckpt_every < 1:
         ap.error("--ckpt-every: must be at least 1")
     for kv in args.opt_arg:
         if "=" not in kv:
             ap.error(f"--opt-arg {kv!r}: expected K=V (e.g. use_kernel=true)")
     return args
+
+
+def _uses_stochastic_rounding(opt_state) -> bool:
+    return any(isinstance(leaf, QuantizedTensor) and leaf.config.stochastic_rounding
+               for leaf in _leaves(opt_state))
 
 
 def abstract_train_state(cfg, optimizer, key=None, device=None):
@@ -109,8 +118,8 @@ def abstract_train_state(cfg, optimizer, key=None, device=None):
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the CLI; returns a summary (per-step loss and ms, state bytes,
-    peak device memory, checkpoint times) for callers such as
-    ``chip_smoke.py``."""
+    the gradient wire report, peak device memory, checkpoint times) for
+    callers such as ``chip_smoke.py``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -146,9 +155,20 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     n_params = sum(p.numel() for p in state.params.values())
     print(f"arch={cfg.name} params={n_params:,} optimizer={opt.name} "
           f"state_bytes={nbytes:,} device={device}")
+    comms = CommsConfig.parse(args.grad_comm)
+    wire = wire_report(state.params, comms)
+    print(f"grad-comm={comms.name} collective_bytes/step={wire['total_wire_bytes']:,} "
+          f"({wire['ratio_vs_fp32']:.2f}x fewer than fp32, "
+          f"{wire['quantized_leaves']}/{wire['n_leaves']} leaves quantized)")
+    if sr_key is None and _uses_stochastic_rounding(state.opt_state):
+        print("warning: optimizer is configured for stochastic rounding but no --sr-seed was "
+              "given — quantization falls back to biased round-to-nearest")
+    if sr_key is None and comms.quantized and comms.stochastic_rounding:
+        print(f"warning: --grad-comm {comms.mode} transports gradients with stochastic rounding "
+              "but no --sr-seed was given — transport falls back to biased round-to-nearest")
 
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
-    step_fn = build_train_step(model, opt)
+    step_fn = build_train_step(model, opt, comms=comms)
     records = []
     for t in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(t).items()}
@@ -175,8 +195,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                   f"committed after {rec['commit_s']:.1f} s")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     return {"arch": cfg.name, "optimizer": opt.name, "state_bytes": nbytes,
-            "n_params": n_params, "steps": records, "peak_bytes": peak, "state": state,
-            "checkpoint": ckpt if mgr else None}
+            "n_params": n_params, "wire": wire, "steps": records, "peak_bytes": peak,
+            "state": state, "checkpoint": ckpt if mgr else None}
 
 
 if __name__ == "__main__":

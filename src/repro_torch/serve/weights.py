@@ -15,10 +15,13 @@ The device copy stays packed; ``materialize`` dequantizes every
 ``QuantizedTensor`` to fp32 with the dequantize kernel, once per prefill and
 once per decode chunk in the engine. The tensors are exactly
 ``core.quantizer.quantize(x, WEIGHT_Q4)``'s: codes packed along the last
-axis, scales flat ``(n/128,)``. On a leaf whose last dim is even and whose
-size is a multiple of 128 that is the kernels' ``(R, C)`` layout on a view
-of the flat array (``C`` the last dim when it is a multiple of 128, else
-128); any other eligible leaf raises, naming its shape.
+axis, scales flat ``(n/128,)``. On a leaf whose last dim is a multiple of
+128, or is even with a size that is a multiple of 128, that is the
+kernels' ``(R, C)`` layout on a view of the flat array (``C`` the last dim
+when it is a multiple of 128, else 128), and B2/B3 run on it. Any other
+eligible leaf (an odd last dim, such as GPT-2's 50257-wide head, pads its
+code rows with a zero nibble and its last scale block) takes the plain
+``quantize``/``dequantize``; the route is chosen from the shape alone.
 
 ``weight_report`` is structural (shapes alone): per-leaf rows, totals and
 the q4-vs-bf16 ratio.
@@ -26,12 +29,18 @@ the q4-vs-bf16 ratio.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.core.optimizers.base import tree_order
-from repro_torch.core.quantizer import QuantConfig, QuantizedTensor, quantized_nbytes
+from repro_torch.core.quantizer import (
+    QuantConfig,
+    QuantizedTensor,
+    dequantize,
+    quantize,
+    quantized_nbytes,
+)
 from repro_torch.kernels import quant4
 
 __all__ = [
@@ -66,17 +75,24 @@ def _eligible(shape) -> bool:
     return len(shape) >= 2 and _numel(shape) > THRESHOLD
 
 
-def kernel_view(shape: Tuple[int, ...]) -> Tuple[int, int]:
-    """The kernels' (R, C) view of a leaf on which it equals ``quantize``'s
-    layout (codes along the last axis, flat B128 scales)."""
+def _view(shape: Tuple[int, ...]) -> Optional[Tuple[int, int]]:
     n, last = _numel(shape), int(shape[-1])
     if last % 128 == 0:
         return n // last, last
     if last % 2 == 0 and n % 128 == 0:
         return n // 128, 128
-    raise ValueError(f"q4 weights: leaf of shape {tuple(shape)} has no (R, C) view with "
-                     f"C % 128 == 0 and whole codes per row (odd last dim or size not a "
-                     f"multiple of 128)")
+    return None
+
+
+def kernel_view(shape: Tuple[int, ...]) -> Tuple[int, int]:
+    """The kernels' (R, C) view of a leaf on which it equals ``quantize``'s
+    layout (codes along the last axis, flat B128 scales)."""
+    view = _view(shape)
+    if view is None:
+        raise ValueError(f"q4 weights: leaf of shape {tuple(shape)} has no (R, C) view with "
+                         f"C % 128 == 0 and whole codes per row (odd last dim or size not a "
+                         f"multiple of 128)")
+    return view
 
 
 def _check_mode(mode: str) -> None:
@@ -86,14 +102,20 @@ def _check_mode(mode: str) -> None:
 
 def _quantize_leaf(x: torch.Tensor) -> QuantizedTensor:
     shape = tuple(x.shape)
-    R, C = kernel_view(shape)
+    view = _view(shape)
+    if view is None:
+        return quantize(x.to(torch.float32), WEIGHT_Q4)
+    R, C = view
     codes, scales = quant4.quantize_blockwise_4bit(x.reshape(R, C), WEIGHT_Q4.table("cpu"))
     return QuantizedTensor(codes.reshape(shape[:-1] + (shape[-1] // 2,)), (scales.reshape(-1),),
                            shape, WEIGHT_Q4)
 
 
 def _dequantize_leaf(q: QuantizedTensor) -> torch.Tensor:
-    R, C = kernel_view(q.shape)
+    view = _view(q.shape)
+    if view is None:
+        return dequantize(q)
+    R, C = view
     x = quant4.dequantize_blockwise_4bit(q.codes.reshape(R, C // 2),
                                          q.scales[0].reshape(R, C // 128),
                                          q.config.table("cpu"))

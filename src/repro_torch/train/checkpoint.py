@@ -14,7 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.optimizers.base import tree_order
+from repro_torch.core.optimizers.base import FactoredMoment, tree_order
 from repro_torch.core.optimizers.transform import ChainState
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.io import (  # noqa: F401  (re-exported public API)
@@ -39,7 +39,11 @@ __all__ = [
 
 
 def _device(leaf) -> torch.device:
-    return (leaf.codes if isinstance(leaf, QuantizedTensor) else leaf).device
+    if isinstance(leaf, QuantizedTensor):
+        return leaf.codes.device
+    if isinstance(leaf, FactoredMoment):
+        return leaf.row.device
+    return leaf.device
 
 
 def migrate_legacy_state(dict_state: Dict, tx, field_map: Optional[Dict[str, str]] = None):
@@ -47,7 +51,8 @@ def migrate_legacy_state(dict_state: Dict, tx, field_map: Optional[Dict[str, str
 
     ``dict_state`` is the legacy layout (``{"m": {path: leaf}, "v": {path:
     leaf}, "step": int}`` for the AdamW family; SGDM's momentum lived under
-    ``"m"``), with moment leaves fp32 tensors or ``QuantizedTensor``. ``tx``
+    ``"m"``), with moment leaves fp32 tensors, ``QuantizedTensor`` or
+    ``FactoredMoment``. ``tx``
     is the chain (or ``Optimizer``) the state should feed; it must use the
     legacy run's quantization policies, which is checked per moment tree.
 

@@ -1,11 +1,13 @@
 """Single-device training step (port of ``repro/train/train_loop.py``
-without the mesh and the gradient collectives).
+without the mesh).
 
-``build_train_step(model, optimizer)`` returns ``train_step(state, batch)
--> (state, metrics)``: loss and gradients by autograd (with ``accum_steps``
-microbatches accumulated in fp32), then the optimizer update with the
-stochastic-rounding key ``fold_in(state.key, state.step)``, so the key
-stream is a pure function of (base key, step) as in the reference. The
+``build_train_step(model, optimizer, comms=)`` returns ``train_step(state,
+batch) -> (state, metrics)``: loss and gradients by autograd (with
+``accum_steps`` microbatches accumulated in fp32), the gradient wire format
+of ``comms`` (``repro_torch.comms``; its stochastic rounding keyed by
+``grad_comm_key(state.key, state.step)``), then the optimizer update with
+the stochastic-rounding key ``fold_in(state.key, state.step)``, so both key
+streams are pure functions of (base key, step) as in the reference. The
 params are the model's own tensors, updated in place.
 """
 
@@ -16,6 +18,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.comms import CommsConfig, grad_comm_key, reduce_grads
 from repro_torch.core.optimizers.base import Optimizer
 from repro_torch.kernels import sr
 from repro_torch.models import Transformer, loss_fn, named_params
@@ -43,10 +46,12 @@ def make_train_state(model: Transformer, optimizer: Optimizer,
     return TrainState(params, opt_state, 0, key)
 
 
-def build_train_step(model: Transformer, optimizer: Optimizer, *,
-                     accum_steps: int = 1) -> Callable:
+def build_train_step(model: Transformer, optimizer: Optimizer, *, accum_steps: int = 1,
+                     comms: Optional[CommsConfig] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics are
-    0-d tensors on the model's device (reading them waits for the step)."""
+    0-d tensors on the model's device (reading them waits for the step).
+    ``comms`` selects the gradient wire format (fp32 by default)."""
+    comms = comms if comms is not None else CommsConfig()
 
     def compute_grads(batch):
         loss, metrics = loss_fn(model, batch)
@@ -75,6 +80,13 @@ def build_train_step(model: Transformer, optimizer: Optimizer, *,
         else:
             loss, metrics = compute_grads(batch)
             grads = {k: p.grad for k, p in params.items()}
+
+        # the gradient wire format; its transport SR key is domain-separated
+        # from the optimizer-state stream
+        if comms.compresses:
+            ck = (grad_comm_key(state.key, state.step)
+                  if comms.quantized and comms.stochastic_rounding else None)
+            grads = reduce_grads(grads, None, None, comms, key=ck)
 
         step_key = sr.fold_in(state.key, state.step) if state.key is not None else None
         with torch.no_grad():

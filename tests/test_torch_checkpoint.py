@@ -25,7 +25,15 @@ from repro.core.optimizers.adamw import M_4BIT as J_M_4BIT  # noqa: E402
 from repro.core.optimizers.adamw import V_4BIT as J_V_4BIT  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax, serving_params_from_jax  # noqa: E402
-from repro_torch.core.optimizers import adamw4bit, adamw8bit, make_optimizer, sgdm4bit  # noqa: E402
+from repro.core.optimizers import FactoredMoment as JFactoredMoment  # noqa: E402
+from repro_torch.core.optimizers import (  # noqa: E402
+    FactoredMoment,
+    adamw4bit,
+    adamw8bit,
+    factor4bit,
+    make_optimizer,
+    sgdm4bit,
+)
 from repro_torch.core.optimizers.transform import ChainState  # noqa: E402
 from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.io import CheckpointManager, save_checkpoint  # noqa: E402
@@ -224,6 +232,47 @@ def test_migrate_legacy_adamw4bit_state_continues_bit_identical():
         jax.tree_util.tree_map(np.asarray, p_l), device="cpu")), "migrated params")
     _assert_moment_equal(s_new.states[0].inner.m, s_l["m"], "migrated m")
     _assert_moment_equal(s_new.states[0].inner.v, s_l["v"], "migrated v")
+
+
+def _legacy_factored_to_port(s):
+    """A legacy state whose v holds the reference's ``FactoredMoment``s."""
+    out = {"m": _to_port(s["m"]), "step": int(s["step"])}
+    out["v"] = {k: FactoredMoment(torch.from_numpy(np.array(v.row)),
+                                  torch.from_numpy(np.array(v.col)), v.shape)
+                if isinstance(v, JFactoredMoment) else torch.from_numpy(np.array(v))
+                for k, v in sorted(s["v"].items())}
+    return out
+
+
+def test_migrate_legacy_factor4bit_state_continues():
+    """A legacy factored second moment (``FactoredMoment`` leaves) migrates
+    into factor4bit's chain and continues as the legacy optimizer does:
+    params and the factored rows and columns within 1e-6 of the leaf's
+    scale (means sum in another order), m codes bit-equal."""
+    params = _legacy_params()
+    legacy = legacy_quantized_adamw(3e-3, m_policy=JQuantPolicy(config=J_M_4BIT),
+                                    v_policy=JQuantPolicy(config=J_V_4BIT, factor_2d=True))
+    p_l, s_l = _j(params), legacy.init(_j(params))
+    for t in range(3):
+        p_l, s_l = legacy.update(_j(_legacy_grads(t, params)), s_l, p_l)
+    new_opt = factor4bit(3e-3)
+    migrated = migrate_legacy_state(_legacy_factored_to_port(s_l), new_opt)
+    inner = migrated.states[0].inner
+    assert isinstance(inner.v["w"], FactoredMoment) and int(migrated.states[0].count) == 3
+    p_new, s_new = params_from_jax(jax.tree_util.tree_map(np.asarray, p_l), device="cpu"), migrated
+    for t in range(3, 5):
+        g = _legacy_grads(t, params)
+        p_l, s_l = legacy.update(_j(g), s_l, p_l)
+        p_new, s_new = new_opt.update(params_from_jax(g, device="cpu"), s_new, p_new)
+    close = lambda a, b, what: np.testing.assert_allclose(
+        a, b, rtol=1e-6, atol=1e-6 * np.abs(b).max(), err_msg=what)
+    for k, p in p_new.items():
+        close(p.numpy(), np.asarray(p_l[k]), k)
+    inner, want = s_new.states[0].inner, _legacy_factored_to_port(s_l)
+    for k in ("w", "embed"):
+        close(inner.v[k].row.numpy(), want["v"][k].row.numpy(), f"{k} row")
+        close(inner.v[k].col.numpy(), want["v"][k].col.numpy(), f"{k} col")
+    _assert_moment_equal(inner.m, s_l["m"], "migrated factor4bit m")
 
 
 def test_migrate_legacy_state_validates_policies():

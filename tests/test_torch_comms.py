@@ -1,0 +1,336 @@
+"""The gradient wire formats of the port (``repro_torch.comms``) against the
+reference's ``repro.comms``: the single-process cases of
+``tests/test_comms.py``.
+
+* ``CommsConfig``: parsing, properties, mapping validation;
+* accounting: per-leaf bytes equal the real payload, reports equal the
+  reference's, and the structural totals of GPT-2-M (int4 215,142,464 B
+  against 1,619,865,600 B fp32) and internlm2-1.8b (all four modes);
+* ``reduce_grads`` without a mesh: fp32 passes through, bf16 casts bit for
+  bit, int8/int4 transport codes and scales bit-equal to the reference's
+  (round to nearest, and stochastic rounding from the same key), outputs
+  bit-equal; ``grad_comm_key`` equals the reference's key;
+* the train step with ``comms=``: three reduced production4bit SR steps
+  against the reference's jitted step, losses within 2e-4 relative and
+  gradient norms within 5e-3 (the tolerances of ``test_torch_train.py``;
+  the bf16 products round at other places, which can move a transport
+  code); the CLI's wire line and both SR warnings; a mesh refused.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.comms import CommsConfig as JCommsConfig  # noqa: E402
+from repro.comms import grad_comm_key as j_grad_comm_key  # noqa: E402
+from repro.comms import reduce_grads as j_reduce_grads  # noqa: E402
+from repro.comms import wire_report as j_wire_report  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs import reduced_config as j_reduced  # noqa: E402
+from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
+from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
+from repro.core.quantizer import quantize as j_quantize  # noqa: E402
+from repro.kernels import sr as j_sr  # noqa: E402
+from repro.models import init_model as j_init  # noqa: E402
+from repro.train.train_loop import build_train_step as j_build  # noqa: E402
+from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
+from repro_torch.comms import (  # noqa: E402
+    GRAD_COMM_KEY_DOMAIN,
+    GRAD_COMM_MODES,
+    CommsConfig,
+    format_wire_table,
+    grad_comm_key,
+    leaf_wire_bytes,
+    mode_totals,
+    quantized_all_reduce,
+    reduce_grads,
+    wire_report,
+)
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.convert import load_params, params_from_jax  # noqa: E402
+from repro_torch.core.optimizers import make_optimizer  # noqa: E402
+from repro_torch.core.optimizers.schedule import linear_warmup_linear_decay  # noqa: E402
+from repro_torch.core.quantizer import quantize  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.kernels import sr  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import LayerSpec, ModelConfig, init_model, named_params  # noqa: E402
+from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def _grads_np():
+    rng = np.random.default_rng(0)
+    return {"embed": rng.standard_normal((256, 64), dtype=np.float32),
+            "w": rng.standard_normal((128, 128), dtype=np.float32),
+            "bias": rng.standard_normal((64,), dtype=np.float32)}
+
+
+def _grads():
+    return {k: torch.from_numpy(v) for k, v in _grads_np().items()}
+
+
+def _jgrads():
+    return {k: jnp.asarray(v) for k, v in _grads_np().items()}
+
+
+def _bits(x):
+    x = x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+    return x.reshape(-1).view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# config
+# ---------------------------------------------------------------------------
+
+
+def test_commsconfig_parse_and_properties():
+    cfg = CommsConfig.parse("INT4")
+    assert cfg.mode == "int4" and cfg.bits == 4 and cfg.quantized
+    assert cfg.compresses and cfg.cast_dtype is None
+    q = cfg.quant_config()
+    assert q.bits == 4 and q.signed and q.normalization == "blockwise"
+    assert q.block_size == 128 and q.stochastic_rounding
+    assert cfg.name == JCommsConfig.parse("INT4").name == "int4/B128/DE+SR"
+    bf16 = CommsConfig(mode="bf16")
+    assert not bf16.quantized and bf16.compresses
+    assert bf16.cast_dtype == torch.bfloat16 and bf16.quant_config() is None
+    fp32 = CommsConfig()
+    assert not fp32.compresses and fp32.quant_config() is None
+    assert GRAD_COMM_MODES == ("fp32", "bf16", "int8", "int4")
+    assert GRAD_COMM_KEY_DOMAIN == 0x67726164
+    with pytest.raises(ValueError, match="unknown grad-comm mode"):
+        CommsConfig(mode="int2")
+
+
+def test_commsconfig_validates_mapping():
+    from repro_torch.core import mappings
+
+    with pytest.raises(ValueError, match="registered mappings"):
+        CommsConfig(mode="int4", mapping="ed")
+    for name in mappings.registered():
+        assert CommsConfig(mode="int4", mapping=name).quant_config().mapping == name
+
+
+def test_grad_dtype_knob_is_gone():
+    model = init_model(reduced_config("internlm2-1.8b"), device="cpu")
+    with pytest.raises(TypeError):
+        build_train_step(model, make_optimizer("adamw32", 1e-3), grad_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# accounting
+# ---------------------------------------------------------------------------
+
+
+def test_leaf_wire_bytes_matches_real_payload():
+    cfg = CommsConfig(mode="int4")
+    g = _grads()["embed"]
+    fp32, wire = leaf_wire_bytes(tuple(g.shape), cfg)
+    assert fp32 == g.numel() * 4
+    assert wire == quantize(g, cfg.quant_config()).nbytes()
+    assert leaf_wire_bytes((64,), cfg) == (256, 256)
+    assert leaf_wire_bytes((64,), CommsConfig(mode="bf16")) == (256, 128)
+
+
+def test_wire_report_ratios_and_floor():
+    grads = _grads()
+    reports = {r["mode"]: r for r in mode_totals(grads)}
+    assert reports["fp32"]["ratio_vs_fp32"] == 1.0
+    assert reports["bf16"]["ratio_vs_fp32"] == pytest.approx(2.0)
+    assert reports["int8"]["ratio_vs_fp32"] > 3.5
+    assert reports["int4"]["ratio_vs_fp32"] >= 4.0
+    for mode in GRAD_COMM_MODES:
+        j = j_wire_report(_jgrads(), JCommsConfig(mode=mode))
+        t = reports[mode]
+        for key in ("name", "n_leaves", "quantized_leaves", "total_fp32_bytes",
+                    "total_wire_bytes", "ratio_vs_fp32"):
+            assert t[key] == j[key], (mode, key)
+        assert [(r["path"], r["wire_bytes"]) for r in t["leaves"]] == \
+            [(r["path"], r["wire_bytes"]) for r in j["leaves"]]
+    r = reports["int4"]
+    assert r["quantized_leaves"] == 2 and r["n_leaves"] == 3
+    assert sum(row["wire_bytes"] for row in r["leaves"]) == r["total_wire_bytes"]
+    table = format_wire_table(mode_totals(grads), title="t")
+    assert "int4" in table and "| grad-comm |" in table
+
+
+def test_wire_report_gpt2m():
+    cfg = ModelConfig(name="gpt2m-like", num_layers=24, d_model=1024, num_heads=16,
+                      num_kv_heads=16, head_dim=64, d_ff=4096, vocab_size=50257,
+                      blocks=(LayerSpec("dense", 0),) * 24, gated_mlp=False)
+    r = wire_report(named_params(init_model(cfg, device="meta")), CommsConfig(mode="int4"))
+    assert r["total_wire_bytes"] == 215_142_464 and r["total_fp32_bytes"] == 1_619_865_600
+    assert r["ratio_vs_fp32"] >= 4.0
+
+
+@pytest.mark.parametrize("mode,wire,quantized", [
+    ("fp32", 7_556_440_064, 0), ("bf16", 3_778_220_032, 0),
+    ("int8", 1_948_150_784, 11), ("int4", 1_003_596_800, 11),
+])
+def test_wire_report_internlm2(mode, wire, quantized):
+    params = named_params(init_model(get_config("internlm2-1.8b"), device="meta"))
+    r = wire_report(params, CommsConfig(mode=mode))
+    jparams = jax.eval_shape(lambda: j_init(jax.random.PRNGKey(0),
+                                            j_get_config("internlm2-1.8b"))[0])
+    assert r["total_wire_bytes"] == j_wire_report(jparams, JCommsConfig(mode=mode))[
+        "total_wire_bytes"] == wire
+    assert r["quantized_leaves"] == quantized and r["n_leaves"] == 12
+
+
+# ---------------------------------------------------------------------------
+# reduce_grads numerics
+# ---------------------------------------------------------------------------
+
+
+def test_reduce_grads_fp32_and_bf16_modes():
+    grads = _grads()
+    out = reduce_grads(grads, None, None, CommsConfig())
+    for k in grads:
+        assert torch.equal(out[k], grads[k])
+    out = reduce_grads(grads, None, None, CommsConfig(mode="bf16"))
+    jout = j_reduce_grads(_jgrads(), None, None, JCommsConfig(mode="bf16"))
+    for k in grads:
+        assert out[k].dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(out[k]), _bits(jout[k]))
+
+
+def test_reduce_grads_quantized_threshold_and_error():
+    grads = _grads()
+    key = grad_comm_key(sr.PRNGKey(0), 0)
+    out = reduce_grads(grads, None, None, CommsConfig(mode="int4"), key=key)
+    assert torch.equal(out["bias"], grads["bias"])  # sub-threshold: untouched, fp32
+    for k in ("embed", "w"):
+        g, d = grads[k], (out[k] - grads[k]).abs()
+        assert float(d.max()) <= float(g.abs().max())
+        assert float(d.mean()) < 0.2 * float(g.abs().mean())
+        assert not torch.equal(out[k], g)
+
+
+def test_reduce_grads_rtn_without_key_is_deterministic():
+    cfg = CommsConfig(mode="int4")
+    a = reduce_grads(_grads(), None, None, cfg, key=None)
+    b = reduce_grads(_grads(), None, None, cfg, key=None)
+    for k in a:
+        assert torch.equal(a[k], b[k])
+
+
+def test_grad_comm_key_stream():
+    assert grad_comm_key(None, 3) is None
+    base = sr.PRNGKey(7)
+    k3 = grad_comm_key(base, 3)
+    jk3 = j_grad_comm_key(jax.random.PRNGKey(7), jnp.int32(3))
+    assert k3 == tuple(int(w) for w in np.asarray(jax.random.key_data(jk3)))
+    assert grad_comm_key(base, 3) == k3 != grad_comm_key(base, 4)
+    assert k3 != sr.fold_in(base, 3)  # apart from the optimizer's per-step key
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("use_sr", [False, True], ids=["rtn", "sr"])
+def test_transport_bit_equal_to_reference(mode, use_sr):
+    """Codes and scales of every quantized leaf, and the reduced tree, equal
+    the reference's for the same key (round to nearest without one)."""
+    cfg, jcfg = CommsConfig(mode=mode), JCommsConfig(mode=mode)
+    key = grad_comm_key(sr.PRNGKey(5), 2) if use_sr else None
+    jkey = j_grad_comm_key(jax.random.PRNGKey(5), jnp.int32(2)) if use_sr else None
+    grads, jgrads = _grads(), _jgrads()
+    for i, k in enumerate(sorted(grads)):  # the reference's leaf order
+        if grads[k].numel() <= cfg.threshold:
+            continue
+        u = sr.tensor_uniforms(sr.fold_in(key, i), tuple(grads[k].shape), sr.STREAM_GRAD,
+                               "cpu") if use_sr else None
+        ju = j_sr.tensor_uniforms(jax.random.fold_in(jkey, i), jgrads[k].shape,
+                                  j_sr.STREAM_GRAD) if use_sr else None
+        q = quantize(grads[k], cfg.quant_config(), uniforms=u)
+        jq = j_quantize(jgrads[k], jcfg.quant_config(), uniforms=ju)
+        np.testing.assert_array_equal(q.codes.numpy(), np.asarray(jq.codes), err_msg=k)
+        np.testing.assert_array_equal(_bits(q.scales[0]), _bits(jq.scales[0]), err_msg=k)
+    out = reduce_grads(grads, None, None, cfg, key=key)
+    jout = j_reduce_grads(jgrads, None, None, jcfg, key=jkey)
+    for k in grads:
+        np.testing.assert_array_equal(_bits(out[k]), _bits(jout[k]), err_msg=k)
+
+
+def test_mesh_path_not_ported():
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        reduce_grads(_grads(), {"w": ("embed", "mlp")}, object(), CommsConfig(mode="int4"))
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        quantized_all_reduce(torch.zeros(4), CommsConfig(mode="int4").quant_config(), "data")
+
+
+# ---------------------------------------------------------------------------
+# the train step and the CLI
+# ---------------------------------------------------------------------------
+
+
+def _batch(step):
+    return SyntheticLM(DataConfig(512, 32, 4)).batch_at(step)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_train_steps_with_comms_match_reference(mode):
+    from repro.comms import CommsConfig as JC
+
+    jcfg = j_reduced("internlm2-1.8b")
+    jparams, _ = j_init(jax.random.PRNGKey(0), jcfg)
+    model = init_model(reduced_config("internlm2-1.8b"), device="cpu")
+    load_params(model, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"))
+    steps = 3
+    jopt = j_make("production4bit", j_sched(1e-3, 1, steps))
+    topt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, steps))
+    jstate = j_make_state(jparams, jopt, key=jax.random.PRNGKey(0))
+    tstate = make_train_state(model, topt, key=sr.PRNGKey(0))
+    jstep = jax.jit(j_build(jcfg, jopt, comms=JC(mode=mode)))
+    tstep = build_train_step(model, topt, comms=CommsConfig(mode=mode))
+    for t in range(steps):
+        b = _batch(t)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tm = tstep(tstate, {k: torch.from_numpy(v) for k, v in b.items()})
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=2e-4)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=5e-3)
+
+
+def test_int4_comms_training_moves_loss_single_process():
+    """int4 transport trains the reduced LM to a loss close to the fp32
+    run's (the reference's ``test_int4_comms_training_moves_loss``)."""
+    losses = {}
+    for mode in ("fp32", "int4"):
+        model = init_model(reduced_config("internlm2-1.8b"), seed=0, device="cpu")
+        opt = make_optimizer("adamw32", 3e-3)
+        state = make_train_state(model, opt, key=sr.PRNGKey(5))
+        step = build_train_step(model, opt, comms=CommsConfig(mode=mode))
+        for t in range(12):
+            state, metrics = step(state, {k: torch.from_numpy(v) for k, v in _batch(t).items()})
+        losses[mode] = float(metrics["loss"])
+    assert np.isfinite(losses["int4"])
+    assert losses["int4"] < np.log(512)
+    assert abs(losses["int4"] - losses["fp32"]) < 0.3
+
+
+CLI = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu", "--steps", "1",
+       "--batch", "2", "--seq", "16"]
+WARN_OPT = "optimizer is configured for stochastic rounding but no --sr-seed"
+WARN_COMM = "--grad-comm int4 transports gradients with stochastic rounding but no --sr-seed"
+
+
+@pytest.mark.parametrize("opt,seed,warnings", [
+    ("production4bit", None, (WARN_OPT, WARN_COMM)),
+    ("adamw32", None, (WARN_COMM,)),
+    ("production4bit", "0", ()),
+], ids=["both", "transport_only", "seeded"])
+def test_cli_grad_comm_line_and_warnings(opt, seed, warnings, capsys):
+    args = CLI + ["--optimizer", opt, "--grad-comm", "int4"]
+    out = train.main(args + (["--sr-seed", seed] if seed else []))
+    text = capsys.readouterr().out
+    wire = out["wire"]
+    assert (f"grad-comm=int4/B128/DE+SR collective_bytes/step={wire['total_wire_bytes']:,} "
+            f"({wire['ratio_vs_fp32']:.2f}x fewer than fp32, "
+            f"{wire['quantized_leaves']}/{wire['n_leaves']} leaves quantized)") in text
+    for w in (WARN_OPT, WARN_COMM):
+        assert (w in text) == (w in warnings), w
+    assert np.isfinite(out["steps"][0]["loss"])

@@ -62,10 +62,12 @@ torch.set_num_threads(1)
 _MICRO = dict(num_layers=1, d_model=64, num_heads=2, num_kv_heads=1, head_dim=32,
               vocab_size=256)
 OPTIMIZERS = [("adamw32", {}), ("adamw8bit", {}), ("adamw4bit", {}),
-              ("adamw4bit", {"stochastic_rounding": True}), ("production4bit", {}),
-              ("sgdm", {}), ("sgdm4bit", {})]
-OPT_IDS = ["adamw32", "adamw8bit", "adamw4bit", "adamw4bit_sr", "production4bit", "sgdm",
-           "sgdm4bit"]
+              ("adamw4bit", {"stochastic_rounding": True}), ("factor4bit", {}),
+              ("adafactor", {}), ("adafactor", {"b1": 0.0}), ("sm3", {}), ("sgdm", {}),
+              ("sgdm4bit", {}), ("production4bit", {}), ("shampoo32", {}), ("shampoo4bit", {})]
+OPT_IDS = ["adamw32", "adamw8bit", "adamw4bit", "adamw4bit_sr", "factor4bit", "adafactor",
+           "adafactor_b1_0", "sm3", "sgdm", "sgdm4bit", "production4bit", "shampoo32",
+           "shampoo4bit"]
 # the internlm2-1.8b checkpoint of production4bit with an SR key: fp32 params
 # (1,889,110,016 of them) + state_nbytes + .step (4 B) + .key (8 B)
 INTERNLM2_CKPT_BYTES = 7_556_440_064 + 4_590_578_552 + 4 + 8
@@ -218,7 +220,14 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     ("production4bit", {}),
     ("adamw4bit", {"stochastic_rounding": True, "use_kernel": True}),
     ("sgdm4bit", {}),
-], ids=["production4bit", "adamw4bit_sr_kernel", "sgdm4bit"])
+    ("factor4bit", {}),
+    ("adafactor", {}),
+    ("adafactor", {"b1": 0.0}),
+    ("sm3", {}),
+    ("shampoo32", {}),
+    ("shampoo4bit", {"stochastic_rounding": True}),
+], ids=["production4bit", "adamw4bit_sr_kernel", "sgdm4bit", "factor4bit", "adafactor",
+        "adafactor_b1_0", "sm3", "shampoo32", "shampoo4bit_sr"])
 def test_port_checkpoint_restores_in_jax(name, ov, tmp_path):
     """The port trains 3 steps and saves; the reference's own
     restore_checkpoint (validation on) into its abstract state gives the
@@ -239,20 +248,35 @@ def test_port_checkpoint_restores_in_jax(name, ov, tmp_path):
     assert_leaves_equal(jax_leaves(restored), port_leaves(state), "port -> JAX @3")
 
 
-def _j_nonzero_state(opt_name):
+def _j_nonzero_state(opt_name, **ov):
     """The reference's ``_nonzero_state`` (tests/test_io_sharded.py): two
-    eager updates on synthetic grads."""
+    updates on synthetic grads (jitted: only the saved leaves are compared)."""
     jcfg, cfg = cfgs()
-    opt = j_make(opt_name, 3e-3)
+    opt = j_make(opt_name, 3e-3, **ov)
     params, axes = j_init(jax.random.PRNGKey(0), jcfg)
-    state = j_make_state(params, opt, key=jax.random.PRNGKey(5))
+    state = jax.jit(lambda p, k: j_make_state(p, opt, key=k))(params, jax.random.PRNGKey(5))
+    update = jax.jit(opt.update)
     rng = np.random.default_rng(7)
     p, s = state.params, state.opt_state
     for t in range(2):
         grads = jax.tree_util.tree_map(
             lambda x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32) * 0.02), p)
-        p, s = opt.update(grads, s, p, key=jax.random.fold_in(state.key, t))
+        p, s = update(grads, s, p, key=jax.random.fold_in(state.key, t))
     return JTrainState(p, s, jnp.asarray(2, jnp.int32), state.key), axes, cfg
+
+
+@pytest.mark.parametrize("name,ov", [
+    ("factor4bit", {}), ("adafactor", {}), ("adafactor", {"b1": 0.0}), ("sm3", {}),
+    ("shampoo32", {}), ("shampoo4bit", {}),
+], ids=["factor4bit", "adafactor", "adafactor_b1_0", "sm3", "shampoo32", "shampoo4bit"])
+def test_jax_checkpoint_restores_in_port(name, ov, tmp_path):
+    """The reference's state after two updates, saved by the reference,
+    restores in the port (validation on) bit for bit."""
+    jstate, _, cfg = _j_nonzero_state(name, **ov)
+    d = str(tmp_path / "c")
+    j_save(d, 2, jstate)
+    _, _, state = restore_port(d, cfg, name, ov, sr.PRNGKey(5))
+    assert_leaves_equal(port_leaves(state), jax_leaves(jstate), f"JAX -> port: {name}")
 
 
 def test_mesh_checkpoint_restores_on_one_device(tmp_path):
@@ -641,6 +665,28 @@ def test_restore_fills_allocated_leaves_in_place(tmp_path):
         restore_checkpoint(d, {"a": own, "b": torch.zeros(3)}, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         restore_checkpoint(d, {"a": torch.zeros(5), "b": tree["b"]}, device="cpu")
+
+
+def test_restored_leaves_die_with_the_state(tmp_path):
+    """Walking a tree leaves no reference cycle behind: once the caller
+    drops a restored state, its leaves are freed at once, not at the next
+    cyclic collection (a resumed run kept its first state a step longer)."""
+    import gc
+    import weakref
+
+    tree = {"a": {"b": torch.arange(6, dtype=torch.float32)}, "c": torch.ones(3)}
+    d = str(tmp_path / "c")
+    save_checkpoint(d, 1, tree)
+    gc.collect()
+    gc.disable()
+    try:
+        restored, _ = restore_checkpoint(d, {"a": {"b": torch.empty(6, device="meta")},
+                                             "c": torch.empty(3, device="meta")}, device="cpu")
+        refs = [weakref.ref(v) for v in (restored["a"]["b"], restored["c"])]
+        del restored
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_save_refuses_more_than_one_process(tmp_path, monkeypatch):

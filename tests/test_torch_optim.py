@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
+from repro.core.optimizers import optimizer_names as j_optimizer_names  # noqa: E402
 from repro.core.optimizers import state_nbytes as j_state_nbytes  # noqa: E402
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
 from repro.core.quantizer import QuantizedTensor as JQ  # noqa: E402
@@ -120,6 +121,12 @@ def _gpt2m_cfg():
     ("gpt2m", "production4bit", 1_135_298_392),
     ("gpt2m", "adamw32", 3_239_731_212),
     ("internlm2-1.8b", "production4bit", 4_590_578_552),
+    # the reference's eval_shape counts at full internlm2-1.8b size
+    ("internlm2-1.8b", "sm3", 7_557_380_132),
+    ("internlm2-1.8b", "adafactor", 7_645_301_960),
+    ("internlm2-1.8b", "factor4bit", 1_092_458_700),
+    ("internlm2-1.8b", "shampoo32", 45_341_376_524),
+    ("internlm2-1.8b", "shampoo4bit", 5_963_813_036),
 ])
 def test_structural_state_bytes(cfg_name, opt_name, expected):
     cfg = _gpt2m_cfg() if cfg_name == "gpt2m" else get_config(cfg_name)
@@ -128,8 +135,9 @@ def test_structural_state_bytes(cfg_name, opt_name, expected):
     assert state_nbytes(opt.init(params)) == expected
 
 
-def test_reduced_state_bytes_match_reference():
-    js = jax.eval_shape(lambda: j_make("production4bit", 1e-3).init(
+@pytest.mark.parametrize("name", j_optimizer_names())
+def test_reduced_state_bytes_match_reference(name):
+    js = jax.eval_shape(lambda: j_make(name, 1e-3).init(
         j_init(jax.random.PRNGKey(0), j_reduced("internlm2-1.8b"))[0]))
     params = named_params(init_model(reduced_config("internlm2-1.8b"), device="meta"))
-    assert state_nbytes(make_optimizer("production4bit", 1e-3).init(params)) == j_state_nbytes(js)
+    assert state_nbytes(make_optimizer(name, 1e-3).init(params)) == j_state_nbytes(js)

@@ -14,8 +14,9 @@ parameters carried across (``convert``). Held to:
 * sampling key words and uniforms: bit-equal; sampled tokens equal on the
   same logits;
 * q4 ``prepare_params``: codes and scales bit-equal leaf by leaf, and
-  ``materialize`` equal; ``weight_report`` totals equal, including the
-  structural internlm2-1.8b counts;
+  ``materialize`` equal, on leaves with a kernel view and on leaves
+  without one (odd last dims); ``weight_report`` totals equal, including
+  the structural internlm2-1.8b counts;
 * the engine: its q4 streams against the reference engine's (greedy and
   sampled, same seed and request ids): the first 8 tokens of every stream
   equal and at least 90% of all tokens (measured 119 of 120: one sampled
@@ -23,6 +24,8 @@ parameters carried across (``convert``). Held to:
   flips a near tie); streams reproducible and slot-invariant, no KV leak
   across retire and backfill, early EOS, and the CLI at CPU scale.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +52,7 @@ from repro.serve import sample_tokens as j_sample_tokens  # noqa: E402
 from repro.serve import weight_report as j_weight_report  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax, serving_params_from_jax  # noqa: E402
-from repro_torch.core.quantizer import QuantizedTensor, dequantize  # noqa: E402
+from repro_torch.core.quantizer import QuantizedTensor, dequantize, quantize  # noqa: E402
 from repro_torch.kernels import quant4  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import LayerSpec, ModelConfig, init_model, named_params  # noqa: E402
@@ -65,6 +68,7 @@ from repro_torch.serve import (  # noqa: E402
     weight_report,
 )
 from repro_torch.serve.sampling import sample_uniforms  # noqa: E402
+from repro_torch.serve.weights import WEIGHT_Q4, kernel_view  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -276,8 +280,74 @@ def test_weight_report_matches_reference(tiny):
 
 
 def test_q4_leaf_the_kernel_cannot_take_raises():
+    """``kernel_view`` refuses a leaf with no (R, C) view, naming its shape;
+    ``prepare_params`` sends such a leaf through the plain quantizer."""
     with pytest.raises(ValueError, match=r"\(65, 127\)"):
-        prepare_params({"w": torch.ones(65, 127)}, "q4")
+        kernel_view((65, 127))
+    x = torch.randn(65, 127, generator=torch.Generator().manual_seed(0))
+    before = dict(quant4.LAUNCHES)
+    q = prepare_params({"w": x}, "q4")["w"]
+    want = quantize(x, WEIGHT_Q4)
+    assert torch.equal(q.codes, want.codes) and torch.equal(q.scales[0], want.scales[0])
+    assert torch.equal(materialize({"w": q})["w"], dequantize(want))
+    assert quant4.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,codes,scales", [
+    ((64, 257), (64, 129), (129,)),
+    ((3, 50, 77), (3, 50, 39), (91,)),
+], ids=["odd_last_dim", "odd_3d"])
+def test_q4_odd_leaves_match_reference(shape, codes, scales):
+    """Leaves without a kernel view (odd last dim: a zero pad nibble per code
+    row, a short last scale block) against the reference's prepare_params
+    and materialize: codes, scales and values bit-equal, bytes equal."""
+    x = (np.random.default_rng(3).normal(size=shape) * 0.02).astype(np.float32)
+    jq = j_prepare_params({"w": jnp.asarray(x)}, "q4")["w"]
+    q = prepare_params({"w": torch.from_numpy(x)}, "q4")["w"]
+    assert tuple(q.codes.shape) == codes and tuple(q.scales[0].shape) == scales
+    np.testing.assert_array_equal(q.codes.numpy(), np.asarray(jq.codes))
+    np.testing.assert_array_equal(q.scales[0].numpy().view(np.uint32),
+                                  np.asarray(jq.scales[0]).view(np.uint32))
+    np.testing.assert_array_equal(materialize({"w": q})["w"].numpy().view(np.uint32),
+                                  np.asarray(j_materialize({"w": jq})["w"]).view(np.uint32))
+    assert weight_report({"w": torch.from_numpy(x)}, "q4")["total_serve_bytes"] == \
+        j_weight_report({"w": jnp.asarray(x)}, "q4")["total_serve_bytes"] == q.nbytes()
+
+
+def test_engine_with_odd_vocab_matches_reference_engine():
+    """A q4 engine whose embed and head have no kernel view (vocab 257):
+    its tree equals the reference's, and its streams agree with the
+    reference engine's as the kernel-view engine's do."""
+    jcfg = dataclasses.replace(J_TINY, vocab_size=257)
+    cfg = dataclasses.replace(TINY, vocab_size=257)
+    jparams = jax.jit(lambda k: j_init_model(k, jcfg)[0])(jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    jflat = serving_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jax.jit(lambda p: j_prepare_params(p, "q4"))(jparams)),
+        device="cpu")
+    for path in ("embed", "head"):
+        ours = prepare_params({path: tparams[path]}, "q4")[path]
+        assert torch.equal(ours.codes, jflat[path].codes), path
+        assert torch.equal(ours.scales[0], jflat[path].scales[0]), path
+    prompts = [[5, 6, 7, 8, 9, 10, 11], [12, 13], [256, 15, 16]]
+    mix = lambda i: dict(temperature=0.8, top_k=10) if i % 2 else {}
+    jeng = JServeEngine(jcfg, jparams, max_batch=2, s_max=64, weights="q4", drain_every=4)
+    jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=12, **mix(i)) for i, p in enumerate(prompts)]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run()
+    eng = ServeEngine(cfg, tparams, max_batch=2, s_max=64, weights="q4", drain_every=4)
+    treqs = [Request(rid=i, prompt=p, max_new_tokens=12, **mix(i)) for i, p in enumerate(prompts)]
+    for r in treqs:
+        eng.submit(r)
+    eng.run()
+    same = total = 0
+    for j, t in zip(jreqs, treqs):
+        assert len(t.output) == len(j.output) == 12 and t.output[:8] == j.output[:8], (j, t)
+        assert all(0 <= x < 257 for x in t.output)
+        same += sum(a == b for a, b in zip(j.output, t.output))
+        total += len(j.output)
+    assert same >= 0.9 * total, (same, total)
 
 
 # ---------------------------------------------------------------------------
