@@ -95,7 +95,42 @@ Phases, each failing the run on error:
 13. phase 6's command with ``--grad-comm int4``: wire bytes
     (1,003,596,800), 4 launches of each B1 pass per step, losses finite;
     step time and peak memory against phase 6's, and the step split into
-    model, gradient wire format and optimizer.
+    model, gradient wire format and optimizer;
+14. hold both B1 passes against their plain versions at every fused leaf
+    shape of qwen3-4b, chatglm3-6b and gemma2-2b at full depth (gemma2's
+    wq/wk/wv as 29,952 slices of 8 or 4 rows, its post1/post2 as one slice
+    of 13 rows; chatglm3's w2 of 1.57 G elements), RTN and SR, on random
+    codes and stats: stats, codes and scales bit-equal, params within 1e-6
+    relative (the plain versions run over runs of whole slices, which is
+    exact); time both passes by event pairs against their bounds and sum
+    each arch's step;
+15. drive each of the three archs through ``repro_torch.launch.train`` at
+    full width, production4bit with SR, 5 steps of batch 8 x seq 128, with
+    every launch count set to 0 just before and read just after: gemma2-2b
+    at its 26 layers, qwen3-4b at ``QWEN3_LAYERS`` of 36 and chatglm3-6b at
+    ``CHATGLM3_LAYERS`` of 28 (the unfused SR draw grows the peak ~1.6 and
+    ~5.9 GB a layer); a 2-step probe at 12 and 4 layers before them gives the
+    peak's growth a layer and the full depth's peak. Check state bytes (the
+    reference's counts at that depth), 18 / 4 / 2 launches of each B1 pass a
+    step and none of B2/B3, losses finite and the last below the first;
+    report step ms (split into model and optimizer) and peak memory;
+16. card against CPU on each arch's reduced config: 3 production4bit SR
+    steps from the same weights, losses within 3e-4 relative and a gap the
+    steps must open five times over, 4-bit m code agreement printed;
+17. serve each arch at full depth with q4 weights through
+    ``repro_torch.launch.serve``: phase 8's mix, counts set to 0 just before
+    and read just after; check weight bytes and q4 leaves (the reference's
+    ``weight_report``), one B2 launch per q4 leaf, one B3 launch per q4 leaf
+    and materialize, no B1, every stream complete; report prefill and
+    decode ms, tok/s and peak memory;
+18. gemma2-2b, one request alone (``--max-batch 1``, ``--s-max`` 8192): a
+    prompt of 4,100 tokens and 64 new ones, so the windowed layers'
+    4096-slot circular cache wraps. Its greedy tokens must equal a decode of
+    the same weights with windowed caches, and where a decode with 8192
+    slots in every layer (the window masking the older ones) picks another
+    token, the engine's token must lie within twice the two decodes' logit
+    difference of that decode's best: the two hold the same keys in another
+    slot order, so only their roundings differ.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -193,6 +228,49 @@ SMALL_NEW_RUNS = (("sm3", 3e-2, "fp32", None, SMALL_RTOL),
                   ("production4bit", 1e-3, "int4", 0, SMALL_RTOL))
 # phase 13: int4 gradient wire bytes of internlm2-1.8b (the reference's)
 WIRE_BYTES_INT4 = 1_003_596_800
+# phases 14-18 (slice 7): qwen3-4b, chatglm3-6b, gemma2-2b. Phase 14: every
+# fused leaf shape of the three archs at full depth: (arch, names, shape,
+# leaves of that shape a step). gemma2's head_dim 256 makes wq/wk/wv fused,
+# as 29,952 slices of 8 or 4 rows; its sandwich-norm scales post1/post2 are
+# one slice of 13 rows (the reference's fp32 regexes do not match them)
+ARCH_LEAF_SHAPES = (
+    ("gemma2-2b", "wq", (13, 2304, 8, 256), 2),
+    ("gemma2-2b", "wk,wv", (13, 2304, 4, 256), 4),
+    ("gemma2-2b", "wo", (13, 8, 256, 2304), 2),
+    ("gemma2-2b", "w1,w3", (13, 2304, 9216), 4),
+    ("gemma2-2b", "w2", (13, 9216, 2304), 2),
+    ("gemma2-2b", "post1,post2", (13, 2304), 4),
+    ("qwen3-4b", "wo", (36, 32, 128, 2560), 1),
+    ("qwen3-4b", "w1,w3", (36, 2560, 9728), 2),
+    ("qwen3-4b", "w2", (36, 9728, 2560), 1),
+    ("chatglm3-6b", "wo", (28, 32, 128, 4096), 1),
+    ("chatglm3-6b", "w2", (28, 13696, 4096), 1),
+)
+ARCH_PLAIN_CHUNK = 1 << 26  # elements of a leaf the plain versions take at a time
+# phase 15: arch -> (layers, layers trained, B1 leaves a step, state bytes at
+# that depth: the reference's eval_shape counts, tests/test_torch_archs_optim.py,
+# layers of a 2-step probe run or None). The probe and the run give the
+# peak's growth a layer (linear there: the unfused SR draw of wq/wk/wv, and
+# chatglm3-6b's w1/w3, grows with the depth) and so the depth that fits. The
+# draw's int64 temporaries also fragment the allocator by 11-14 GB, so the
+# deepest depths that fit are found by running them: scripts_train_depth.py
+# on an H100 80GB HBM3 at 700 W (PERF.md section 4) ran qwen3-4b at 28
+# layers (80.8 of the card's 85.0 GB reserved) and not 30, chatglm3-6b at 9
+# (82.3 GB reserved) and not 10
+QWEN3_LAYERS, CHATGLM3_LAYERS = 28, 9
+ARCH_TRAIN = {
+    "gemma2-2b": (26, 26, 18, 6_807_623_456, None),
+    "qwen3-4b": (36, QWEN3_LAYERS, 4, 9_138_936_936, 12),
+    "chatglm3-6b": (28, CHATGLM3_LAYERS, 2, 6_155_209_764, 4),
+}
+# phase 17: arch -> (q4 weight bytes, q4 leaves): the reference's weight_report
+ARCH_SERVE = {
+    "qwen3-4b": (2_343_578_016, 13),
+    "chatglm3-6b": (3_316_849_664, 11),
+    "gemma2-2b": (1_388_877_120, 23),
+}
+# phase 18: one gemma2-2b request that wraps the windowed layers' cache
+LONG_PROMPT, LONG_S_MAX = 4100, 8192
 
 
 def fail(msg: str) -> None:
@@ -1188,10 +1266,10 @@ def phase_new_optimizers(counters, dev):
     return runs
 
 
-def _small_pair(name, lr, mode, seed, dev):
-    """Three reduced-config steps from the same weights on the card and the
-    CPU: losses, the same model's losses without steps, and the agreement
-    of the first-moment 4-bit codes."""
+def _small_pair(name, lr, mode, seed, dev, arch="internlm2-1.8b"):
+    """Three reduced-config steps of ``arch`` from the same weights on the
+    card and the CPU: losses, the same model's losses without steps, and the
+    agreement of the first-moment 4-bit codes."""
     import torch
 
     from repro_torch.comms import CommsConfig
@@ -1204,7 +1282,7 @@ def _small_pair(name, lr, mode, seed, dev):
     from repro_torch.models import init_model, loss_fn, named_params
     from repro_torch.train.train_loop import build_train_step, make_train_state
 
-    cfg = reduced_config("internlm2-1.8b")
+    cfg = reduced_config(arch)
     cpu_model = init_model(cfg, seed=0, device="cpu")
     dev_model = init_model(cfg, device="meta").to_empty(device=dev)
     load_params(dev_model, {k: p.detach() for k, p in named_params(cpu_model).items()})
@@ -1279,6 +1357,384 @@ def phase_comms(counters, main_steps, main_peak):
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 7: qwen3-4b, chatglm3-6b, gemma2-2b
+# ---------------------------------------------------------------------------
+
+
+def _random_leaf(shape, seed, dev):
+    """A leaf's B1 operands without a quantize pass: fp32 param and grad,
+    random 4-bit m codes with positive B128 scales, random 4-bit v codes with
+    positive rank-1 stats (one per dim), so leaves of 1.6 G elements fit."""
+    import torch
+
+    from repro_torch.core.optimizers.adamw import M_4BIT, V_4BIT
+    from repro_torch.core.quantizer import QuantizedTensor
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = math.prod(shape)
+    w = torch.randn(shape, generator=g, device=dev)
+    grad = torch.randn(shape, generator=g, device=dev) * 1e-2
+    codes = lambda: torch.randint(0, 256, shape[:-1] + (shape[-1] // 2,), generator=g,
+                                  device=dev, dtype=torch.uint8)
+    m = QuantizedTensor(codes(), (torch.rand((n // 128,), generator=g, device=dev) * 1e-3
+                                  + 1e-6,), shape, M_4BIT)
+    stats = tuple(torch.rand((d,), generator=g, device=dev) * 1e-5 + 1e-9 for d in shape)
+    v = QuantizedTensor(codes(), stats, shape, V_4BIT)
+    return w, grad, m, v
+
+
+def _plain_in_chunks(operands, sr_on, shape, chunk=ARCH_PLAIN_CHUNK):
+    """B1's two plain versions over a leaf, a run of whole slices at a time
+    (each slice's update reads only its own rows, seed and the shared column
+    stats; the stats are maxima, merged exactly): (row maxima (L, R), column
+    maxima (C,)) of the updated v, and a generator of (slice range, plain
+    update outputs)."""
+    import torch
+
+    from repro_torch.kernels import adamw4bit, ref
+
+    L, R, C = operands["w"].shape
+    step = max(1, chunk // (R * C))
+    rows, col = [], None
+    for l0 in range(0, L, step):
+        sl = slice(l0, min(L, l0 + step))
+        v_new = ref.dequant_rank1(operands["v_packed"][sl], operands["v_r"][sl], operands["v_c"],
+                                  operands["v_table"].to(operands["w"].device))
+        g = operands["g"][sl]
+        t = g * (1.0 - HP["b2"])
+        t.mul_(g)
+        v_new.mul_(HP["b2"]).add_(t)
+        del t
+        rows.append(torch.amax(v_new, dim=-1))
+        c = torch.amax(v_new, dim=(0, 1))
+        col = c if col is None else torch.maximum(col, c)
+        del v_new
+
+    def updates():
+        for l0 in range(0, L, step):
+            sl = slice(l0, min(L, l0 + step))
+            part = {k: (v[sl] if k in ("w", "g", "m_packed", "m_scale", "v_packed", "v_r",
+                                       "v_r_new", "sr_seed") and v is not None else v)
+                    for k, v in operands.items()}
+            yield sl, adamw4bit.fused_adamw4_plain(**part, **SCAL, **HP)
+
+    return torch.cat(rows), col, updates
+
+
+def phase_arch_leaves(dev, card):
+    """Both B1 passes against their plain versions at every fused leaf shape
+    of the three archs, RTN and SR: stats bit-equal, codes and scales
+    bit-equal, params within 1e-6 relative (the plain versions run over
+    runs of whole slices, which is exact); then the kernels timed by event
+    pairs against their bounds, and summed over each arch's step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.quantizer import QuantizedTensor
+    from repro_torch.kernels import adamw4bit, ops, sr
+    from repro_torch.kernels.adamw4bit import _dim_stats
+    from repro_torch.kernels.timing import event_ms
+
+    rows = []
+    for arch, names, shape, count in ARCH_LEAF_SHAPES:
+        n, L, R, C = _leaf_dims(shape)
+        row = dict(arch=arch, leaves=names, shape=list(shape), count=count, slices=L, rows=R)
+        w, grad, m_q, v_q = _random_leaf(shape, 7, dev)
+        for sr_on in (False, True):
+            key = sr.PRNGKey(0) if sr_on else None
+            m_s, v_s = (QuantizedTensor(q.codes, q.scales, q.shape, dataclasses.replace(
+                q.config, stochastic_rounding=sr_on)) for q in (m_q, v_q))
+            operands, stats = ops.leaf_operands(w, grad, m_s, v_s, HP["b2"], key)
+            p_row, p_col, updates = _plain_in_chunks(operands, sr_on, shape)
+            plain_stats = _dim_stats(p_row, p_col, shape)
+            for d, (a, b) in enumerate(zip(stats, plain_stats)):
+                if not torch.equal(a, b):
+                    fail(f"{arch} {names} {shape} sr={sr_on}: stats pass dim {d} differs "
+                         f"(max {float((a - b).abs().max())})")
+            k_out = adamw4bit.fused_adamw4(**operands, **SCAL, **HP)
+            err = 0.0
+            for sl, p_out in updates():
+                err = max(err, _compare(shape, tuple(x[sl] for x in k_out), p_out, sr_on))
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+            del k_out, p_row, p_col, plain_stats
+            kernel = lambda: adamw4bit.fused_adamw4(**operands, **SCAL, **HP, out=operands["w"])
+            for _ in range(3):
+                kernel()
+            row["sr_ms" if sr_on else "rtn_ms"] = event_ms(kernel)
+            if not sr_on:
+                stats_args = (operands["v_packed"], operands["v_r"], operands["v_c"],
+                              operands["g"], operands["v_table"], HP["b2"], shape)
+                row["stats_ms"] = event_ms(lambda: adamw4bit.rank1_new_stats(*stats_args))
+                del stats_args
+            del operands, stats, m_s, v_s
+        del w, grad, m_q, v_q
+        torch.cuda.empty_cache()
+        row["bound_ms"], row["bound_by"], row["bytes"] = _bound(shape)
+        row["sr_int_ms"] = _sr_int_ms(shape, card)
+        row["sr_bound_ms"] = max(row["bound_ms"], row["sr_int_ms"])
+        row["stats_bound_ms"], _, _ = _stats_bound(shape)
+        print(f"fused_adamw4 {arch} {names} {shape} as {L} slices of ({R}, {C}) x{count}: both "
+              f"passes bit-equal to the plain versions (RTN, SR; max |dw| "
+              f"{row['max_abs_err']:.3g}); RTN {row['rtn_ms']:.4f} ms against "
+              f"{row['bound_ms']:.4f} ms, SR {row['sr_ms']:.4f} ms against "
+              f"{row['sr_bound_ms']:.4f} ms, stats {row['stats_ms']:.4f} ms against "
+              f"{row['stats_bound_ms']:.4f} ms")
+        rows.append(row)
+    per_arch = {}
+    for arch in dict.fromkeys(r["arch"] for r in rows):
+        mine = [r for r in rows if r["arch"] == arch]
+        per_arch[arch] = {k: sum(r[k] * r["count"] for r in mine)
+                          for k in ("sr_ms", "rtn_ms", "stats_ms", "sr_bound_ms", "bound_ms",
+                                    "stats_bound_ms")}
+        per_arch[arch]["leaves"] = sum(r["count"] for r in mine)
+        s = per_arch[arch]
+        print(f"fused_adamw4 {arch} per step ({s['leaves']} leaves at full depth): SR "
+              f"{s['sr_ms']:.3f} ms against {s['sr_bound_ms']:.3f} ms, RTN {s['rtn_ms']:.3f} ms "
+              f"against {s['bound_ms']:.3f} ms, stats {s['stats_ms']:.3f} ms against "
+              f"{s['stats_bound_ms']:.3f} ms")
+    return rows, per_arch
+
+
+def _arch_args(arch, steps=STEPS):
+    return ["--arch", arch, "--optimizer", "production4bit", "--sr-seed", "0", "--steps",
+            str(steps), "--batch", "8", "--seq", "128", "--device", "cuda"]
+
+
+def phase_arch_train(counters):
+    """Each arch through the CLI at full width, production4bit with SR,
+    5 steps of batch 8 x seq 128, at the depth ``ARCH_TRAIN`` gives it;
+    where it names a probe depth, a 2-step run there first, and the full
+    depth's peak extrapolated per layer from the two."""
+    out = {}
+    for arch, (full, layers, fused, state_bytes, probe_layers) in ARCH_TRAIN.items():
+        res = {}
+        if probe_layers:
+            probe = _cli_run(counters, _arch_args(arch, 2), probe_layers)
+            _check_trains(probe, f"{arch} probe")
+            res["probe"] = dict(layers=probe_layers, peak_bytes=probe["peak_bytes"],
+                                state_bytes=probe["state_bytes"], step_ms=probe["step_ms"])
+        run = _cli_run(counters, _arch_args(arch), None if layers == full else layers)
+        what = f"{arch} at {layers} of {full} layers"
+        _print_run(run, what)
+        _check_trains(run, what)
+        if run["state_bytes"] != state_bytes:
+            fail(f"{what}: state_bytes {run['state_bytes']:,} != {state_bytes:,}")
+        for name in ("fused_adamw4", "rank1_new_stats"):
+            if run["launches"][name] != fused * STEPS:
+                fail(f"{what}: {name} launched {run['launches'][name]} times, expected "
+                     f"{fused} a step")
+        if (run["launches"]["quantize_blockwise_4bit"]
+                or run["launches"]["dequantize_blockwise_4bit"]):
+            fail(f"{what} launched the q4 kernels: {run['launches']}")
+        res.update(run)
+        res["layers"], res["full_layers"] = layers, full
+        res["step_ms_median"] = _median(run["step_ms"][1:])
+        if probe_layers:
+            per_layer = (run["peak_bytes"] - res["probe"]["peak_bytes"]) / (layers - probe_layers)
+            res["per_layer_bytes"] = per_layer
+            res["full_depth_peak_estimate"] = run["peak_bytes"] + per_layer * (full - layers)
+            print(f"{arch}: peak {res['probe']['peak_bytes']:,} B at {probe_layers} layers, "
+                  f"{run['peak_bytes']:,} B at {layers}: {per_layer / 1e9:.3f} GB a layer, so "
+                  f"~{res['full_depth_peak_estimate'] / 1e9:.1f} GB at {full} layers "
+                  f"(the card holds {torch_total_bytes() / 1e9:.1f} GB)")
+        print(f"{what}: step {res['step_ms_median']:.1f} ms (median of steps 1-4), peak "
+              f"{run['peak_bytes'] / 1e9:.2f} GB, B1 {fused} launches of each pass a step")
+        out[arch] = res
+    return out
+
+
+def torch_total_bytes():
+    import torch
+
+    return torch.cuda.get_device_properties(0).total_memory
+
+
+def phase_arch_small(dev):
+    """Card against CPU on each arch's reduced config, 3 production4bit SR
+    steps from the same weights."""
+    out = {}
+    for arch in ARCH_TRAIN:
+        card, cpu, still, agree = _small_pair("production4bit", 1e-3, "fp32", 0, dev, arch)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        gap = abs(still[-1] - cpu[-1]) / abs(cpu[-1])
+        print(f"reduced {arch} production4bit: card / CPU / without steps losses "
+              + ", ".join(f"{a:.6f}/{b:.6f}/{c:.6f}" for a, b, c in zip(card, cpu, still))
+              + f"; max relative gap {rel:.3g} (held to {SMALL_RTOL:g}), steps moved the last "
+              f"loss {gap:.3g}; 4-bit m code agreement min {min(agree.values()):.4f} over "
+              f"{len(agree)} leaves")
+        if not all(math.isfinite(a) for a in card) or rel > SMALL_RTOL:
+            fail(f"reduced {arch}: card losses {card} vs CPU {cpu} (rtol {SMALL_RTOL})")
+        if not gap > 5 * SMALL_RTOL:
+            fail(f"reduced {arch}: the steps moved the loss too little to test")
+        out[arch] = dict(card=card, cpu=cpu, without_steps=still, max_rel=rel, gap=gap,
+                         m_code_agreement_min=min(agree.values()))
+    return out
+
+
+def phase_arch_serve(counters):
+    """Each arch at full depth with q4 weights through the serving CLI: the
+    mix of phase 8."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    out = {}
+    for arch, (q4_bytes, q4_leaves) in ARCH_SERVE.items():
+        vocab = get_config(arch).vocab_size
+        reqs = _serve_requests(vocab)
+        _reset(counters)
+        res = serve.main(["--arch", arch, "--weights", "q4", "--requests", str(SERVE_REQUESTS),
+                          "--max-batch", "4", "--max-new-tokens", str(SERVE_NEW_TOKENS),
+                          "--drain-every", str(SERVE_DRAIN), "--s-max", "1024", "--seed", "0",
+                          "--device", "cuda"], requests=reqs)
+        counts = _read(counters)
+        eng, calls, rep = res["engine"], res["materialize_calls"], res["weight_report"]
+        decode_ms = list(eng.phase_ms["decode"])
+        step_ms = sum(decode_ms) / (calls["decode"] * SERVE_DRAIN)
+        row = dict(weight_bytes=rep["total_serve_bytes"], quantized_leaves=rep["quantized_leaves"],
+                   n_leaves=rep["n_leaves"], launches=counts, materialize_calls=calls,
+                   prefill_ms=list(eng.phase_ms["prefill"]), decode_ms_per_step=step_ms,
+                   tokens=res["tokens"], wall_s=res["wall_s"],
+                   tok_per_s=res["tokens"] / res["wall_s"], peak_bytes=res["peak_bytes"])
+        print(f"serve {arch} q4: {res['tokens']} tokens in {res['wall_s']:.2f} s "
+              f"({row['tok_per_s']:.1f} tok/s); prefills "
+              f"{', '.join(f'{m:.1f}' for m in row['prefill_ms'])} ms; {step_ms:.2f} ms per "
+              f"decode step of 4 slots; weight bytes {rep['total_serve_bytes']:,} "
+              f"({rep['quantized_leaves']} of {rep['n_leaves']} leaves q4); peak "
+              f"{res['peak_bytes'] / 1e9:.2f} GB; launches {counts}")
+        if rep["total_serve_bytes"] != q4_bytes or rep["quantized_leaves"] != q4_leaves:
+            fail(f"serve {arch}: weight bytes {rep['total_serve_bytes']:,} "
+                 f"({rep['quantized_leaves']} q4 leaves), expected {q4_bytes:,} ({q4_leaves})")
+        if counts["quantize_blockwise_4bit"] != q4_leaves:
+            fail(f"serve {arch}: B2 launched {counts['quantize_blockwise_4bit']} times")
+        if counts["dequantize_blockwise_4bit"] != q4_leaves * (calls["prefill"] + calls["decode"]):
+            fail(f"serve {arch}: B3 launched {counts['dequantize_blockwise_4bit']} times, "
+                 f"{calls}")
+        if counts["fused_adamw4"] or counts["rank1_new_stats"]:
+            fail(f"serve {arch} launched the optimizer kernels: {counts}")
+        for r in reqs:
+            if not (r.done and len(r.output) == SERVE_NEW_TOKENS
+                    and all(0 <= t < vocab for t in r.output)):
+                fail(f"serve {arch}: request {r.rid}: done={r.done}, {len(r.output)} tokens")
+        out[arch] = row
+        del res, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_window(counters, dev):
+    """gemma2-2b, one request alone: a prompt of LONG_PROMPT tokens and
+    SERVE_NEW_TOKENS new ones through the engine with s_max LONG_S_MAX, so
+    the windowed subs' 4096-slot circular caches wrap. The engine's greedy
+    tokens against the same request decoded from the same q4 weights with
+    LONG_S_MAX slots in every layer (teacher-forced on the engine's tokens,
+    so each step's argmax and logits are compared)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_serve_cache, prefill_with_cache
+    from repro_torch.models.attention import make_cache
+    from repro_torch.models.model import plan_scan_units
+    from repro_torch.serve import Request, materialize
+
+    cfg = get_config("gemma2-2b")
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, size=LONG_PROMPT).tolist()
+    req = Request(rid=0, prompt=prompt, max_new_tokens=SERVE_NEW_TOKENS)
+    _reset(counters)
+    res = serve.main(["--arch", "gemma2-2b", "--weights", "q4", "--max-batch", "1",
+                      "--max-new-tokens", str(SERVE_NEW_TOKENS), "--drain-every",
+                      str(SERVE_DRAIN), "--s-max", str(LONG_S_MAX), "--seed", "0",
+                      "--device", dev.type], requests=[req])
+    counts = _read(counters)
+    eng = res["engine"]
+    live = eng.caches[0]
+    slots = {sub: int(c.k.shape[2]) for sub, c in live.items()}
+    top = {sub: int(c.pos.max()) for sub, c in live.items()}
+    window = cfg.blocks[0].window
+    if slots["sub0"] != window or slots["sub1"] != LONG_S_MAX:
+        fail(f"long request: cache slots {slots}, expected {window} (windowed) and {LONG_S_MAX}")
+    if not (req.done and len(req.output) == SERVE_NEW_TOKENS):
+        fail(f"long request: done={req.done}, {len(req.output)} tokens")
+    last = LONG_PROMPT + SERVE_NEW_TOKENS - 2  # the last position the engine wrote and kept
+    if top["sub0"] < last or top["sub0"] < window:
+        fail(f"long request: the windowed cache holds positions up to {top['sub0']}")
+    p = materialize(eng.params)
+    units = plan_scan_units(cfg.blocks)
+    ref = init_serve_cache(cfg, 1, LONG_S_MAX, device=dev)
+    full = [{f"sub{si}": make_cache(1, LONG_S_MAX, cfg.num_kv_heads, cfg.head_dim,
+                                    device=dev, layers=u.repeat)
+             for si in range(len(u.pattern))} for u in units]
+    S = 1
+    while S < LONG_PROMPT:
+        S *= 2
+    toks = torch.zeros((1, S), dtype=torch.int64, device=dev)
+    toks[0, :LONG_PROMPT] = torch.tensor(prompt, device=dev)
+    lens = torch.tensor([LONG_PROMPT], device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lw, ref = prefill_with_cache(p, cfg, toks, lens, ref)
+        lf, full = prefill_with_cache(p, cfg, toks, lens, full)
+        argmax_w, argmax_f = [int(lw.argmax())], [int(lf.argmax())]
+        diffs = [float((lw - lf).abs().max())]
+        gaps_f = [float(lf.max() - lf[0, req.output[0]])]
+        for t in range(SERVE_NEW_TOKENS - 1):
+            tok = torch.tensor([req.output[t]], device=dev)
+            pos = torch.tensor([LONG_PROMPT + t], device=dev)
+            lw, ref = decode_step(p, cfg, ref, tok, pos)
+            lf, full = decode_step(p, cfg, full, tok, pos)
+            argmax_w.append(int(lw.argmax()))
+            argmax_f.append(int(lf.argmax()))
+            diffs.append(float((lw - lf).abs().max()))
+            gaps_f.append(float(lf.max() - lf[0, req.output[t + 1]]))
+    oracle_s = time.perf_counter() - t0
+    same_w = sum(a == b for a, b in zip(argmax_w, req.output))
+    same_f = sum(a == b for a, b in zip(argmax_f, req.output))
+    # where the full-cache decode picks another token, the engine's token must
+    # be within rounding of its best: the two caches hold the same keys (the
+    # window masks the full cache's older slots) in another slot order, so
+    # their fp32 sums and the bf16 roundings after them differ
+    parted = [dict(step=t, engine_token=req.output[t], full_token=argmax_f[t],
+                   full_gap=gaps_f[t], dlogit=diffs[t])
+              for t in range(SERVE_NEW_TOKENS) if argmax_f[t] != req.output[t]]
+    print(f"long request (gemma2-2b q4): prompt {LONG_PROMPT} + {SERVE_NEW_TOKENS} new tokens, "
+          f"s_max {LONG_S_MAX}: cache slots {slots}, highest positions held {top}; engine "
+          f"tokens equal to a windowed-cache decode at {same_w} of {SERVE_NEW_TOKENS} steps and "
+          f"to a decode with {LONG_S_MAX} slots in every layer at {same_f}; max |dlogit| "
+          f"windowed vs full cache {max(diffs):.3g} (first decode step {diffs[1]:.3g}); parted "
+          f"at {parted}; prefill "
+          f"{', '.join(f'{m:.1f}' for m in eng.phase_ms['prefill'])} ms, decode "
+          f"{sum(eng.phase_ms['decode']) / max(1, len(eng.phase_ms['decode']) * SERVE_DRAIN):.2f} "
+          f"ms a step; peak "
+          f"{(res['peak_bytes'] or 0) / 1e9:.2f} GB; launches {counts}")
+    if same_w != SERVE_NEW_TOKENS:
+        fail(f"long request: the engine's tokens differ from its own model's decode "
+             f"({same_w} of {SERVE_NEW_TOKENS})")
+    for d in parted:
+        if not d["full_gap"] <= 2 * d["dlogit"]:
+            fail(f"long request: the full-cache decode parts from the engine beyond rounding: {d}")
+    out = dict(prompt=LONG_PROMPT, new_tokens=SERVE_NEW_TOKENS, s_max=LONG_S_MAX, slots=slots,
+               top_positions=top, same_windowed=same_w, same_full=same_f, parted=parted,
+               max_dlogit_window_vs_full=max(diffs), dlogit_per_step=diffs,
+               prefill_ms=eng.phase_ms["prefill"],
+               decode_ms=eng.phase_ms["decode"], peak_bytes=res["peak_bytes"],
+               oracle_s=oracle_s, launches=counts)
+    del res, eng, p, ref, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -1325,6 +1781,11 @@ def main():
     new_optimizers = phase_new_optimizers(counters, dev)
     small_new = phase_small_new(dev)
     comms = phase_comms(counters, main_steps, train_peak)
+    arch_leaves, arch_b1 = phase_arch_leaves(dev, card_info)
+    arch_train = phase_arch_train(counters)
+    arch_small = phase_arch_small(dev)
+    arch_serve = phase_arch_serve(counters)
+    long_window = phase_long_window(counters, dev)
 
     kernels = [{
         "name": "fused_adamw4",
@@ -1390,6 +1851,11 @@ def main():
          "step_split_ms": {"model": model_ms, "optimizer": opt_ms}, "serving": serving,
          "decode_chunk_top_kernels": decode_top, "checkpoint": checkpoint,
          "new_optimizers": new_optimizers, "small_new": small_new, "comms": comms,
+         "arch_leaves": arch_leaves, "arch_b1_per_step": arch_b1,
+         "arch_train": {a: {k: v for k, v in r.items() if k != "split"}
+                        for a, r in arch_train.items()},
+         "arch_train_split": {a: r["split"] for a, r in arch_train.items()},
+         "arch_small": arch_small, "arch_serve": arch_serve, "long_window": long_window,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

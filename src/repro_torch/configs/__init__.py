@@ -1,6 +1,6 @@
-"""Architecture registry of the port (port of ``repro.configs`` for the
-slice's one dense config) and the reduced CPU-scale config of the same
-family."""
+"""Architecture registry of the port (port of ``repro.configs`` for its
+dense decoders: internlm2-1.8b, qwen3-4b, chatglm3-6b, gemma2-2b) and the
+reduced CPU-scale config of the same family."""
 
 from __future__ import annotations
 
@@ -28,7 +28,75 @@ def internlm2_1_8b() -> ModelConfig:
     )
 
 
-ARCHS: Dict[str, Callable[[], ModelConfig]] = {"internlm2-1.8b": internlm2_1_8b}
+def qwen3_4b() -> ModelConfig:
+    """qwen3-4b [hf:Qwen/Qwen3-4B]: 36L d_model=2560 32H (GQA kv=8)
+    d_ff=9728 vocab=151936; per-head q/k RMS normalization (qk_norm),
+    head_dim=128 (projection wider than d_model) (``repro/configs/qwen3_4b.py``)."""
+    return ModelConfig(
+        name="qwen3-4b",
+        num_layers=36,
+        d_model=2560,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=9728,
+        vocab_size=151936,
+        qk_norm=True,
+        rope_theta=1e6,
+        blocks=(LayerSpec("dense", 0),) * 36,
+    )
+
+
+def chatglm3_6b() -> ModelConfig:
+    """chatglm3-6b [arXiv:2406.12793]: 28L d_model=4096 32H (GQA kv=2)
+    d_ff=13696 vocab=65024; 2d RoPE (rotary on the first half of head_dim),
+    GQA with 2 kv groups (``repro/configs/chatglm3_6b.py``)."""
+    return ModelConfig(
+        name="chatglm3-6b",
+        num_layers=28,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=2,
+        head_dim=128,
+        d_ff=13696,
+        vocab_size=65024,
+        rope_variant="rope2d",
+        blocks=(LayerSpec("dense", 0),) * 28,
+    )
+
+
+GEMMA2_WINDOW = 4096
+
+
+def gemma2_2b() -> ModelConfig:
+    """gemma2-2b [arXiv:2408.00118]: 26L d_model=2304 8H (GQA kv=4) d_ff=9216
+    vocab=256000; alternating local(4096)/global attention, attention-logit
+    softcap 50, final-logit softcap 30, sandwich (pre+post) norms, tied
+    embeddings, GeGLU. head_dim=256 (``repro/configs/gemma2_2b.py``)."""
+    return ModelConfig(
+        name="gemma2-2b",
+        num_layers=26,
+        d_model=2304,
+        num_heads=8,
+        num_kv_heads=4,
+        head_dim=256,
+        d_ff=9216,
+        vocab_size=256000,
+        attn_softcap=50.0,
+        final_softcap=30.0,
+        sandwich_norm=True,
+        tie_embeddings=True,
+        act="gelu",
+        blocks=(LayerSpec("dense", GEMMA2_WINDOW), LayerSpec("dense", 0)) * 13,
+    )
+
+
+ARCHS: Dict[str, Callable[[], ModelConfig]] = {
+    "chatglm3-6b": chatglm3_6b,
+    "gemma2-2b": gemma2_2b,
+    "qwen3-4b": qwen3_4b,
+    "internlm2-1.8b": internlm2_1_8b,
+}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -39,8 +107,9 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced_config(name: str) -> ModelConfig:
     """Small same-family config for CPU runs (the reference's
-    ``reduced_config`` for dense archs): <= 4 layers, d_model 64, <= 4
-    heads of 16, d_ff 256 (kernel-eligible mlp leaves), vocab 512."""
+    ``reduced_config`` for dense archs): <= 4 layers (windows cut to <= 16,
+    so gemma2 keeps its (16, 0) pattern), d_model 64, <= 4 heads of 16, d_ff
+    256 (kernel-eligible mlp leaves), vocab 512; every feature flag kept."""
     cfg = get_config(name)
     L = min(cfg.num_layers, 4)
     blocks = tuple(LayerSpec(b.kind, min(b.window, 16) if b.window else 0) for b in cfg.blocks[:L])

@@ -3,6 +3,7 @@
 from repro_torch.models.blocks import LayerSpec
 from repro_torch.models.model import (
     ModelConfig,
+    ScanUnit,
     Transformer,
     decode_step,
     forward_hidden,
@@ -10,12 +11,15 @@ from repro_torch.models.model import (
     init_serve_cache,
     loss_fn,
     named_params,
+    plan_scan_units,
     prefill_with_cache,
 )
 
 __all__ = [
     "LayerSpec",
     "ModelConfig",
+    "ScanUnit",
+    "plan_scan_units",
     "Transformer",
     "init_model",
     "forward_hidden",

@@ -30,13 +30,18 @@ NEG_INF = -1e30
 
 
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+                    causal: bool = True, window: int = 0,
+                    softcap_val: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D). A positive
+    ``softcap_val`` caps the scaled scores (``cap * tanh(s / cap)``) before
+    the mask, as the reference does."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.to(torch.float32).reshape(B, Sq, Hkv, G, D)
     s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.to(torch.float32)) * (1.0 / math.sqrt(D))
+    if softcap_val > 0:
+        s = softcap_val * torch.tanh(s / softcap_val)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -74,11 +79,12 @@ def make_cache(batch: int, s_max: int, n_kv: int, head_dim: int, *, device,
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, cur_pos: torch.Tensor, *,
-                     window: int = 0, k_chunk: int = 1024) -> torch.Tensor:
+                     window: int = 0, softcap_val: float = 0.0,
+                     k_chunk: int = 1024) -> torch.Tensor:
     """One query step (B, 1, Hq, D) against the cache; ``cur_pos`` (B,) is
     the query's absolute position. Online softmax over chunks of ``k_chunk``
     slots; slots that are empty, in the future or behind the window are
-    masked."""
+    masked. ``softcap_val`` caps the scores as in ``train_attention``."""
     B, _, Hq, D = q.shape
     Smax, Hkv = cache.k.shape[1], cache.k.shape[2]
     G = Hq // Hkv
@@ -95,6 +101,8 @@ def decode_attention(q: torch.Tensor, cache: KVCache, cur_pos: torch.Tensor, *,
         vs = cache.v[:, j0:j0 + kc].to(torch.float32)
         ps = cache.pos[:, j0:j0 + kc]
         s = torch.einsum("bhgd,bkhd->bhgk", qg, ks) * scale
+        if softcap_val > 0:
+            s = softcap_val * torch.tanh(s / softcap_val)
         ok = (ps >= 0) & (ps <= cur)
         if window > 0:
             ok &= ps > cur - window

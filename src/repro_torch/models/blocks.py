@@ -1,12 +1,15 @@
-"""The dense transformer block: attention + (gated) MLP, pre-norm.
+"""The dense transformer block: attention + (gated) MLP, pre-norm, with
+the reference's options (q/k RMS norm, 2-D RoPE, attention softcap,
+sandwich norms, gelu).
 
 Port of ``repro/models/blocks.py`` (``LayerSpec``, ``apply_attention`` with
 its three cache regimes, ``apply_mlp``, the dense block and its decode
 cache). A ``DenseStack`` holds the parameters of ``L`` identical layers
 stacked on a leading dim, in the reference's layout and under its names
-(``attn/wq`` ``(L, D, H, dh)``, ``mlp/w1`` ``(L, D, F)``, ``norm1``
-``(L, D)``, ...), so the optimizer sees the reference's leaves; training and
-serving both walk the layers through ``unstack``.
+(``attn/wq`` ``(L, D, H, dh)``, ``attn/q_norm`` ``(L, dh)``, ``mlp/w1``
+``(L, D, F)``, ``norm1``, ``post1`` ``(L, D)``, ...), so the optimizer sees
+the reference's leaves; training and serving both walk the layers through
+``unstack``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import COMPUTE_DTYPE, dense, rmsnorm, rope
+from repro_torch.models.layers import COMPUTE_DTYPE, dense, rmsnorm, rope, rope_half
 
 __all__ = ["LayerSpec", "DenseStack", "unstack", "apply_attention", "apply_mlp", "apply_dense",
            "init_block_cache"]
@@ -41,24 +44,32 @@ class DenseStack(nn.Module):
     def __init__(self, cfg, L: int, device):
         super().__init__()
         D, Hq, Hkv, dh, Ff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-        self.attn = nn.ParameterDict({
+        attn = {
             "wq": _stacked(L, (D, Hq, dh), device),
             "wk": _stacked(L, (D, Hkv, dh), device),
             "wv": _stacked(L, (D, Hkv, dh), device),
             "wo": _stacked(L, (Hq, dh, D), device),
-        })
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = _stacked(L, (dh,), device)
+            attn["k_norm"] = _stacked(L, (dh,), device)
+        self.attn = nn.ParameterDict(attn)
         mlp = {"w1": _stacked(L, (D, Ff), device), "w2": _stacked(L, (Ff, D), device)}
         if cfg.gated_mlp:
             mlp["w3"] = _stacked(L, (D, Ff), device)
         self.mlp = nn.ParameterDict(mlp)
         self.norm1 = _stacked(L, (D,), device)
         self.norm2 = _stacked(L, (D,), device)
+        if cfg.sandwich_norm:
+            self.post1 = _stacked(L, (D,), device)
+            self.post2 = _stacked(L, (D,), device)
         self.L = L
 
     def layers(self):
         """Per-layer parameter dicts (views of the stacked tensors)."""
-        return unstack({"attn": dict(self.attn), "mlp": dict(self.mlp),
-                        "norm1": self.norm1, "norm2": self.norm2}, self.L)
+        tree = {"attn": dict(self.attn), "mlp": dict(self.mlp)}
+        tree.update((k, p) for k, p in self.named_parameters(recurse=False))
+        return unstack(tree, self.L)
 
 
 def unstack(tree: Dict[str, Any], L: int) -> Iterator[Dict[str, Any]]:
@@ -80,6 +91,19 @@ def unstack(tree: Dict[str, Any], L: int) -> Iterator[Dict[str, Any]]:
         yield pick(parts, l)
 
 
+def _qk_normalize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-head RMS norm of q or k over head_dim (fp32, eps 1e-6)."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
+
+
+def _rope_apply(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_variant == "rope2d":
+        return rope_half(x, positions, cfg.rope_theta)
+    return rope(x, positions, cfg.rope_theta)
+
+
 def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, positions=None,
                     cache: Optional[attn_lib.KVCache] = None,
                     cur_pos: Optional[torch.Tensor] = None,
@@ -94,25 +118,32 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, positions=None,
     is written in place.
     """
     q = dense(x, p["wq"], "bsd,dhe->bshe")
+    if "q_norm" in p:
+        q = _qk_normalize(q, p["q_norm"])
     k = dense(x, p["wk"], "bsd,dhe->bshe")
     v = dense(x, p["wv"], "bsd,dhe->bshe")
+    if "k_norm" in p:
+        k = _qk_normalize(k, p["k_norm"])
     if positions is not None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        q = _rope_apply(cfg, q, positions)
+        k = _rope_apply(cfg, k, positions)
     if cache is not None and cur_pos is not None and x.shape[1] == 1:
         attn_lib.cache_update(cache, k, v, cur_pos)
         out = attn_lib.decode_attention(q, cache, cur_pos, window=window,
+                                        softcap_val=cfg.attn_softcap,
                                         k_chunk=cfg.decode_k_chunk)
     else:
-        out = attn_lib.train_attention(q, k, v, causal=True, window=window)
+        out = attn_lib.train_attention(q, k, v, causal=True, window=window,
+                                       softcap_val=cfg.attn_softcap)
         if cache is not None and kv_lengths is not None:
             attn_lib.cache_prefill(cache, k, v, kv_lengths)
     return torch.einsum("bshe,hed->bsd", out.to(COMPUTE_DTYPE), p["wo"].to(COMPUTE_DTYPE))
 
 
-def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """(Gated) MLP. ``gelu`` is the tanh form: ``jax.nn.gelu``'s default."""
     h = dense(x, p["w1"], "bsd,df->bsf")
-    a = F.silu(h)
+    a = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
     if "w3" in p:
         a = a * dense(x, p["w3"], "bsd,df->bsf")
     return torch.einsum("bsf,fd->bsd", a, p["w2"].to(COMPUTE_DTYPE))
@@ -122,11 +153,18 @@ def apply_dense(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
                 cache: Optional[attn_lib.KVCache] = None,
                 cur_pos: Optional[torch.Tensor] = None,
                 kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Pre-norm dense block (the cache regimes of ``apply_attention``)."""
+    """Pre-norm dense block (the cache regimes of ``apply_attention``); with
+    ``sandwich_norm`` each branch's output is normed again (``post1``,
+    ``post2``) before the residual add."""
     h = apply_attention(p["attn"], rmsnorm(x, p["norm1"]), cfg, window=spec.window,
                         positions=positions, cache=cache, cur_pos=cur_pos, kv_lengths=kv_lengths)
+    if cfg.sandwich_norm:
+        h = rmsnorm(h, p["post1"])
     x = x + h
-    return x + apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]))
+    h2 = apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]), cfg.act)
+    if cfg.sandwich_norm:
+        h2 = rmsnorm(h2, p["post2"])
+    return x + h2
 
 
 def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device,

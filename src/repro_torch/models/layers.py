@@ -1,4 +1,5 @@
-"""Shared layers: rmsnorm, embedding lookup, RoPE, chunked cross entropy.
+"""Shared layers: rmsnorm, embedding lookup, RoPE (full and half-dim),
+softcap, chunked cross entropy.
 
 Port of ``repro/models/layers.py`` (the dense path). Compute is bf16 with
 fp32 master weights cast in (``COMPUTE_DTYPE``, as ``layers.py:34``);
@@ -17,6 +18,8 @@ __all__ = [
     "rmsnorm",
     "embed_lookup",
     "rope",
+    "rope_half",
+    "softcap",
     "chunked_cross_entropy",
 ]
 
@@ -54,6 +57,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     half = x.shape[-1] // 2
     x1, x2 = x32[..., :half], x32[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope_half(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """ChatGLM-style 2-D RoPE: the rotary of the first ``D // 2`` lanes (its
+    frequencies from that half width); the second half passes through."""
+    half = x.shape[-1] // 2
+    return torch.cat([rope(x[..., :half], positions, theta), x[..., half:]], dim=-1)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)`` in fp32, back to
+    the input dtype."""
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,

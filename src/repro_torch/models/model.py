@@ -1,21 +1,26 @@
-"""Model assembly for dense decoder stacks: config, init, forward, loss, and
-serving (prefill with cache, decode step).
+"""Model assembly for dense decoder stacks: config, scan units, init,
+forward, loss, and serving (prefill with cache, decode step).
 
-Port of ``repro/models/model.py`` (``ModelConfig``, ``init_model``,
-``forward_hidden``, ``loss_fn``, ``init_serve_cache``, ``prefill_with_cache``,
-``decode_step``) for token decoders whose blocks are all ``dense``. The
-stack is one scan unit of ``L`` stacked layers, stored under the reference's
-paths (``decoder/0/sub0/...``); a Python loop over ``L`` replaces
-``lax.scan``. ``named_params`` gives the ordered ``{path: tensor}`` mapping
-the optimizer takes; the serving functions take such a mapping too (for
-instance ``serve.weights.materialize``'s output), and update the stacked
-decode cache in place.
+Port of ``repro/models/model.py`` (``ModelConfig``, ``plan_scan_units``,
+``init_model``, ``forward_hidden``, ``loss_fn``, ``init_serve_cache``,
+``prefill_with_cache``, ``decode_step``) for token decoders whose blocks
+are all ``dense``. The layers are grouped into the reference's scan units
+(``plan_scan_units``: one periodic pattern, such as gemma2's local/global
+pair, repeated, or maximal runs of equal layers); unit ``u`` holds one
+stack of ``repeat`` layers per pattern position under the reference's paths
+(``decoder/u/sub0/...``, ``decoder/u/sub1/...``), and a Python loop over
+``r`` runs ``sub0[r], sub1[r], ...`` where the reference scans. Tied
+embeddings have no ``head`` leaf: the head is ``embed.T``.
+``named_params`` gives the ordered ``{path: tensor}`` mapping the optimizer
+takes; the serving functions take such a mapping too (for instance
+``serve.weights.materialize``'s output), and update the stacked decode
+caches in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,12 +40,12 @@ from repro_torch.models.layers import (
     chunked_cross_entropy,
     embed_lookup,
     rmsnorm,
+    softcap,
 )
 
-__all__ = ["ModelConfig", "Transformer", "init_model", "forward_hidden", "loss_fn", "named_params",
-           "init_serve_cache", "decode_step", "prefill_with_cache"]
-
-_STACK = "decoder/0/sub0/"  # the one scan unit's parameter paths
+__all__ = ["ModelConfig", "ScanUnit", "plan_scan_units", "Transformer", "init_model",
+           "forward_hidden", "loss_fn", "named_params", "init_serve_cache", "decode_step",
+           "prefill_with_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,28 +59,81 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     blocks: Tuple[LayerSpec, ...]
+    qk_norm: bool = False
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    rope_variant: str = "rope"   # rope | rope2d (mrope | none: not ported)
     rope_theta: float = 10000.0
+    sandwich_norm: bool = False
+    act: str = "silu"            # silu | gelu (tanh form)
     gated_mlp: bool = True
+    tie_embeddings: bool = False
     ce_chunk: int = 512
     decode_k_chunk: int = 1024
 
 
+@dataclasses.dataclass(frozen=True)
+class ScanUnit:
+    pattern: Tuple[LayerSpec, ...]
+    repeat: int
+
+
+def plan_scan_units(blocks: Tuple[LayerSpec, ...]) -> List[ScanUnit]:
+    """Group layers into scan units (periodic pattern or maximal runs)."""
+    L = len(blocks)
+    for p in (1, 2, 3, 4):
+        if L % p == 0 and L // p > 1:
+            if all(blocks[i] == blocks[i % p] for i in range(L)):
+                return [ScanUnit(tuple(blocks[:p]), L // p)]
+    units: List[ScanUnit] = []
+    i = 0
+    while i < L:
+        j = i
+        while j < L and blocks[j] == blocks[i]:
+            j += 1
+        units.append(ScanUnit((blocks[i],), j - i))
+        i = j
+    return units
+
+
+_NOT_PORTED = "not ported yet (ROADMAP queue A item 4)"
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    kinds = sorted({b.kind for b in cfg.blocks} - {"dense"})
+    if kinds:
+        raise ValueError(f"{cfg.name}: block kinds {kinds} are {_NOT_PORTED}; the port runs "
+                         "dense decoder stacks")
+    if cfg.rope_variant not in ("rope", "rope2d"):
+        raise ValueError(f"{cfg.name}: rope_variant {cfg.rope_variant!r} is {_NOT_PORTED}")
+    if cfg.act not in ("silu", "gelu"):
+        raise ValueError(f"{cfg.name}: unknown act {cfg.act!r}")
+    if len(cfg.blocks) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {len(cfg.blocks)} block specs for {cfg.num_layers} layers")
+
+
 class Transformer(nn.Module):
     """Dense decoder LM; parameters are fp32 masters in the reference's
-    stacked layout."""
+    stacked layout, one ``ModuleDict`` of ``sub{i}`` stacks per scan unit."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if any(b.kind != "dense" for b in cfg.blocks) or len(cfg.blocks) != cfg.num_layers:
-            raise ValueError(f"{cfg.name}: the port runs dense decoder stacks only")
-        if len(set(cfg.blocks)) != 1:
-            raise ValueError(f"{cfg.name}: the port runs one homogeneous scan unit only")
+        _check_supported(cfg)
         self.cfg = cfg
+        self.units = plan_scan_units(cfg.blocks)
         D, V = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(torch.empty((V, D), dtype=torch.float32, device=device))
-        self.decoder = nn.ModuleList([nn.ModuleDict({"sub0": DenseStack(cfg, cfg.num_layers, device)})])
+        self.decoder = nn.ModuleList([
+            nn.ModuleDict({f"sub{si}": DenseStack(cfg, unit.repeat, device)
+                           for si in range(len(unit.pattern))})
+            for unit in self.units])
         self.final_norm = nn.Parameter(torch.empty((D,), dtype=torch.float32, device=device))
-        self.head = nn.Parameter(torch.empty((D, V), dtype=torch.float32, device=device))
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(torch.empty((D, V), dtype=torch.float32, device=device))
+
+    def head_weight(self) -> torch.Tensor:
+        """(D, V): ``head``, or ``embed.T`` with tied embeddings."""
+        return self.embed.t() if self.cfg.tie_embeddings else self.head
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         return loss_fn(self, batch)
@@ -87,6 +145,12 @@ def named_params(model: nn.Module) -> Dict[str, nn.Parameter]:
     from repro_torch.core.optimizers.base import tree_order
 
     return tree_order({k.replace(".", "/"): p for k, p in model.named_parameters()})
+
+
+def _is_scale(path: str) -> bool:
+    """Norm scales, initialised to one (``norm1``, ``q_norm``, ``post1``, ...)."""
+    leaf = path.rsplit("/", 1)[-1]
+    return "norm" in leaf or leaf in ("post1", "post2")
 
 
 @torch.no_grad()
@@ -104,23 +168,34 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     for path, p in named_params(model).items():
-        if "norm" in path:
+        if _is_scale(path):
             p.fill_(1.0)
         else:
             p.normal_(0.0, INIT_STD, generator=generator)
     return model
 
 
-def _run_stack(cfg: ModelConfig, layers: Iterable[Dict[str, Any]], x: torch.Tensor, positions,
-               cache: Optional[KVCache] = None, cur_pos: Optional[torch.Tensor] = None,
+# per unit, per sub: the list of that stack's per-layer parameter dicts
+UnitLayers = List[List[Sequence[Dict[str, Any]]]]
+
+
+def _run_units(cfg: ModelConfig, units: List[ScanUnit], layers: UnitLayers, x: torch.Tensor,
+               positions, caches: Optional[List[Dict[str, KVCache]]] = None,
+               cur_pos: Optional[torch.Tensor] = None,
                kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The layer loop shared by training and serving. ``cache`` is the
-    stack's ``(L, ...)`` cache: layer ``l`` reads and writes its views."""
-    spec = cfg.blocks[0]
-    for l, p in enumerate(layers):
-        c = None if cache is None else KVCache(cache.k[l], cache.v[l], cache.pos[l])
-        x = apply_dense(p, x, spec, cfg, positions=positions, cache=c, cur_pos=cur_pos,
-                        kv_lengths=kv_lengths)
+    """The layer loop shared by training and serving, in the reference's
+    order: per unit, ``sub0[r], sub1[r], ...`` for each repeat ``r``.
+    ``caches[u]["sub{i}"]`` is that stack's ``(repeat, ...)`` cache: layer
+    ``r`` reads and writes its views."""
+    for ui, unit in enumerate(units):
+        for r in range(unit.repeat):
+            for si, spec in enumerate(unit.pattern):
+                c = None
+                if caches is not None:
+                    stacked = caches[ui][f"sub{si}"]
+                    c = KVCache(stacked.k[r], stacked.v[r], stacked.pos[r])
+                x = apply_dense(layers[ui][si][r], x, spec, cfg, positions=positions, cache=c,
+                                cur_pos=cur_pos, kv_lengths=kv_lengths)
     return x
 
 
@@ -130,14 +205,17 @@ def forward_hidden(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.
     x = embed_lookup(model.embed, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _run_stack(model.cfg, model.decoder[0]["sub0"].layers(), x, positions)
+    layers = [[list(unit[f"sub{si}"].layers()) for si in range(len(u.pattern))]
+              for unit, u in zip(model.decoder, model.units)]
+    x = _run_units(model.cfg, model.units, layers, x, positions)
     return rmsnorm(x, model.final_norm)
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
-    """Causal LM loss (chunked CE). Returns (loss, metrics)."""
+    """Causal LM loss (chunked CE, final-logit softcap). Returns (loss, metrics)."""
     x = forward_hidden(model, batch)
-    loss = chunked_cross_entropy(x, model.head, batch["labels"], chunk=model.cfg.ce_chunk)
+    loss = chunked_cross_entropy(x, model.head_weight(), batch["labels"],
+                                 logit_cap=model.cfg.final_softcap, chunk=model.cfg.ce_chunk)
     return loss, {"ce_loss": loss.detach(), "aux_loss": torch.zeros((), device=loss.device)}
 
 
@@ -146,43 +224,61 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
 # ---------------------------------------------------------------------------
 
 
-def _stack_layers(params: Mapping[str, torch.Tensor], cfg: ModelConfig):
-    """Per-layer parameter dicts from a ``{path: tensor}`` mapping."""
-    tree: Dict[str, Any] = {}
-    for path, t in params.items():
-        if path.startswith(_STACK):
-            *dirs, leaf = path[len(_STACK):].split("/")
-            node = tree
-            for d in dirs:
-                node = node.setdefault(d, {})
-            node[leaf] = t
-    return unstack(tree, cfg.num_layers)
+def _unit_layers(params: Mapping[str, torch.Tensor], units: List[ScanUnit]) -> UnitLayers:
+    """Per-unit, per-sub lists of per-layer parameter dicts from a
+    ``{path: tensor}`` mapping."""
+    out: UnitLayers = []
+    for ui, unit in enumerate(units):
+        subs = []
+        for si in range(len(unit.pattern)):
+            prefix = f"decoder/{ui}/sub{si}/"
+            tree: Dict[str, Any] = {}
+            for path, t in params.items():
+                if path.startswith(prefix):
+                    *dirs, leaf = path[len(prefix):].split("/")
+                    node = tree
+                    for d in dirs:
+                        node = node.setdefault(d, {})
+                    node[leaf] = t
+            subs.append(list(unstack(tree, unit.repeat)))
+        out.append(subs)
+    return out
 
 
-def _logits(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """(B, D) final hidden -> (B, V) fp32 logits (bf16 product)."""
-    return torch.einsum("bd,dv->bv", x.to(COMPUTE_DTYPE),
-                        params["head"].to(COMPUTE_DTYPE)).to(torch.float32)
+def _logits(params: Mapping[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """(B, D) final hidden -> (B, V) fp32 logits (bf16 product; the head is
+    ``embed.T`` when tied), final softcap applied."""
+    head = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    logits = torch.einsum("bd,dv->bv", x.to(COMPUTE_DTYPE),
+                          head.to(COMPUTE_DTYPE)).to(torch.float32)
+    if cfg.final_softcap > 0:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
 
 
 def init_serve_cache(cfg: ModelConfig, batch: int, s_max: int,
                      device="cuda") -> List[Dict[str, KVCache]]:
-    """Decode cache: one unit of ``{"sub0": KVCache}``, stacked over the
-    layers (``(L, B, slots, Hkv, D)`` bf16, ``pos`` ``(L, B, slots)``)."""
+    """Decode cache: per scan unit, ``{"sub{i}": KVCache}`` stacked over the
+    unit's repeats (``(repeat, B, slots, Hkv, D)`` bf16, ``pos`` ``(repeat,
+    B, slots)``); windowed subs hold ``min(s_max, window)`` slots."""
+    _check_supported(cfg)
     dev = resolve_device(device)
-    return [{"sub0": init_block_cache(cfg, cfg.blocks[0], batch, s_max, device=dev,
-                                      layers=cfg.num_layers)}]
+    return [{f"sub{si}": init_block_cache(cfg, spec, batch, s_max, device=dev,
+                                          layers=unit.repeat)
+             for si, spec in enumerate(unit.pattern)}
+            for unit in plan_scan_units(cfg.blocks)]
 
 
 def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
                 caches: List[Dict[str, KVCache]], tokens: torch.Tensor, pos: torch.Tensor):
     """One serving step: tokens (B,) at absolute positions pos (B,) ->
     (next-token logits (B, V) fp32, caches updated in place)."""
+    units = plan_scan_units(cfg.blocks)
     x = embed_lookup(params["embed"], tokens[:, None])  # (B, 1, D)
-    x = _run_stack(cfg, _stack_layers(params, cfg), x, pos[:, None],
-                   cache=caches[0]["sub0"], cur_pos=pos)
+    x = _run_units(cfg, units, _unit_layers(params, units), x, pos[:, None],
+                   caches=caches, cur_pos=pos)
     x = rmsnorm(x, params["final_norm"])
-    return _logits(params, x[:, 0]), caches
+    return _logits(params, cfg, x[:, 0]), caches
 
 
 def prefill_with_cache(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
@@ -192,11 +288,12 @@ def prefill_with_cache(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     (B,) -> (logits at each row's last real token (B, V) fp32, caches with
     the prompts' K/V written in place). Padded keys are never attended
     (causal), and padded slots keep pos -1."""
+    units = plan_scan_units(cfg.blocks)
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _run_stack(cfg, _stack_layers(params, cfg), x, positions,
-                   cache=caches[0]["sub0"], kv_lengths=lengths)
+    x = _run_units(cfg, units, _unit_layers(params, units), x, positions,
+                   caches=caches, kv_lengths=lengths)
     x = rmsnorm(x, params["final_norm"])
     last = x[torch.arange(B, device=x.device), torch.clamp_min(lengths.long() - 1, 0)]
-    return _logits(params, last), caches
+    return _logits(params, cfg, last), caches

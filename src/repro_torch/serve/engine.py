@@ -138,8 +138,10 @@ class ServeEngine:
         first = sample_tokens(logits, kw, torch.zeros(B, dtype=torch.int64, device=self.device),
                               self._dev(self.temp), self._dev(self.topk))
         mask = self._dev(admit)
-        for live, new in zip(self.caches[0]["sub0"], fresh[0]["sub0"]):
-            live[:, mask] = new[:, mask]
+        for live_unit, fresh_unit in zip(self.caches, fresh):
+            for sub, live_cache in live_unit.items():
+                for live, new in zip(live_cache, fresh_unit[sub]):
+                    live[:, mask] = new[:, mask]
         return first
 
     def _admit_and_prefill(self) -> List[int]:

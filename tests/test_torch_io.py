@@ -25,6 +25,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
 from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
 from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
@@ -38,7 +39,7 @@ from repro.train.train_loop import TrainState as JTrainState  # noqa: E402
 from repro.train.train_loop import build_train_step as j_build  # noqa: E402
 from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
 from repro.train.train_loop import train_state_shardings as j_shardings  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import load_params, params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
@@ -246,6 +247,45 @@ def test_port_checkpoint_restores_in_jax(name, ov, tmp_path):
     target = jax.eval_shape(lambda: j_make_state(jparams, jopt, key=jax.random.PRNGKey(17)))
     restored, _ = j_restore(d, target)
     assert_leaves_equal(jax_leaves(restored), port_leaves(state), "port -> JAX @3")
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
+    """Reduced gemma2-2b (two subs, tied embeddings: no head, 4-bit
+    sandwich-norm scales) and qwen3-4b (qk-norm leaves), production4bit with
+    an SR key: from the same params the port writes the reference's files
+    byte for byte; the reference trains 2 steps and saves, the port
+    restores it bit-equal, trains 2 more and saves, and the reference
+    restores that bit-equal."""
+    jcfg, cfg = j_reduced(arch), reduced_config(arch)
+    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jopt = j_make("production4bit", 3e-3)
+    jstate = j_make_state(jparams, jopt, key=jax.random.PRNGKey(17))
+    tstate = make_train_state(port_model(cfg, jparams), make_optimizer("production4bit", 3e-3),
+                              key=sr.PRNGKey(17))
+    dj = j_save(str(tmp_path / "jax0"), 0, jstate)
+    dt = save_checkpoint(str(tmp_path / "port0"), 0, tstate)
+    assert ckfmt.read_manifest(dt) == ckfmt.read_manifest(dj)
+    assert filecmp.cmp(os.path.join(dt, ckfmt.shard_file(0)),
+                       os.path.join(dj, ckfmt.shard_file(0)), shallow=False)
+    keys = [m["key"] for m in ckfmt.read_manifest(dt)["leaves"]]
+    assert any("'head'" in k for k in keys) == (arch != "gemma2-2b")
+
+    data = (SyntheticLM(DataConfig(512, 16, 4)), JSyntheticLM(JDataConfig(512, 16, 4)))
+    jstep = jax.jit(j_build(jcfg, jopt))
+    for t in range(2):
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in data[1].batch_at(t).items()})
+    j_save(str(tmp_path / "jax"), 2, jstate)
+    model, opt, state = restore_port(str(tmp_path / "jax"), cfg, "production4bit", {},
+                                     sr.PRNGKey(17))
+    assert_leaves_equal(port_leaves(state), jax_leaves(jstate), f"{arch}: JAX -> port @2")
+    step = build_train_step(model, opt)
+    for t in range(2, 4):
+        state, _ = step(state, {k: torch.from_numpy(v) for k, v in data[0].batch_at(t).items()})
+    save_checkpoint(str(tmp_path / "port"), 4, state)
+    target = jax.eval_shape(lambda: j_make_state(jparams, jopt, key=jax.random.PRNGKey(17)))
+    restored, _ = j_restore(str(tmp_path / "port"), target)
+    assert_leaves_equal(jax_leaves(restored), port_leaves(state), f"{arch}: port -> JAX @4")
 
 
 def _j_nonzero_state(opt_name, **ov):
