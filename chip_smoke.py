@@ -130,7 +130,36 @@ Phases, each failing the run on error:
     slots in every layer (the window masking the older ones) picks another
     token, the engine's token must lie within twice the two decodes' logit
     difference of that decode's best: the two hold the same keys in another
-    slot order, so only their roundings differ.
+    slot order, so only their roundings differ;
+19. hold both B1 passes against their plain versions, RTN and SR, at the
+    fused leaves of phi3.5-moe-42b-a6.6b and mixtral-8x7b at their training
+    depths: the expert stacks (L, 16, 4096, 6400), (L, 16, 6400, 4096), (L,
+    8, 4096, 14336), (L, 8, 14336, 4096) as L*E slices (the rank-1 lead
+    stats over (L, E)) and ``wo``; time both passes against their bounds and
+    sum each arch's step;
+20. B2 and B3 on one whole q4 leaf of more than 2^32 elements (phi3.5's
+    expert stack at its serving depth), bit-equal to their plain versions
+    on windows at the start, around 2^31 and 2^32, and at the end; timed;
+21. drive each MoE arch through ``repro_torch.launch.train`` at full width,
+    cut in depth only (``PHI35_TRAIN_LAYERS``, ``MIXTRAL_TRAIN_LAYERS`` of 32),
+    production4bit with SR, 5 steps of batch 8 x seq 128, counts set to 0
+    just before and read just after: state bytes (the reference's count at
+    that depth), 4 launches of each B1 pass a step, none of B2/B3, ce and
+    aux losses finite (aux positive), the total falling; step ms split into
+    model and optimizer, peak memory;
+22. card against CPU on each MoE arch's reduced config, 3 production4bit SR
+    steps, losses within 3e-4 relative; the card's routing held to the
+    CPU's: every expert choice that parts is shown at a near tie (two bf16
+    ulps, or twice the call's largest card-CPU logit difference), counted,
+    and the card then takes the CPU's choice;
+23. serve each MoE arch with q4 weights at its serving depth
+    (``PHI35_SERVE_LAYERS``, ``MIXTRAL_SERVE_LAYERS``) with phase 8's mix:
+    weight bytes (the reference's count at that depth), 12 q4 leaves, one
+    B2 launch each, B3 per leaf and materialize, every stream complete;
+    tok/s, prefill and decode ms, peak memory.
+
+The kernel table's launch counts sum the path runs (phases 6, 15 and 21
+for B1; 8, 17 and 23 for B2/B3), each counted from 0 just before it.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -139,8 +168,10 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -263,14 +294,56 @@ ARCH_TRAIN = {
     "qwen3-4b": (36, QWEN3_LAYERS, 4, 9_138_936_936, 12),
     "chatglm3-6b": (28, CHATGLM3_LAYERS, 2, 6_155_209_764, 4),
 }
-# phase 17: arch -> (q4 weight bytes, q4 leaves): the reference's weight_report
+# phase 17: arch -> (q4 weight bytes, q4 leaves, layers: None for full
+# depth): the reference's weight_report
 ARCH_SERVE = {
-    "qwen3-4b": (2_343_578_016, 13),
-    "chatglm3-6b": (3_316_849_664, 11),
-    "gemma2-2b": (1_388_877_120, 23),
+    "qwen3-4b": (2_343_578_016, 13, None),
+    "chatglm3-6b": (3_316_849_664, 11, None),
+    "gemma2-2b": (1_388_877_120, 23, None),
 }
 # phase 18: one gemma2-2b request that wraps the windowed layers' cache
 LONG_PROMPT, LONG_S_MAX = 4100, 8192
+# phases 19-23 (slice 8): phi3.5-moe-42b-a6.6b and mixtral-8x7b, cut in depth
+# only (neither fits one card whole). Training depths: the deepest that
+# scripts_train_depth.py ran on an H100 80GB HBM3 at 700 W (PERF.md section
+# 4: phi3.5 at 5 layers peaked at 80.2 GB, mixtral at 4 at 72.3 GB, both with
+# expandable segments; with the default allocator mixtral at 4 ran out with
+# 24.5 GiB reserved but unallocated); serving depths likewise with --serve
+# (q4: materialize holds the whole tree in fp32 for the length of a call;
+# 79.5 and 82.0 GB)
+PHI35, MIXTRAL = "phi3.5-moe-42b-a6.6b", "mixtral-8x7b"
+PHI35_TRAIN_LAYERS, MIXTRAL_TRAIN_LAYERS = 5, 4
+PHI35_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS = 13, 12
+# phase 19: B1 at the expert shapes (and wo) at the training depths
+MOE_LEAF_SHAPES = (
+    (PHI35, "wo", (PHI35_TRAIN_LAYERS, 32, 128, 4096), 1),
+    (PHI35, "moe/w1,w3", (PHI35_TRAIN_LAYERS, 16, 4096, 6400), 2),
+    (PHI35, "moe/w2", (PHI35_TRAIN_LAYERS, 16, 6400, 4096), 1),
+    (MIXTRAL, "wo", (MIXTRAL_TRAIN_LAYERS, 32, 128, 4096), 1),
+    (MIXTRAL, "moe/w1,w3", (MIXTRAL_TRAIN_LAYERS, 8, 4096, 14336), 2),
+    (MIXTRAL, "moe/w2", (MIXTRAL_TRAIN_LAYERS, 8, 14336, 4096), 1),
+)
+# phase 20: one q4 leaf of more than 2^32 elements: phi3.5's expert stack at
+# its serving depth, as B2/B3 meet it there (the kernels' (R, C) view)
+BIG_Q4_SHAPE = (PHI35_SERVE_LAYERS, 16, 4096, 6400)
+BIG_Q4_WINDOW = 1 << 26  # elements of each window held against the plain versions
+# phase 21: as ARCH_TRAIN; state bytes: the reference's eval_shape counts at
+# that depth (tests/test_torch_moe_optim.py)
+MOE_STATE_BYTES = {(PHI35, 4): 7_465_588_440, (PHI35, 5): 8_806_588_152,
+                   (PHI35, 6): 10_147_587_864, (MIXTRAL, 3): 6_587_528_760,
+                   (MIXTRAL, 4): 8_084_208_216, (MIXTRAL, 5): 9_580_887_672}
+MOE_TRAIN = {
+    PHI35: (32, PHI35_TRAIN_LAYERS, 4, MOE_STATE_BYTES[PHI35, PHI35_TRAIN_LAYERS], None),
+    MIXTRAL: (32, MIXTRAL_TRAIN_LAYERS, 4, MOE_STATE_BYTES[MIXTRAL, MIXTRAL_TRAIN_LAYERS], None),
+}
+# phase 23: as ARCH_SERVE; q4 bytes: the reference's weight_report at that depth
+MOE_Q4_BYTES = {(PHI35, 11): 7_738_233_600, (PHI35, 12): 8_429_022_208,
+                (PHI35, 13): 9_119_810_816, (MIXTRAL, 10): 7_849_153_024,
+                (MIXTRAL, 11): 8_620_140_288, (MIXTRAL, 12): 9_391_127_552}
+MOE_SERVE = {
+    PHI35: (MOE_Q4_BYTES[PHI35, PHI35_SERVE_LAYERS], 12, PHI35_SERVE_LAYERS),
+    MIXTRAL: (MOE_Q4_BYTES[MIXTRAL, MIXTRAL_SERVE_LAYERS], 12, MIXTRAL_SERVE_LAYERS),
+}
 
 
 def fail(msg: str) -> None:
@@ -1142,7 +1215,7 @@ class _StepSplit:
 
 
 class _Depth:
-    """The CLI's ``--arch`` config (not ``--reduced``) cut to its first
+    """The CLIs' ``--arch`` config (not ``--reduced``) cut to its first
     ``layers`` layers, its width kept, while inside; ``None`` leaves it
     whole."""
 
@@ -1152,19 +1225,20 @@ class _Depth:
     def __enter__(self):
         import dataclasses
 
-        from repro_torch.launch import train
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve, train
 
-        self._saved = real = train.get_config
+        self._saved = (train.get_config, serve.get_config)
         if self.layers is not None:
             n = self.layers
-            train.get_config = lambda name: dataclasses.replace(
-                real(name), num_layers=n, blocks=real(name).blocks[:n])
+            train.get_config = serve.get_config = lambda name: dataclasses.replace(
+                get_config(name), num_layers=n, blocks=get_config(name).blocks[:n])
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.launch import train
+        from repro_torch.launch import serve, train
 
-        train.get_config = self._saved
+        train.get_config, serve.get_config = self._saved
         return False
 
 
@@ -1189,7 +1263,10 @@ def _cli_run(counters, args, layers=None):
     res = dict(optimizer=out["optimizer"], state_bytes=out["state_bytes"],
                n_params=out["n_params"], wire=dict((k, v) for k, v in out["wire"].items()
                                                    if k != "leaves"),
-               losses=[r["loss"] for r in out["steps"]], step_ms=[r["ms"] for r in out["steps"]],
+               losses=[r["loss"] for r in out["steps"]],
+               ce_losses=[r["ce_loss"] for r in out["steps"]],
+               aux_losses=[r["aux_loss"] for r in out["steps"]],
+               step_ms=[r["ms"] for r in out["steps"]],
                peak_bytes=out["peak_bytes"], launches=counts, split=split)
     del out
     gc.collect()
@@ -1207,7 +1284,10 @@ def _check_trains(res, what):
 
 def _print_run(res, what):
     for i, (loss, ms, s) in enumerate(zip(res["losses"], res["step_ms"], res["split"])):
-        print(f"{what} step {i}: loss {loss:.4f}  {ms:.1f} ms (model {s['model_ms']:.1f}, "
+        aux = res["aux_losses"][i]
+        print(f"{what} step {i}: loss {loss:.4f}"
+              + (f" (ce {res['ce_losses'][i]:.4f}, aux {aux:.4f})" if aux else "")
+              + f"  {ms:.1f} ms (model {s['model_ms']:.1f}, "
               f"comms {s['comms_ms']:.1f}, optimizer {s['optimizer_ms']:.1f} ms"
               + (f"; {s['eigh_calls']} eigh matrices in {s['eigh_s']:.2f} s"
                  if s["eigh_calls"] else "") + ")")
@@ -1266,10 +1346,93 @@ def phase_new_optimizers(counters, dev):
     return runs
 
 
-def _small_pair(name, lr, mode, seed, dev, arch="internlm2-1.8b"):
+class _Routes:
+    """The MoE routing of a CPU run, recorded call by call, and a card run
+    held to it: where the card's expert choice parts from the CPU's, the
+    parting must sit at a near tie, and the card then takes the CPU's
+    choice, so both runs follow one discrete path. A near tie: the logits of
+    the two experts at the first place the choices differ lie within two
+    bf16 ulps on one of the two devices, or within twice the largest logit
+    difference between the two runs in that call (phase 18's rule: after
+    the first step the runs' weights differ by their steps' roundings, and
+    the logits with them)."""
+
+    def __init__(self):
+        self.cpu, self.parted, self.assignments = [], [], 0
+        self.dlogit = []  # per call: the largest |logit| difference card - CPU
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patch(spy):
+        """``moe_apply`` calls ``spy(real moe_route, *args)`` while inside."""
+        import repro_torch.models.moe as moe
+
+        real = moe.moe_route
+        moe.moe_route = lambda *a: spy(real, *a)
+        try:
+            yield
+        finally:
+            moe.moe_route = real
+
+    @staticmethod
+    def _logits(router, xg):
+        import torch
+
+        return torch.einsum("gtd,de->gte", xg.detach(),
+                            router.detach().to(torch.bfloat16)).float().cpu()
+
+    def record(self):
+        def spy(real, router, xg, top_k, capacity):
+            out = real(router, xg, top_k, capacity)
+            self.cpu.append((self._logits(router, xg), out[2].cpu()))
+            return out
+
+        return self._patch(spy)
+
+    def follow(self):
+        import torch
+
+        def ulp(v):
+            return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+
+        def spy(real, router, xg, top_k, capacity):
+            from repro_torch.models.moe import moe_slots
+
+            probs, top_vals, top_idx, slot = real(router, xg, top_k, capacity)
+            c_logits, c_idx = self.cpu[len(self.parted)]
+            d_logits, d_idx = self._logits(router, xg), top_idx.cpu()
+            self.assignments += c_idx.numel()
+            self.dlogit.append(float((c_logits - d_logits).abs().max()))
+            differs = (c_idx != d_idx).any(dim=-1)
+            for g, t in differs.nonzero().tolist():
+                j = int((c_idx[g, t] != d_idx[g, t]).nonzero()[0])
+                a, b = int(c_idx[g, t, j]), int(d_idx[g, t, j])
+                gaps = [abs(float(lg[g, t, a] - lg[g, t, b])) for lg in (c_logits, d_logits)]
+                ulps = [gap / ulp(max(abs(float(lg[g, t, a])), abs(float(lg[g, t, b]))))
+                        for gap, lg in zip(gaps, (c_logits, d_logits))]
+                if min(ulps) > 2 and min(gaps) > 2 * self.dlogit[-1]:
+                    fail(f"MoE routing parts card from CPU away from a tie: call "
+                         f"{len(self.parted)} (max |dlogit| {self.dlogit[-1]:.3g}), group {g} token "
+                         f"{t}, experts CPU {c_idx[g, t].tolist()} card {d_idx[g, t].tolist()}, "
+                         f"logits CPU {c_logits[g, t].tolist()} card {d_logits[g, t].tolist()}")
+            self.parted.append(int((c_idx != d_idx).sum()))
+            if self.parted[-1]:
+                top_idx = c_idx.to(probs.device)
+                top_vals = torch.gather(probs, -1, top_idx)
+                top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
+                slot = moe_slots(top_idx, probs.shape[-1], capacity)
+            return probs, top_vals, top_idx, slot
+
+        return self._patch(spy)
+
+
+def _small_pair(name, lr, mode, seed, dev, arch="internlm2-1.8b", routes=None):
     """Three reduced-config steps of ``arch`` from the same weights on the
-    card and the CPU: losses, the same model's losses without steps, and the
-    agreement of the first-moment 4-bit codes."""
+    CPU and the card: losses, the same model's losses without steps, and
+    the agreement of the first-moment 4-bit codes. With ``routes`` (a
+    ``_Routes``), the CPU run's MoE routing is recorded and the card's held
+    to it."""
+
     import torch
 
     from repro_torch.comms import CommsConfig
@@ -1291,14 +1454,17 @@ def _small_pair(name, lr, mode, seed, dev, arch="internlm2-1.8b"):
     with torch.no_grad():
         still = [float(loss_fn(cpu_model, cpu_batch(t))[0]) for t in range(3)]
     losses, codes = {}, {}
-    for tag, model, d in (("card", dev_model, dev), ("cpu", cpu_model, torch.device("cpu"))):
+    for tag, model, d in (("cpu", cpu_model, torch.device("cpu")), ("card", dev_model, dev)):
         opt = make_optimizer(name, linear_warmup_linear_decay(lr, 1, 3))
         state = make_train_state(model, opt, key=sr.PRNGKey(seed) if seed is not None else None)
         step = build_train_step(model, opt, comms=CommsConfig(mode=mode))
         losses[tag] = []
-        for t in range(3):
-            state, metrics = step(state, {k: v.to(d) for k, v in cpu_batch(t).items()})
-            losses[tag].append(float(metrics["loss"]))
+        hold = (contextlib.nullcontext() if routes is None
+                else routes.record() if tag == "cpu" else routes.follow())
+        with hold:
+            for t in range(3):
+                state, metrics = step(state, {k: v.to(d) for k, v in cpu_batch(t).items()})
+                losses[tag].append(float(metrics["loss"]))
         codes[tag] = {k: v.cpu() for k, v in flatten_with_keys(state.opt_state)
                       if ".m[" in k and k.endswith(".codes")}
     agree = {k: float(torch.cat([(a & 15) == (codes["cpu"][k] & 15),
@@ -1422,12 +1588,13 @@ def _plain_in_chunks(operands, sr_on, shape, chunk=ARCH_PLAIN_CHUNK):
     return torch.cat(rows), col, updates
 
 
-def phase_arch_leaves(dev, card):
-    """Both B1 passes against their plain versions at every fused leaf shape
-    of the three archs, RTN and SR: stats bit-equal, codes and scales
-    bit-equal, params within 1e-6 relative (the plain versions run over
-    runs of whole slices, which is exact); then the kernels timed by event
-    pairs against their bounds, and summed over each arch's step."""
+def phase_arch_leaves(dev, card, shapes=ARCH_LEAF_SHAPES):
+    """Both B1 passes against their plain versions at every leaf shape of
+    ``shapes`` (the three dense archs' fused leaves by default), RTN and SR:
+    stats bit-equal, codes and scales bit-equal, params within 1e-6
+    relative (the plain versions run over runs of whole slices, which is
+    exact); then the kernels timed by event pairs against their bounds, and
+    summed over each arch's step."""
     import dataclasses
 
     import torch
@@ -1438,7 +1605,7 @@ def phase_arch_leaves(dev, card):
     from repro_torch.kernels.timing import event_ms
 
     rows = []
-    for arch, names, shape, count in ARCH_LEAF_SHAPES:
+    for arch, names, shape, count in shapes:
         n, L, R, C = _leaf_dims(shape)
         row = dict(arch=arch, leaves=names, shape=list(shape), count=count, slices=L, rows=R)
         w, grad, m_q, v_q = _random_leaf(shape, 7, dev)
@@ -1490,7 +1657,7 @@ def phase_arch_leaves(dev, card):
                                     "stats_bound_ms")}
         per_arch[arch]["leaves"] = sum(r["count"] for r in mine)
         s = per_arch[arch]
-        print(f"fused_adamw4 {arch} per step ({s['leaves']} leaves at full depth): SR "
+        print(f"fused_adamw4 {arch} per step ({s['leaves']} leaves): SR "
               f"{s['sr_ms']:.3f} ms against {s['sr_bound_ms']:.3f} ms, RTN {s['rtn_ms']:.3f} ms "
               f"against {s['bound_ms']:.3f} ms, stats {s['stats_ms']:.3f} ms against "
               f"{s['stats_bound_ms']:.3f} ms")
@@ -1502,13 +1669,16 @@ def _arch_args(arch, steps=STEPS):
             str(steps), "--batch", "8", "--seq", "128", "--device", "cuda"]
 
 
-def phase_arch_train(counters):
-    """Each arch through the CLI at full width, production4bit with SR,
-    5 steps of batch 8 x seq 128, at the depth ``ARCH_TRAIN`` gives it;
+def phase_arch_train(counters, table=ARCH_TRAIN):
+    """Each arch of ``table`` through the CLI at full width, production4bit
+    with SR, 5 steps of batch 8 x seq 128, at the depth the table gives it;
     where it names a probe depth, a 2-step run there first, and the full
-    depth's peak extrapolated per layer from the two."""
+    depth's peak extrapolated per layer from the two. MoE archs: their aux
+    losses finite and positive."""
+    from repro_torch.configs import get_config
+
     out = {}
-    for arch, (full, layers, fused, state_bytes, probe_layers) in ARCH_TRAIN.items():
+    for arch, (full, layers, fused, state_bytes, probe_layers) in table.items():
         res = {}
         if probe_layers:
             probe = _cli_run(counters, _arch_args(arch, 2), probe_layers)
@@ -1519,6 +1689,9 @@ def phase_arch_train(counters):
         what = f"{arch} at {layers} of {full} layers"
         _print_run(run, what)
         _check_trains(run, what)
+        if get_config(arch).num_experts and not all(
+                math.isfinite(a) and a > 0 for a in run["aux_losses"]):
+            fail(f"{what}: aux losses {run['aux_losses']}")
         if run["state_bytes"] != state_bytes:
             fail(f"{what}: state_bytes {run['state_bytes']:,} != {state_bytes:,}")
         for name in ("fused_adamw4", "rank1_new_stats"):
@@ -1539,8 +1712,12 @@ def phase_arch_train(counters):
                   f"{run['peak_bytes']:,} B at {layers}: {per_layer / 1e9:.3f} GB a layer, so "
                   f"~{res['full_depth_peak_estimate'] / 1e9:.1f} GB at {full} layers "
                   f"(the card holds {torch_total_bytes() / 1e9:.1f} GB)")
-        print(f"{what}: step {res['step_ms_median']:.1f} ms (median of steps 1-4), peak "
-              f"{run['peak_bytes'] / 1e9:.2f} GB, B1 {fused} launches of each pass a step")
+        split = run["split"][1:]
+        res["model_ms_median"] = _median([x["model_ms"] for x in split])
+        res["optimizer_ms_median"] = _median([x["optimizer_ms"] for x in split])
+        print(f"{what}: step {res['step_ms_median']:.1f} ms (median of steps 1-4; model "
+              f"{res['model_ms_median']:.1f}, optimizer {res['optimizer_ms_median']:.1f} ms), "
+              f"peak {run['peak_bytes'] / 1e9:.2f} GB, B1 {fused} launches of each pass a step")
         out[arch] = res
     return out
 
@@ -1551,31 +1728,49 @@ def torch_total_bytes():
     return torch.cuda.get_device_properties(0).total_memory
 
 
-def phase_arch_small(dev):
+def phase_arch_small(dev, archs=tuple(ARCH_TRAIN)):
     """Card against CPU on each arch's reduced config, 3 production4bit SR
-    steps from the same weights."""
+    steps from the same weights. MoE archs: the card's routing is held to
+    the CPU's (``_Routes``), and the assignments that parted, each at a near
+    tie, are counted."""
+    from repro_torch.configs import reduced_config
+
     out = {}
-    for arch in ARCH_TRAIN:
-        card, cpu, still, agree = _small_pair("production4bit", 1e-3, "fp32", 0, dev, arch)
+    for arch in archs:
+        cfg = reduced_config(arch)
+        routes = _Routes() if cfg.num_experts else None
+        card, cpu, still, agree = _small_pair("production4bit", 1e-3, "fp32", 0, dev, arch,
+                                              routes)
         rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
         gap = abs(still[-1] - cpu[-1]) / abs(cpu[-1])
         print(f"reduced {arch} production4bit: card / CPU / without steps losses "
               + ", ".join(f"{a:.6f}/{b:.6f}/{c:.6f}" for a, b, c in zip(card, cpu, still))
               + f"; max relative gap {rel:.3g} (held to {SMALL_RTOL:g}), steps moved the last "
               f"loss {gap:.3g}; 4-bit m code agreement min {min(agree.values()):.4f} over "
-              f"{len(agree)} leaves")
+              f"{len(agree)} leaves"
+              + (f"; routing: {sum(routes.parted)} of {routes.assignments} expert choices "
+                 f"parted card from CPU, each at a near tie (per layer call "
+                 f"{routes.parted}; the first step's {cfg.num_layers} calls "
+                 f"{sum(routes.parted[:cfg.num_layers])}; largest |dlogit| per call "
+                 f"{[round(x, 5) for x in routes.dlogit]})" if routes else ""))
         if not all(math.isfinite(a) for a in card) or rel > SMALL_RTOL:
             fail(f"reduced {arch}: card losses {card} vs CPU {cpu} (rtol {SMALL_RTOL})")
         if not gap > 5 * SMALL_RTOL:
             fail(f"reduced {arch}: the steps moved the loss too little to test")
         out[arch] = dict(card=card, cpu=cpu, without_steps=still, max_rel=rel, gap=gap,
                          m_code_agreement_min=min(agree.values()))
+        if routes:
+            if len(routes.parted) != len(routes.cpu):
+                fail(f"reduced {arch}: the card ran {len(routes.parted)} MoE layer calls, the "
+                     f"CPU {len(routes.cpu)}")
+            out[arch].update(routing_parted=routes.parted, routing_assignments=routes.assignments,
+                             routing_dlogit=routes.dlogit)
     return out
 
 
-def phase_arch_serve(counters):
-    """Each arch at full depth with q4 weights through the serving CLI: the
-    mix of phase 8."""
+def phase_arch_serve(counters, table=ARCH_SERVE):
+    """Each arch of ``table`` with q4 weights through the serving CLI, at the
+    depth the table gives it (``None``: full depth): the mix of phase 8."""
     import gc
 
     import torch
@@ -1584,24 +1779,28 @@ def phase_arch_serve(counters):
     from repro_torch.launch import serve
 
     out = {}
-    for arch, (q4_bytes, q4_leaves) in ARCH_SERVE.items():
+    for arch, (q4_bytes, q4_leaves, layers) in table.items():
         vocab = get_config(arch).vocab_size
         reqs = _serve_requests(vocab)
         _reset(counters)
-        res = serve.main(["--arch", arch, "--weights", "q4", "--requests", str(SERVE_REQUESTS),
-                          "--max-batch", "4", "--max-new-tokens", str(SERVE_NEW_TOKENS),
-                          "--drain-every", str(SERVE_DRAIN), "--s-max", "1024", "--seed", "0",
-                          "--device", "cuda"], requests=reqs)
+        with _Depth(layers):
+            res = serve.main(["--arch", arch, "--weights", "q4", "--requests",
+                              str(SERVE_REQUESTS), "--max-batch", "4", "--max-new-tokens",
+                              str(SERVE_NEW_TOKENS), "--drain-every", str(SERVE_DRAIN),
+                              "--s-max", "1024", "--seed", "0", "--device", "cuda"],
+                             requests=reqs)
         counts = _read(counters)
         eng, calls, rep = res["engine"], res["materialize_calls"], res["weight_report"]
         decode_ms = list(eng.phase_ms["decode"])
         step_ms = sum(decode_ms) / (calls["decode"] * SERVE_DRAIN)
-        row = dict(weight_bytes=rep["total_serve_bytes"], quantized_leaves=rep["quantized_leaves"],
+        row = dict(layers=layers or get_config(arch).num_layers,
+                   weight_bytes=rep["total_serve_bytes"], quantized_leaves=rep["quantized_leaves"],
                    n_leaves=rep["n_leaves"], launches=counts, materialize_calls=calls,
                    prefill_ms=list(eng.phase_ms["prefill"]), decode_ms_per_step=step_ms,
                    tokens=res["tokens"], wall_s=res["wall_s"],
                    tok_per_s=res["tokens"] / res["wall_s"], peak_bytes=res["peak_bytes"])
-        print(f"serve {arch} q4: {res['tokens']} tokens in {res['wall_s']:.2f} s "
+        print(f"serve {arch} q4 at {row['layers']} layers: {res['tokens']} tokens in "
+              f"{res['wall_s']:.2f} s "
               f"({row['tok_per_s']:.1f} tok/s); prefills "
               f"{', '.join(f'{m:.1f}' for m in row['prefill_ms'])} ms; {step_ms:.2f} ms per "
               f"decode step of 4 slots; weight bytes {rep['total_serve_bytes']:,} "
@@ -1735,8 +1934,74 @@ def phase_long_window(counters, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 8: phi3.5-moe-42b-a6.6b, mixtral-8x7b
+# ---------------------------------------------------------------------------
+
+
+def phase_q4_big(dev):
+    """B2 and B3 on one whole q4 leaf of more than 2^32 elements (fp32, the
+    kernels' (R, C) view of ``BIG_Q4_SHAPE``), each held against its plain
+    version on the same slices of its input: windows of ``BIG_Q4_WINDOW``
+    elements at the start, around 2^31 and 2^32, and at the end. B128
+    blocks are independent, so the comparison is exact: codes, scales and
+    dequantized values bit-equal. Both timed by event pairs against the
+    byte bound."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import quant4
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.serve.weights import WEIGHT_Q4, kernel_view
+
+    R, C = kernel_view(BIG_Q4_SHAPE)
+    n = R * C
+    if n <= 1 << 32:
+        fail(f"phase 20: {BIG_Q4_SHAPE} holds {n} elements, not more than 2^32")
+    table = WEIGHT_Q4.table(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((R, C), generator=g, device=dev)
+    codes, scales = quant4.quantize_blockwise_4bit(x, table)
+    out = quant4.dequantize_blockwise_4bit(codes, scales, table)
+    torch.cuda.synchronize()
+    half = BIG_Q4_WINDOW // 2
+    windows = [(0, BIG_Q4_WINDOW), ((1 << 31) - half, (1 << 31) + half),
+               ((1 << 32) - half, (1 << 32) + half), (n - BIG_Q4_WINDOW, n)]
+    flat_x, flat_c, flat_s, flat_o = (t.view(-1) for t in (x, codes, scales, out))
+    for a, b in windows:
+        pc, ps = quant4.quantize_blockwise_4bit_plain(flat_x[a:b].view(-1, 128), table)
+        kc, ks = flat_c[a // 2:b // 2].view(-1, 64), flat_s[a // 128:b // 128].view(-1, 1)
+        if not (torch.equal(pc, kc) and torch.equal(ps, ks)):
+            fail(f"B2 on {n} elements: window [{a}, {b}) differs from the plain version")
+        po = quant4.dequantize_blockwise_4bit_plain(kc, ks, table).view(-1)
+        if not torch.equal(po, flat_o[a:b]):
+            fail(f"B3 on {n} elements: window [{a}, {b}) differs from the plain version")
+        del pc, ps, po
+    del out, flat_o  # room for the timed launches' outputs
+    nbytes = n * Q4_BYTES_PER_ELEMENT
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    q_ms = event_ms(lambda: quant4.quantize_blockwise_4bit(x, table))
+    dq_ms = event_ms(lambda: quant4.dequantize_blockwise_4bit(codes, scales, table))
+    res = dict(shape=list(BIG_Q4_SHAPE), view=[R, C], elements=n, windows=windows,
+               q_ms=q_ms, dq_ms=dq_ms, bound_ms=bound_ms)
+    print(f"q4 past 2^32: {BIG_Q4_SHAPE} as ({R}, {C}), {n:,} elements "
+          f"({n / 2 ** 32:.3f} x 2^32): B2 codes and scales and B3 output bit-equal to the "
+          f"plain versions on {len(windows)} windows of {BIG_Q4_WINDOW:,} elements (start, "
+          f"2^31, 2^32, end); B2 {q_ms:.3f} ms, B3 {dq_ms:.3f} ms against {bound_ms:.3f} ms "
+          f"(bytes)")
+    del x, codes, scales, flat_x, flat_c, flat_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
+    # the caching allocator maps memory in growable segments, so the MoE
+    # phases' 7-9 GB gradient stacks do not strand freed blocks (set before
+    # CUDA starts; a caller's own setting wins)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -1786,13 +2051,27 @@ def main():
     arch_small = phase_arch_small(dev)
     arch_serve = phase_arch_serve(counters)
     long_window = phase_long_window(counters, dev)
+    moe_leaves, moe_b1 = phase_arch_leaves(dev, card_info, MOE_LEAF_SHAPES)
+    q4_big = phase_q4_big(dev)
+    moe_train = phase_arch_train(counters, MOE_TRAIN)
+    moe_small = phase_arch_small(dev, tuple(MOE_TRAIN))
+    moe_serve = phase_arch_serve(counters, MOE_SERVE)
+    # launches: every path run of the slices, each counted from 0 just before
+    # it and read just after (phases 6, 15, 21 train; 8, 17, 23 serve)
+    path_counts = [counts] + [r["launches"] for r in arch_train.values()] + [
+        r["launches"] for r in moe_train.values()]
+    serve_counts = [serving["launches"]] + [r["launches"] for r in arch_serve.values()] + [
+        r["launches"] for r in moe_serve.values()]
+    launches = {k: sum(c[k] for c in path_counts) for k in ("fused_adamw4", "rank1_new_stats")}
+    launches.update({k: sum(c[k] for c in serve_counts)
+                     for k in ("quantize_blockwise_4bit", "dequantize_blockwise_4bit")})
 
     kernels = [{
         "name": "fused_adamw4",
         "route": "cuda",
         "source": "src/repro_torch/csrc/fused_adamw4.cu",
         "replaces": "src/repro/kernels/adamw4bit.py:233",
-        "launches": counts["fused_adamw4"],
+        "launches": launches["fused_adamw4"],
         "max_abs_err": max_err,
         # one training step's four launches (wo, w1, w2, w3), SR: the larger
         # of the byte bound and the Threefry integer-ALU bound
@@ -1806,7 +2085,7 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/csrc/fused_adamw4.cu",
         "replaces": "src/repro/kernels/ops.py:181",  # the XLA-fused prepass
-        "launches": counts["rank1_new_stats"],
+        "launches": launches["rank1_new_stats"],
         "max_abs_err": per_step["stats_max_abs_err"],
         # one training step's four launches; plain = the torch prepass
         "ms": per_step["stats_ms"],
@@ -1819,7 +2098,7 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/csrc/quant4.cu",
         "replaces": "src/repro/kernels/quant4.py:47",
-        "launches": serving["launches"]["quantize_blockwise_4bit"],
+        "launches": launches["quantize_blockwise_4bit"],
         "max_abs_err": q4_err["q"],  # scales; codes bit-equal
         # the whole q4 tree of internlm2-1.8b (11 launches, one prepare_params),
         # one launch per event pair (back to back: chip_smoke.json)
@@ -1833,7 +2112,7 @@ def main():
         "route": "cuda",
         "source": "src/repro_torch/csrc/quant4.cu",
         "replaces": "src/repro/kernels/quant4.py:79",
-        "launches": serving["launches"]["dequantize_blockwise_4bit"],
+        "launches": launches["dequantize_blockwise_4bit"],
         "max_abs_err": q4_err["dq"],
         # the whole q4 tree (11 launches, one materialize)
         "ms": q4_tree["dq_ms"],
@@ -1856,6 +2135,11 @@ def main():
                         for a, r in arch_train.items()},
          "arch_train_split": {a: r["split"] for a, r in arch_train.items()},
          "arch_small": arch_small, "arch_serve": arch_serve, "long_window": long_window,
+         "moe_leaves": moe_leaves, "moe_b1_per_step": moe_b1, "q4_big": q4_big,
+         "moe_train": {a: {k: v for k, v in r.items() if k != "split"}
+                       for a, r in moe_train.items()},
+         "moe_train_split": {a: r["split"] for a, r in moe_train.items()},
+         "moe_small": moe_small, "moe_serve": moe_serve, "path_launches": launches,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

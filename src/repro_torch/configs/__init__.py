@@ -1,6 +1,7 @@
 """Architecture registry of the port (port of ``repro.configs`` for its
-dense decoders: internlm2-1.8b, qwen3-4b, chatglm3-6b, gemma2-2b) and the
-reduced CPU-scale config of the same family."""
+dense decoders, internlm2-1.8b, qwen3-4b, chatglm3-6b, gemma2-2b, and its
+MoE decoders, phi3.5-moe-42b-a6.6b and mixtral-8x7b) and the reduced
+CPU-scale config of the same family."""
 
 from __future__ import annotations
 
@@ -91,7 +92,52 @@ def gemma2_2b() -> ModelConfig:
     )
 
 
+def phi35_moe() -> ModelConfig:
+    """phi3.5-moe-42b-a6.6b [hf:microsoft/Phi-3.5-MoE-instruct]: 32L
+    d_model=4096 32H (GQA kv=8) d_ff=6400 vocab=32064, MoE 16 experts top-2,
+    full attention (``repro/configs/phi35_moe.py``)."""
+    return ModelConfig(
+        name="phi3.5-moe-42b-a6.6b",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=6400,
+        vocab_size=32064,
+        num_experts=16,
+        top_k=2,
+        blocks=(LayerSpec("moe", 0),) * 32,
+    )
+
+
+MIXTRAL_WINDOW = 4096
+
+
+def mixtral_8x7b() -> ModelConfig:
+    """mixtral-8x7b [arXiv:2401.04088]: 32L d_model=4096 32H (GQA kv=8)
+    d_ff=14336 vocab=32000, MoE 8 experts top-2, sliding-window attention
+    (window 4096) on every layer, rope_theta 1e6
+    (``repro/configs/mixtral_8x7b.py``)."""
+    return ModelConfig(
+        name="mixtral-8x7b",
+        num_layers=32,
+        d_model=4096,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=14336,
+        vocab_size=32000,
+        num_experts=8,
+        top_k=2,
+        rope_theta=1e6,
+        blocks=(LayerSpec("moe", MIXTRAL_WINDOW),) * 32,
+    )
+
+
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "mixtral-8x7b": mixtral_8x7b,
     "chatglm3-6b": chatglm3_6b,
     "gemma2-2b": gemma2_2b,
     "qwen3-4b": qwen3_4b,
@@ -107,9 +153,10 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced_config(name: str) -> ModelConfig:
     """Small same-family config for CPU runs (the reference's
-    ``reduced_config`` for dense archs): <= 4 layers (windows cut to <= 16,
-    so gemma2 keeps its (16, 0) pattern), d_model 64, <= 4 heads of 16, d_ff
-    256 (kernel-eligible mlp leaves), vocab 512; every feature flag kept."""
+    ``reduced_config``): <= 4 layers (windows cut to <= 16, so gemma2 keeps
+    its (16, 0) pattern), d_model 64, <= 4 heads of 16, d_ff 256
+    (kernel-eligible mlp and expert leaves), vocab 512, <= 4 experts in
+    groups of 64 tokens; every feature flag kept."""
     cfg = get_config(name)
     L = min(cfg.num_layers, 4)
     blocks = tuple(LayerSpec(b.kind, min(b.window, 16) if b.window else 0) for b in cfg.blocks[:L])
@@ -120,4 +167,5 @@ def reduced_config(name: str) -> ModelConfig:
     return dataclasses.replace(
         cfg, num_layers=L, blocks=blocks, d_model=64, num_heads=heads, num_kv_heads=kv,
         head_dim=16, d_ff=256 if cfg.d_ff else 0, vocab_size=512,
+        num_experts=min(cfg.num_experts, 4), moe_group_size=64,
     )

@@ -33,10 +33,14 @@ __all__ = [
     "bind",
     "quantize_into",
     "LAUNCHES",
+    "MAX_BLOCKS",
     "SOURCE",
 ]
 
 _BLOCK = 128
+# blocks a launch takes (csrc/quant4.cu's kMaxBlocks: 32-bit block, pair and
+# grid counts; about 2.7e11 elements)
+MAX_BLOCKS = (1 << 31) - 1
 SOURCE = build.CSRC / "quant4.cu"
 
 # Kernel launches by wrapper name; only a real CUDA launch counts.
@@ -84,6 +88,14 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _check_count(name: str, n: int) -> None:
+    """Refuse, before a launch, an element count whose blocks do not fit
+    the kernels' 32-bit counts."""
+    if n // _BLOCK > MAX_BLOCKS:
+        raise ValueError(f"{name}: {n} elements are {n // _BLOCK} blocks of {_BLOCK}; a launch "
+                         f"takes at most {MAX_BLOCKS}")
+
+
 def quantize_into(lib: ctypes.CDLL, x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                   table) -> int:
     """Launch ``lib``'s quantize kernel on checked CUDA operands and a
@@ -112,6 +124,7 @@ def quantize_blockwise_4bit(x: torch.Tensor, table: torch.Tensor
         raise ValueError(f"{name}: unsupported device {dev}")
     R, C = x.shape
     build.check_operand(name, "x", x, x.dtype, (R, C), dev)
+    _check_count(name, R * C)
     codes = torch.empty((R, C // 2), dtype=torch.uint8, device=dev)
     scale = torch.empty((R, C // _BLOCK), dtype=torch.float32, device=dev)
     err = quantize_into(_library(), x, codes, scale, build.host_table(table))
@@ -137,6 +150,7 @@ def dequantize_blockwise_4bit(packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{name}: unsupported device {dev}")
     build.check_operand(name, "codes", packed, torch.uint8, (R, C // 2), dev)
     build.check_operand(name, "scales", scale, torch.float32, (R, C // _BLOCK), dev)
+    _check_count(name, R * C)
     out = torch.empty((R, C), dtype=torch.float32, device=dev)
     value, mid, points = build.host_table(table)
     err = _library().dequantize_blockwise_4bit_launch(

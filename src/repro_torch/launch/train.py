@@ -117,9 +117,9 @@ def abstract_train_state(cfg, optimizer, key=None, device=None):
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    """Run the CLI; returns a summary (per-step loss and ms, state bytes,
-    the gradient wire report, peak device memory, checkpoint times) for
-    callers such as ``chip_smoke.py``."""
+    """Run the CLI; returns a summary (per-step loss, its ce and MoE aux
+    parts and ms, state bytes, the gradient wire report, peak device
+    memory, checkpoint times) for callers such as ``chip_smoke.py``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -179,6 +179,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t0) * 1e3
         records.append({"step": t, "loss": loss, "ms": ms,
+                        "ce_loss": float(metrics["ce_loss"]),
+                        "aux_loss": float(metrics["aux_loss"]),
                         "grad_norm": float(metrics["grad_norm"])})
         if mgr and (t + 1) % args.ckpt_every == 0:
             t0 = time.perf_counter()
@@ -186,7 +188,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             ckpt["saves"].append({"step": t + 1, "t0": t0,
                                   "stall_ms": (time.perf_counter() - t0) * 1e3})
         if t % 5 == 0:
-            print(f"step {t:4d} loss {loss:.4f} ({ms:.0f} ms)")
+            print(f"step {t:4d} loss {loss:.4f} aux_loss {records[-1]['aux_loss']:.4f} "
+                  f"({ms:.0f} ms)")
     if mgr:
         mgr.wait()
         for rec in ckpt["saves"]:

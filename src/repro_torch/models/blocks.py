@@ -1,15 +1,16 @@
-"""The dense transformer block: attention + (gated) MLP, pre-norm, with
-the reference's options (q/k RMS norm, 2-D RoPE, attention softcap,
-sandwich norms, gelu).
+"""The dense and MoE transformer blocks: attention + (gated) MLP or a
+mixture of experts, pre-norm, with the reference's options (q/k RMS norm,
+2-D RoPE, attention softcap, sandwich norms, gelu).
 
 Port of ``repro/models/blocks.py`` (``LayerSpec``, ``apply_attention`` with
-its three cache regimes, ``apply_mlp``, the dense block and its decode
-cache). A ``DenseStack`` holds the parameters of ``L`` identical layers
-stacked on a leading dim, in the reference's layout and under its names
-(``attn/wq`` ``(L, D, H, dh)``, ``attn/q_norm`` ``(L, dh)``, ``mlp/w1``
-``(L, D, F)``, ``norm1``, ``post1`` ``(L, D)``, ...), so the optimizer sees
-the reference's leaves; training and serving both walk the layers through
-``unstack``.
+its three cache regimes, ``apply_mlp``, the dense and MoE blocks and their
+decode cache). A ``DenseStack`` or ``MoEStack`` holds the parameters of
+``L`` identical layers stacked on a leading dim, in the reference's layout
+and under its names (``attn/wq`` ``(L, D, H, dh)``, ``attn/q_norm`` ``(L,
+dh)``, ``mlp/w1`` ``(L, D, F)``, ``moe/router`` ``(L, D, E)``, ``moe/w1``
+``(L, E, D, F)``, ``norm1``, ``post1`` ``(L, D)``, ...), so the optimizer
+sees the reference's leaves; training and serving both walk the layers
+through ``unstack``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import COMPUTE_DTYPE, dense, rmsnorm, rope, rope_half
+from repro_torch.models.moe import moe_apply
 
-__all__ = ["LayerSpec", "DenseStack", "unstack", "apply_attention", "apply_mlp", "apply_dense",
-           "init_block_cache"]
+__all__ = ["LayerSpec", "DenseStack", "MoEStack", "STACKS", "unstack", "apply_attention",
+           "apply_mlp", "apply_dense", "apply_moe", "init_block_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,22 +40,35 @@ def _stacked(L, shape, device):
     return nn.Parameter(torch.empty((L,) + tuple(shape), dtype=torch.float32, device=device))
 
 
-class DenseStack(nn.Module):
+def _attention_params(cfg, L: int, device) -> nn.ParameterDict:
+    D, Hq, Hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = {
+        "wq": _stacked(L, (D, Hq, dh), device),
+        "wk": _stacked(L, (D, Hkv, dh), device),
+        "wv": _stacked(L, (D, Hkv, dh), device),
+        "wo": _stacked(L, (Hq, dh, D), device),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = _stacked(L, (dh,), device)
+        attn["k_norm"] = _stacked(L, (dh,), device)
+    return nn.ParameterDict(attn)
+
+
+class _Stack(nn.Module):
+    def layers(self):
+        """Per-layer parameter dicts (views of the stacked tensors)."""
+        tree = {name: dict(m) for name, m in self.named_children()}
+        tree.update((k, p) for k, p in self.named_parameters(recurse=False))
+        return unstack(tree, self.L)
+
+
+class DenseStack(_Stack):
     """Parameters of ``L`` dense layers, stacked (one scan unit)."""
 
     def __init__(self, cfg, L: int, device):
         super().__init__()
-        D, Hq, Hkv, dh, Ff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-        attn = {
-            "wq": _stacked(L, (D, Hq, dh), device),
-            "wk": _stacked(L, (D, Hkv, dh), device),
-            "wv": _stacked(L, (D, Hkv, dh), device),
-            "wo": _stacked(L, (Hq, dh, D), device),
-        }
-        if cfg.qk_norm:
-            attn["q_norm"] = _stacked(L, (dh,), device)
-            attn["k_norm"] = _stacked(L, (dh,), device)
-        self.attn = nn.ParameterDict(attn)
+        D, Ff = cfg.d_model, cfg.d_ff
+        self.attn = _attention_params(cfg, L, device)
         mlp = {"w1": _stacked(L, (D, Ff), device), "w2": _stacked(L, (Ff, D), device)}
         if cfg.gated_mlp:
             mlp["w3"] = _stacked(L, (D, Ff), device)
@@ -65,11 +80,29 @@ class DenseStack(nn.Module):
             self.post2 = _stacked(L, (D,), device)
         self.L = L
 
-    def layers(self):
-        """Per-layer parameter dicts (views of the stacked tensors)."""
-        tree = {"attn": dict(self.attn), "mlp": dict(self.mlp)}
-        tree.update((k, p) for k, p in self.named_parameters(recurse=False))
-        return unstack(tree, self.L)
+
+class MoEStack(_Stack):
+    """Parameters of ``L`` MoE layers, stacked (one scan unit): attention,
+    ``moe/router (L, D, E)``, ``moe/w1``, ``moe/w3 (L, E, D, F)``, ``moe/w2
+    (L, E, F, D)``, ``norm1``, ``norm2``."""
+
+    def __init__(self, cfg, L: int, device):
+        super().__init__()
+        D, Ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.attn = _attention_params(cfg, L, device)
+        self.moe = nn.ParameterDict({
+            "router": _stacked(L, (D, E), device),
+            "w1": _stacked(L, (E, D, Ff), device),
+            "w3": _stacked(L, (E, D, Ff), device),
+            "w2": _stacked(L, (E, Ff, D), device),
+        })
+        self.norm1 = _stacked(L, (D,), device)
+        self.norm2 = _stacked(L, (D,), device)
+        self.L = L
+
+
+# the parameter stack of each block kind the port runs
+STACKS = {"dense": DenseStack, "moe": MoEStack}
 
 
 def unstack(tree: Dict[str, Any], L: int) -> Iterator[Dict[str, Any]]:
@@ -167,13 +200,29 @@ def apply_dense(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     return x + h2
 
 
+def apply_moe(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
+              cache: Optional[attn_lib.KVCache] = None,
+              cur_pos: Optional[torch.Tensor] = None,
+              kv_lengths: Optional[torch.Tensor] = None):
+    """Pre-norm MoE block (the reference's ``_apply_moe``): attention (the
+    cache regimes of ``apply_attention``), then ``x + moe(norm2(x))``.
+    Returns (x, the layer's fp32 load-balance aux loss)."""
+    h = apply_attention(p["attn"], rmsnorm(x, p["norm1"]), cfg, window=spec.window,
+                        positions=positions, cache=cache, cur_pos=cur_pos, kv_lengths=kv_lengths)
+    x = x + h
+    out, aux = moe_apply(p["moe"], rmsnorm(x, p["norm2"]), top_k=cfg.top_k,
+                         group_size=cfg.moe_group_size)
+    return x + out, aux
+
+
 def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device,
                      layers: int) -> attn_lib.KVCache:
-    """Decode-time cache of a dense block, stacked over ``layers``.
-    Windowed layers allocate only ``window`` slots; the slot count is at
-    least 256 and a multiple of 256, as in the reference."""
-    if spec.kind != "dense":
-        raise ValueError(f"the port caches dense blocks only, not {spec.kind!r}")
+    """Decode-time cache of a dense or MoE block (the same K/V cache),
+    stacked over ``layers``. Windowed layers allocate only ``window`` slots;
+    the slot count is at least 256 and a multiple of 256, as in the
+    reference."""
+    if spec.kind not in STACKS:
+        raise ValueError(f"the port caches dense and moe blocks only, not {spec.kind!r}")
     slots = min(s_max, spec.window) if spec.window > 0 else s_max
     slots = max(256, slots)
     if slots % 256:

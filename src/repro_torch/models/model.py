@@ -1,16 +1,18 @@
-"""Model assembly for dense decoder stacks: config, scan units, init,
-forward, loss, and serving (prefill with cache, decode step).
+"""Model assembly for decoder stacks of dense and MoE blocks: config, scan
+units, init, forward, loss, and serving (prefill with cache, decode step).
 
 Port of ``repro/models/model.py`` (``ModelConfig``, ``plan_scan_units``,
 ``init_model``, ``forward_hidden``, ``loss_fn``, ``init_serve_cache``,
 ``prefill_with_cache``, ``decode_step``) for token decoders whose blocks
-are all ``dense``. The layers are grouped into the reference's scan units
+are ``dense`` or ``moe``. The layers are grouped into the reference's scan units
 (``plan_scan_units``: one periodic pattern, such as gemma2's local/global
 pair, repeated, or maximal runs of equal layers); unit ``u`` holds one
 stack of ``repeat`` layers per pattern position under the reference's paths
 (``decoder/u/sub0/...``, ``decoder/u/sub1/...``), and a Python loop over
-``r`` runs ``sub0[r], sub1[r], ...`` where the reference scans. Tied
-embeddings have no ``head`` leaf: the head is ``embed.T``.
+``r`` runs ``sub0[r], sub1[r], ...`` where the reference scans, summing
+the MoE layers' load-balance losses in fp32 in that order (the loss adds
+``0.01 *`` their sum). Tied embeddings have no ``head`` leaf: the head is
+``embed.T``.
 ``named_params`` gives the ordered ``{path: tensor}`` mapping the optimizer
 takes; the serving functions take such a mapping too (for instance
 ``serve.weights.materialize``'s output), and update the stacked decode
@@ -28,9 +30,10 @@ import torch.nn as nn
 from repro_torch import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import (
-    DenseStack,
+    STACKS,
     LayerSpec,
     apply_dense,
+    apply_moe,
     init_block_cache,
     unstack,
 )
@@ -59,6 +62,8 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     blocks: Tuple[LayerSpec, ...]
+    num_experts: int = 0
+    top_k: int = 0
     qk_norm: bool = False
     attn_softcap: float = 0.0
     final_softcap: float = 0.0
@@ -68,6 +73,7 @@ class ModelConfig:
     act: str = "silu"            # silu | gelu (tanh form)
     gated_mlp: bool = True
     tie_embeddings: bool = False
+    moe_group_size: int = 2048
     ce_chunk: int = 512
     decode_k_chunk: int = 1024
 
@@ -96,14 +102,17 @@ def plan_scan_units(blocks: Tuple[LayerSpec, ...]) -> List[ScanUnit]:
     return units
 
 
-_NOT_PORTED = "not ported yet (ROADMAP queue A item 4)"
+_NOT_PORTED = "not ported yet (ROADMAP queue A item 4(c)-(e))"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = sorted({b.kind for b in cfg.blocks} - {"dense"})
+    kinds = sorted({b.kind for b in cfg.blocks} - set(STACKS))
     if kinds:
         raise ValueError(f"{cfg.name}: block kinds {kinds} are {_NOT_PORTED}; the port runs "
-                         "dense decoder stacks")
+                         f"decoder stacks of {sorted(STACKS)} blocks")
+    if any(b.kind == "moe" for b in cfg.blocks) and not 0 < cfg.top_k <= cfg.num_experts:
+        raise ValueError(f"{cfg.name}: moe blocks need 0 < top_k <= num_experts "
+                         f"({cfg.top_k}, {cfg.num_experts})")
     if cfg.rope_variant not in ("rope", "rope2d"):
         raise ValueError(f"{cfg.name}: rope_variant {cfg.rope_variant!r} is {_NOT_PORTED}")
     if cfg.act not in ("silu", "gelu"):
@@ -113,7 +122,7 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Transformer(nn.Module):
-    """Dense decoder LM; parameters are fp32 masters in the reference's
+    """Decoder LM of dense and MoE blocks; parameters are fp32 masters in the reference's
     stacked layout, one ``ModuleDict`` of ``sub{i}`` stacks per scan unit."""
 
     def __init__(self, cfg: ModelConfig, device):
@@ -124,8 +133,8 @@ class Transformer(nn.Module):
         D, V = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(torch.empty((V, D), dtype=torch.float32, device=device))
         self.decoder = nn.ModuleList([
-            nn.ModuleDict({f"sub{si}": DenseStack(cfg, unit.repeat, device)
-                           for si in range(len(unit.pattern))})
+            nn.ModuleDict({f"sub{si}": STACKS[spec.kind](cfg, unit.repeat, device)
+                           for si, spec in enumerate(unit.pattern)})
             for unit in self.units])
         self.final_norm = nn.Parameter(torch.empty((D,), dtype=torch.float32, device=device))
         if not cfg.tie_embeddings:
@@ -182,11 +191,13 @@ UnitLayers = List[List[Sequence[Dict[str, Any]]]]
 def _run_units(cfg: ModelConfig, units: List[ScanUnit], layers: UnitLayers, x: torch.Tensor,
                positions, caches: Optional[List[Dict[str, KVCache]]] = None,
                cur_pos: Optional[torch.Tensor] = None,
-               kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+               kv_lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop shared by training and serving, in the reference's
     order: per unit, ``sub0[r], sub1[r], ...`` for each repeat ``r``.
     ``caches[u]["sub{i}"]`` is that stack's ``(repeat, ...)`` cache: layer
-    ``r`` reads and writes its views."""
+    ``r`` reads and writes its views. Returns (x, the fp32 sum of the MoE
+    layers' aux losses in that order)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for ui, unit in enumerate(units):
         for r in range(unit.repeat):
             for si, spec in enumerate(unit.pattern):
@@ -194,29 +205,39 @@ def _run_units(cfg: ModelConfig, units: List[ScanUnit], layers: UnitLayers, x: t
                 if caches is not None:
                     stacked = caches[ui][f"sub{si}"]
                     c = KVCache(stacked.k[r], stacked.v[r], stacked.pos[r])
-                x = apply_dense(layers[ui][si][r], x, spec, cfg, positions=positions, cache=c,
-                                cur_pos=cur_pos, kv_lengths=kv_lengths)
-    return x
+                kw = dict(positions=positions, cache=c, cur_pos=cur_pos, kv_lengths=kv_lengths)
+                if spec.kind == "moe":
+                    x, a = apply_moe(layers[ui][si][r], x, spec, cfg, **kw)
+                    aux = aux + a
+                else:
+                    x = apply_dense(layers[ui][si][r], x, spec, cfg, **kw)
+    return x, aux
 
 
 def forward_hidden(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Tokens -> final hidden states (B, S, D) in bf16."""
+    return _hidden_and_aux(model, batch)[0]
+
+
+def _hidden_and_aux(model: Transformer, batch: Dict[str, torch.Tensor]):
     tokens = batch["tokens"]
     x = embed_lookup(model.embed, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     layers = [[list(unit[f"sub{si}"].layers()) for si in range(len(u.pattern))]
               for unit, u in zip(model.decoder, model.units)]
-    x = _run_units(model.cfg, model.units, layers, x, positions)
-    return rmsnorm(x, model.final_norm)
+    x, aux = _run_units(model.cfg, model.units, layers, x, positions)
+    return rmsnorm(x, model.final_norm), aux
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
-    """Causal LM loss (chunked CE, final-logit softcap). Returns (loss, metrics)."""
-    x = forward_hidden(model, batch)
+    """Causal LM loss (chunked CE, final-logit softcap) + 0.01 * the MoE
+    load-balance aux. Returns (loss, metrics with ``ce_loss``, ``aux_loss``)."""
+    x, aux = _hidden_and_aux(model, batch)
     loss = chunked_cross_entropy(x, model.head_weight(), batch["labels"],
                                  logit_cap=model.cfg.final_softcap, chunk=model.cfg.ce_chunk)
-    return loss, {"ce_loss": loss.detach(), "aux_loss": torch.zeros((), device=loss.device)}
+    total = loss + 0.01 * aux
+    return total, {"ce_loss": loss.detach(), "aux_loss": aux.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +296,8 @@ def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     (next-token logits (B, V) fp32, caches updated in place)."""
     units = plan_scan_units(cfg.blocks)
     x = embed_lookup(params["embed"], tokens[:, None])  # (B, 1, D)
-    x = _run_units(cfg, units, _unit_layers(params, units), x, pos[:, None],
-                   caches=caches, cur_pos=pos)
+    x, _ = _run_units(cfg, units, _unit_layers(params, units), x, pos[:, None],
+                      caches=caches, cur_pos=pos)
     x = rmsnorm(x, params["final_norm"])
     return _logits(params, cfg, x[:, 0]), caches
 
@@ -292,8 +313,8 @@ def prefill_with_cache(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _run_units(cfg, units, _unit_layers(params, units), x, positions,
-                   caches=caches, kv_lengths=lengths)
+    x, _ = _run_units(cfg, units, _unit_layers(params, units), x, positions,
+                      caches=caches, kv_lengths=lengths)
     x = rmsnorm(x, params["final_norm"])
     last = x[torch.arange(B, device=x.device), torch.clamp_min(lengths.long() - 1, 0)]
     return _logits(params, cfg, last), caches

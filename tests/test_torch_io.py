@@ -249,11 +249,14 @@ def test_port_checkpoint_restores_in_jax(name, ov, tmp_path):
     assert_leaves_equal(jax_leaves(restored), port_leaves(state), "port -> JAX @3")
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "phi3.5-moe-42b-a6.6b",
+                                  "mixtral-8x7b"])
 def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
     """Reduced gemma2-2b (two subs, tied embeddings: no head, 4-bit
-    sandwich-norm scales) and qwen3-4b (qk-norm leaves), production4bit with
-    an SR key: from the same params the port writes the reference's files
+    sandwich-norm scales), qwen3-4b (qk-norm leaves), phi3.5-moe and
+    mixtral (``moe/router``, ``moe/w1``-``w3`` leaves, the expert stacks'
+    4-bit moments with one rank-1 stat per dim), production4bit with an SR
+    key: from the same params the port writes the reference's files
     byte for byte; the reference trains 2 steps and saves, the port
     restores it bit-equal, trains 2 more and saves, and the reference
     restores that bit-equal."""
@@ -270,6 +273,8 @@ def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
                        os.path.join(dj, ckfmt.shard_file(0)), shallow=False)
     keys = [m["key"] for m in ckfmt.read_manifest(dt)["leaves"]]
     assert any("'head'" in k for k in keys) == (arch != "gemma2-2b")
+    assert any("'moe'" in k and "'router'" in k for k in keys) == ("moe" in arch
+                                                                   or "mixtral" in arch)
 
     data = (SyntheticLM(DataConfig(512, 16, 4)), JSyntheticLM(JDataConfig(512, 16, 4)))
     jstep = jax.jit(j_build(jcfg, jopt))

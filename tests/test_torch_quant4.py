@@ -200,3 +200,17 @@ def test_quant_blockwise_all_subnormal_block_keeps_its_scale():
     code_others[1, 64:] = False
     assert np.array_equal(pt.numpy()[code_others], pj[code_others])
     assert np.array_equal(pt.numpy()[code_others], pk[code_others])
+
+
+def test_count_guard_refuses_blocks_past_32_bits():
+    """The wrappers refuse, before any launch, an element count whose B128
+    blocks do not fit the kernels' 32-bit counts (``csrc/quant4.cu``'s
+    kMaxBlocks); the largest count that fits passes. A q4 leaf of 5 G
+    elements (phi3.5's expert stack at 12 layers) is 39 M blocks."""
+    quant4._check_count("quantize_blockwise_4bit", quant4.MAX_BLOCKS * 128)
+    quant4._check_count("dequantize_blockwise_4bit", 12 * 16 * 4096 * 6400)
+    for name in ("quantize_blockwise_4bit", "dequantize_blockwise_4bit"):
+        with pytest.raises(ValueError, match="at most"):
+            quant4._check_count(name, (quant4.MAX_BLOCKS + 1) * 128)
+    assert quant4.MAX_BLOCKS == 2 ** 31 - 1
+    assert "kMaxBlocks = (1LL << 31) - 1" in quant4.SOURCE.read_text()
