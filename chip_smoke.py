@@ -158,8 +158,48 @@ Phases, each failing the run on error:
     B2 launch each, B3 per leaf and materialize, every stream complete;
     tok/s, prefill and decode ms, peak memory.
 
-The kernel table's launch counts sum the path runs (phases 6, 15 and 21
-for B1; 8, 17 and 23 for B2/B3), each counted from 0 just before it.
+24. hold both B1 passes against their plain versions, RTN and SR, at
+    xlstm-125m's 11 fused leaves at full depth: ``w_in`` (3, 768, 1536) and
+    ``w_out`` (3, 768, 768) of the three mLSTM subs, the sLSTM's ``w_gates``
+    (3, 768, 4, 768) as 2,304 slices of 4 x 768, ``w_out`` and ``mlp/w1``-``w3``
+    (3, 768, 1024) / (3, 1024, 768); time both passes against their bounds
+    and sum the step;
+25. drive xlstm-125m and hymba-1.5b through ``repro_torch.launch.train`` at
+    full width, production4bit with SR, 5 steps of batch 8 x seq 128, counts
+    set to 0 just before and read just after, at the depths of
+    ``RECURRENT_TRAIN``: state bytes (the reference's counts), 11 / 0
+    launches of each B1 pass a step (hymba has no last dim that is a
+    multiple of 256: its 1.33 G 4-bit elements take the unfused SR draw),
+    none of B2/B3, losses finite and falling; step ms split into model and
+    optimizer, peak memory;
+26. card against CPU on each recurrent arch's reduced config (GLA chunks of
+    16, ssm_state 8), 3 production4bit SR steps from the same weights,
+    losses within 3e-4 relative and a gap the steps open five times over;
+27. hold B2 and B3 against their plain versions at every q4 leaf of each
+    recurrent arch at full depth that has a kernel view, on the (R, C) view
+    ``prepare_params`` gives them (9 views of xlstm's 26 such leaves, 19 of
+    hymba's 59), inputs as phase 3's: codes, scales and values bit-equal;
+    each view timed, summed over the tree. Then serve each with q4 weights
+    at full depth through
+    ``repro_torch.launch.serve`` on phase 8's mix: weight bytes and q4
+    leaves (the reference's ``weight_report``), one B2 launch per q4 leaf
+    with a kernel view (hymba's ``ssm_dt``, ``embed``, ``head`` and the
+    15-layer unit's norms and scales have none and take the plain
+    quantizer), B3 per such leaf and materialize, every stream complete;
+    tok/s, prefill and decode ms, peak memory;
+28. the reference's ``test_prefill_matches_decode_oracle_archs`` on the
+    card, per recurrent arch: a batched, right-padded prefill of two
+    prompts (``ORACLE_LENGTHS``: past one GLA chunk, and within one) and
+    four decode steps after it, fed the same tokens, against a
+    token-by-token decode whose finished row stops, every logit of both
+    rows held: at the reduced config within the reference's 5e-2; at full
+    width and depth with fp32 compute on both paths within 1e-3 (they then
+    differ only in the order they sum in), and with bf16 compute within
+    ``ORACLE_BF16_ATOL`` (the two paths' bf16 roundings part, more with
+    depth).
+
+The kernel table's launch counts sum the path runs (phases 6, 15, 21 and
+25 for B1; 8, 17, 23 and 27 for B2/B3), each counted from 0 just before it.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -295,11 +335,12 @@ ARCH_TRAIN = {
     "chatglm3-6b": (28, CHATGLM3_LAYERS, 2, 6_155_209_764, 4),
 }
 # phase 17: arch -> (q4 weight bytes, q4 leaves, layers: None for full
-# depth): the reference's weight_report
+# depth, q4 leaves with a kernel view): the reference's weight_report; B2/B3
+# take the leaves with a kernel view, the plain quantizer the others
 ARCH_SERVE = {
-    "qwen3-4b": (2_343_578_016, 13, None),
-    "chatglm3-6b": (3_316_849_664, 11, None),
-    "gemma2-2b": (1_388_877_120, 23, None),
+    "qwen3-4b": (2_343_578_016, 13, None, 13),
+    "chatglm3-6b": (3_316_849_664, 11, None, 11),
+    "gemma2-2b": (1_388_877_120, 23, None, 23),
 }
 # phase 18: one gemma2-2b request that wraps the windowed layers' cache
 LONG_PROMPT, LONG_S_MAX = 4100, 8192
@@ -341,9 +382,37 @@ MOE_Q4_BYTES = {(PHI35, 11): 7_738_233_600, (PHI35, 12): 8_429_022_208,
                 (PHI35, 13): 9_119_810_816, (MIXTRAL, 10): 7_849_153_024,
                 (MIXTRAL, 11): 8_620_140_288, (MIXTRAL, 12): 9_391_127_552}
 MOE_SERVE = {
-    PHI35: (MOE_Q4_BYTES[PHI35, PHI35_SERVE_LAYERS], 12, PHI35_SERVE_LAYERS),
-    MIXTRAL: (MOE_Q4_BYTES[MIXTRAL, MIXTRAL_SERVE_LAYERS], 12, MIXTRAL_SERVE_LAYERS),
+    PHI35: (MOE_Q4_BYTES[PHI35, PHI35_SERVE_LAYERS], 12, PHI35_SERVE_LAYERS, 12),
+    MIXTRAL: (MOE_Q4_BYTES[MIXTRAL, MIXTRAL_SERVE_LAYERS], 12, MIXTRAL_SERVE_LAYERS, 12),
 }
+# phases 24-28 (slice 9): xlstm-125m (one scan unit of period 4: three mLSTM
+# subs and an sLSTM sub, 3 layers each) and hymba-1.5b (attention + SSM heads,
+# five scan units of runs). Phase 24: xlstm's fused leaves at full depth
+XLSTM, HYMBA = "xlstm-125m", "hymba-1.5b"
+XLSTM_LEAF_SHAPES = (
+    (XLSTM, "mlstm w_in", (3, 768, 1536), 3),
+    (XLSTM, "w_out", (3, 768, 768), 4),
+    (XLSTM, "slstm w_gates", (3, 768, 4, 768), 1),
+    (XLSTM, "slstm mlp/w1,w3", (3, 768, 1024), 2),
+    (XLSTM, "slstm mlp/w2", (3, 1024, 768), 1),
+)
+# phase 25: as ARCH_TRAIN; state bytes: the reference's eval_shape counts
+# (tests/test_torch_recurrent_train.py)
+RECURRENT_TRAIN = {
+    XLSTM: (12, 12, 11, 669_510_744, None),
+    HYMBA: (32, 32, 0, 2_192_732_204, None),
+}
+# phase 27: as ARCH_SERVE
+RECURRENT_SERVE = {
+    XLSTM: (67_447_776, 26, None, 26),
+    HYMBA: (761_193_920, 70, None, 59),
+}
+# phase 28: the two prompts' lengths (the full configs' GLA chunk is 128),
+# the cache slots, and the reference's tolerance; at full width and depth,
+# the bounds with fp32 and with bf16 compute (PERF.md section 2)
+ORACLE_LENGTHS, ORACLE_S_MAX, ORACLE_ATOL = (150, 41), 256, 5e-2
+ORACLE_FP32_ATOL = 1e-3
+ORACLE_BF16_ATOL = {XLSTM: 0.1, HYMBA: 0.5}
 
 
 def fail(msg: str) -> None:
@@ -888,6 +957,36 @@ def _special_blocks(x):
     return x
 
 
+def _hold_q4(x, table, what):
+    """B2 on ``x`` (R, C) from fp32 and from bf16, and B3 on the fp32 codes
+    and scales, each against its plain version on the same card tensors;
+    fails unless codes, scales and values are bit-equal. Returns the fp32
+    codes and scales and the largest scale and value differences."""
+    import torch
+
+    from repro_torch.kernels import quant4
+
+    q_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xi = x.to(dtype)
+        ck, sk = quant4.quantize_blockwise_4bit(xi, table)
+        cp, sp = quant4.quantize_blockwise_4bit_plain(xi, table)
+        torch.cuda.synchronize()
+        if not torch.equal(ck, cp):
+            fail(f"B2 {what} {dtype}: codes differ at {int((ck != cp).sum())} bytes")
+        if not torch.equal(sk, sp):
+            fail(f"B2 {what} {dtype}: scales differ (max {float((sk - sp).abs().max())})")
+        q_err = max(q_err, float((sk - sp).abs().max()))
+        del xi, ck, sk, cp, sp
+    ck, sk = quant4.quantize_blockwise_4bit(x, table)
+    yk = quant4.dequantize_blockwise_4bit(ck, sk, table)
+    yp = quant4.dequantize_blockwise_4bit_plain(ck, sk, table)
+    torch.cuda.synchronize()
+    if not torch.equal(yk, yp):
+        fail(f"B3 {what}: differs (max {float((yk - yp).abs().max())})")
+    return ck, sk, q_err, float((yk - yp).abs().max())
+
+
 def phase_quant_leaves(dev, card, build_report):
     """B2 and B3 against their plain versions at every q4 leaf shape of
     internlm2-1.8b (the (R, C) view ``prepare_params`` gives the kernel),
@@ -906,26 +1005,8 @@ def phase_quant_leaves(dev, card, build_report):
         R, C = kernel_view(shape)
         g = torch.Generator(device=dev).manual_seed(R + C)
         x = _special_blocks(torch.randn((R, C), generator=g, device=dev) * 0.02)
-        for dtype in (torch.float32, torch.bfloat16):
-            xi = x.to(dtype)
-            ck, sk = quant4.quantize_blockwise_4bit(xi, table)
-            cp, sp = quant4.quantize_blockwise_4bit_plain(xi, table)
-            torch.cuda.synchronize()
-            if not torch.equal(ck, cp):
-                fail(f"B2 {names} {shape} {dtype}: codes differ at {int((ck != cp).sum())} bytes")
-            if not torch.equal(sk, sp):
-                fail(f"B2 {names} {shape} {dtype}: scales differ "
-                     f"(max {float((sk - sp).abs().max())})")
-            err["q"] = max(err["q"], float((sk - sp).abs().max()))
-            del xi, ck, sk, cp, sp
-        ck, sk = quant4.quantize_blockwise_4bit(x, table)
-        yk = quant4.dequantize_blockwise_4bit(ck, sk, table)
-        yp = quant4.dequantize_blockwise_4bit_plain(ck, sk, table)
-        torch.cuda.synchronize()
-        if not torch.equal(yk, yp):
-            fail(f"B3 {names} {shape}: differs (max {float((yk - yp).abs().max())})")
-        err["dq"] = max(err["dq"], float((yk - yp).abs().max()))
-        del yk, yp
+        ck, sk, q_err, dq_err = _hold_q4(x, table, f"{names} {shape}")
+        err["q"], err["dq"] = max(err["q"], q_err), max(err["dq"], dq_err)
         n = R * C
         row = dict(leaves=names, shape=list(shape), view=[R, C], count=count)
         for _ in range(3):
@@ -1768,6 +1849,72 @@ def phase_arch_small(dev, archs=tuple(ARCH_TRAIN)):
     return out
 
 
+def _has_kernel_view(shape):
+    """Whether B2/B3 take a q4 leaf of this shape (else the plain quantizer)."""
+    from repro_torch.serve.weights import kernel_view
+
+    try:
+        kernel_view(shape)
+    except ValueError:
+        return False
+    return True
+
+
+def phase_q4_arch_leaves(dev, table=RECURRENT_SERVE):
+    """B2 and B3 against their plain versions at every q4 leaf of each arch
+    of ``table`` at full depth that has a kernel view, on the (R, C) view
+    ``prepare_params`` gives the kernels (``_hold_q4``, inputs as phase 3's:
+    codes, scales and values bit-equal), leaves of one view held once; then
+    both kernels timed per view and summed over the tree against the byte
+    bound."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quant4
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.models import init_model, named_params
+    from repro_torch.serve.weights import THRESHOLD, WEIGHT_Q4, kernel_view
+
+    q4 = WEIGHT_Q4.table("cpu")
+    out = {}
+    for arch, (_, _, layers, kernel_leaves) in table.items():
+        if layers is not None:
+            fail(f"phase 27: {arch} serves at {layers} layers, not at full depth")
+        params = named_params(init_model(get_config(arch), device="meta"))
+        views = {}
+        for path, p in params.items():
+            if p.dim() >= 2 and p.numel() > THRESHOLD and _has_kernel_view(p.shape):
+                views.setdefault(kernel_view(tuple(p.shape)), []).append(path)
+        n_leaves = sum(len(paths) for paths in views.values())
+        if n_leaves != kernel_leaves:
+            fail(f"{arch}: {n_leaves} q4 leaves with a kernel view, expected {kernel_leaves}")
+        rows = []
+        for (R, C), paths in sorted(views.items()):
+            g = torch.Generator(device=dev).manual_seed(R + C)
+            x = _special_blocks(torch.randn((R, C), generator=g, device=dev) * 0.02)
+            codes, scales, _, _ = _hold_q4(x, q4, f"{arch} {paths[0]} as ({R}, {C})")
+            rows.append(dict(
+                view=[R, C], leaves=paths, count=len(paths),
+                q_ms=event_ms(lambda: quant4.quantize_blockwise_4bit(x, q4)),
+                dq_ms=event_ms(lambda: quant4.dequantize_blockwise_4bit(codes, scales, q4)),
+                bound_ms=Q4_BYTES_PER_ELEMENT * R * C / HBM_BYTES_PER_S * 1e3))
+            del x, codes, scales
+            torch.cuda.empty_cache()
+        tree = {k: sum(r[k] * r["count"] for r in rows) for k in ("q_ms", "dq_ms", "bound_ms")}
+        print(f"q4 {arch} at full depth: B2 and B3 bit-equal to the plain versions (codes, "
+              f"scales, values; fp32 and bf16 input) at all {len(rows)} kernel views of its "
+              f"{n_leaves} q4 leaves with one: "
+              + ", ".join(f"({r['view'][0]}, {r['view'][1]}) x{r['count']}" for r in rows)
+              + f"; whole tree B2 {tree['q_ms']:.4f} ms, B3 {tree['dq_ms']:.4f} ms against "
+              f"{tree['bound_ms']:.4f} ms (bytes)")
+        out[arch] = dict(kernel_leaves=n_leaves, views=rows, **tree)
+        del params
+        gc.collect()
+    return out
+
+
 def phase_arch_serve(counters, table=ARCH_SERVE):
     """Each arch of ``table`` with q4 weights through the serving CLI, at the
     depth the table gives it (``None``: full depth): the mix of phase 8."""
@@ -1776,10 +1923,11 @@ def phase_arch_serve(counters, table=ARCH_SERVE):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantizedTensor
     from repro_torch.launch import serve
 
     out = {}
-    for arch, (q4_bytes, q4_leaves, layers) in table.items():
+    for arch, (q4_bytes, q4_leaves, layers, kernel_leaves) in table.items():
         vocab = get_config(arch).vocab_size
         reqs = _serve_requests(vocab)
         _reset(counters)
@@ -1791,11 +1939,14 @@ def phase_arch_serve(counters, table=ARCH_SERVE):
                              requests=reqs)
         counts = _read(counters)
         eng, calls, rep = res["engine"], res["materialize_calls"], res["weight_report"]
+        with_view = sum(1 for q in eng.params.values()
+                        if isinstance(q, QuantizedTensor) and _has_kernel_view(q.shape))
         decode_ms = list(eng.phase_ms["decode"])
         step_ms = sum(decode_ms) / (calls["decode"] * SERVE_DRAIN)
         row = dict(layers=layers or get_config(arch).num_layers,
                    weight_bytes=rep["total_serve_bytes"], quantized_leaves=rep["quantized_leaves"],
-                   n_leaves=rep["n_leaves"], launches=counts, materialize_calls=calls,
+                   n_leaves=rep["n_leaves"], kernel_leaves=with_view, launches=counts,
+                   materialize_calls=calls,
                    prefill_ms=list(eng.phase_ms["prefill"]), decode_ms_per_step=step_ms,
                    tokens=res["tokens"], wall_s=res["wall_s"],
                    tok_per_s=res["tokens"] / res["wall_s"], peak_bytes=res["peak_bytes"])
@@ -1804,14 +1955,19 @@ def phase_arch_serve(counters, table=ARCH_SERVE):
               f"({row['tok_per_s']:.1f} tok/s); prefills "
               f"{', '.join(f'{m:.1f}' for m in row['prefill_ms'])} ms; {step_ms:.2f} ms per "
               f"decode step of 4 slots; weight bytes {rep['total_serve_bytes']:,} "
-              f"({rep['quantized_leaves']} of {rep['n_leaves']} leaves q4); peak "
+              f"({rep['quantized_leaves']} of {rep['n_leaves']} leaves q4, {with_view} through "
+              f"B2/B3); peak "
               f"{res['peak_bytes'] / 1e9:.2f} GB; launches {counts}")
         if rep["total_serve_bytes"] != q4_bytes or rep["quantized_leaves"] != q4_leaves:
             fail(f"serve {arch}: weight bytes {rep['total_serve_bytes']:,} "
                  f"({rep['quantized_leaves']} q4 leaves), expected {q4_bytes:,} ({q4_leaves})")
-        if counts["quantize_blockwise_4bit"] != q4_leaves:
+        if with_view != kernel_leaves:
+            fail(f"serve {arch}: {with_view} q4 leaves have a kernel view, expected "
+                 f"{kernel_leaves}")
+        if counts["quantize_blockwise_4bit"] != kernel_leaves:
             fail(f"serve {arch}: B2 launched {counts['quantize_blockwise_4bit']} times")
-        if counts["dequantize_blockwise_4bit"] != q4_leaves * (calls["prefill"] + calls["decode"]):
+        if counts["dequantize_blockwise_4bit"] != kernel_leaves * (calls["prefill"]
+                                                                   + calls["decode"]):
             fail(f"serve {arch}: B3 launched {counts['dequantize_blockwise_4bit']} times, "
                  f"{calls}")
         if counts["fused_adamw4"] or counts["rank1_new_stats"]:
@@ -1996,6 +2152,141 @@ def phase_q4_big(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# slice 9: xlstm-125m, hymba-1.5b
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _compute_dtype(dtype):
+    """The port's models compute in ``dtype`` within the block: every
+    ``repro_torch`` module's ``COMPUTE_DTYPE`` (each binds the name at
+    import) set to it, and restored after."""
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch.") and hasattr(m, "COMPUTE_DTYPE")]
+    old = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        for m, d in zip(mods, old):
+            m.COMPUTE_DTYPE = d
+
+
+def _oracle_pair(params, cfg, prompts, dev, dtype):
+    """Logits of a token-by-token decode oracle and of one batched,
+    right-padded ``prefill_with_cache`` of ``prompts``, then of four decode
+    steps from each cache fed the same tokens (the oracle's argmax), so
+    that a near tie cannot send the two down different streams. In the
+    oracle a row that has ended keeps its cache as it was, so it holds that
+    prompt's state alone. The models compute in ``dtype`` and the K/V
+    caches hold it. Returns (per step: (oracle, batched) logits (B, V)),
+    the oracle's and the prefill's seconds."""
+    import torch
+
+    from repro_torch.models import decode_step, init_serve_cache, prefill_with_cache
+    from repro_torch.models.model import cache_leaves, cache_map
+
+    def fresh():
+        return cache_map(lambda t: t.to(dtype) if t.dtype == torch.bfloat16 else t,
+                         init_serve_cache(cfg, B, ORACLE_S_MAX, device=dev))
+
+    B, S = len(prompts), max(len(p) for p in prompts)
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    with torch.no_grad(), _compute_dtype(dtype):
+        t0 = time.perf_counter()
+        oracle = fresh()
+        last = [None] * B
+        for t in range(S):
+            toks = torch.tensor([p[min(t, len(p) - 1)] for p in prompts], device=dev)
+            logits, stepped = decode_step(params, cfg, cache_map(torch.clone, oracle), toks,
+                                          torch.full((B,), t, device=dev))
+            live = torch.tensor([t < len(p) for p in prompts], device=dev)
+            for a, b in zip(cache_leaves(oracle), cache_leaves(stepped)):
+                a[:, live] = b[:, live]
+            for b, p in enumerate(prompts):
+                if t == len(p) - 1:
+                    last[b] = logits[b]
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        toks = torch.zeros((B, S), dtype=torch.int64, device=dev)
+        for b, p in enumerate(prompts):
+            toks[b, :len(p)] = torch.tensor(p, device=dev)
+        t0 = time.perf_counter()
+        batch = fresh()
+        l_batch, batch = prefill_with_cache(params, cfg, toks, lens, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        steps = [(torch.stack(last), l_batch)]
+        for t in range(4):
+            tok = steps[-1][0].argmax(-1)
+            la, oracle = decode_step(params, cfg, oracle, tok, lens + t)
+            lb, batch = decode_step(params, cfg, batch, tok, lens + t)
+            steps.append((la, lb))
+    return steps, oracle_s, prefill_s
+
+
+def phase_prefill_oracle(dev, archs=(XLSTM, HYMBA)):
+    """The reference's ``test_prefill_matches_decode_oracle_archs`` on the
+    card, per recurrent arch, random weights from seed 0, two prompts of
+    ``ORACLE_LENGTHS`` random tokens (the long one past a GLA chunk, the
+    short one padded over 109 steps): the batched prefill and four decode
+    steps after it against the token-by-token oracle (``_oracle_pair``),
+    every logit of both rows held:
+
+    * at the reduced config (the reference's own setting, 4 layers of width
+      64), bf16 compute: within the reference's 5e-2;
+    * at full width and depth, fp32 compute: within ``ORACLE_FP32_ATOL``.
+      The two paths then differ only in the order they sum in, so a padded
+      step that is not an exact identity, an sLSTM state that is not
+      frozen or a prefill that parts from the decode shows here;
+    * at full width and depth, bf16 compute (what serving runs): within
+      ``ORACLE_BF16_ATOL``. The two paths' bf16 activations round apart
+      and the gap grows with depth."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init_model, named_params
+
+    out = {}
+    for arch in archs:
+        for size, cfg in (("reduced", reduced_config(arch)), ("full", get_config(arch))):
+            rng = np.random.default_rng(4)
+            prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in ORACLE_LENGTHS]
+            model = init_model(cfg, seed=0, device=dev)
+            params = {k: p.detach() for k, p in named_params(model).items()}
+            del model
+            runs = ((torch.bfloat16, ORACLE_ATOL),) if size == "reduced" else (
+                (torch.float32, ORACLE_FP32_ATOL), (torch.bfloat16, ORACLE_BF16_ATOL[arch]))
+            for dtype, atol in runs:
+                steps, oracle_s, prefill_s = _oracle_pair(params, cfg, prompts, dev, dtype)
+                rows = [[float(d) for d in (la - lb).abs().amax(dim=-1)] for la, lb in steps]
+                scale = float(steps[0][0].abs().max())
+                compute = str(dtype).removeprefix("torch.")
+                what = (f"{arch} {size} ({cfg.num_layers} layers, width {cfg.d_model}), "
+                        f"{compute} compute")
+                print(f"prefill vs token-by-token oracle, {what}, prompts "
+                      f"{list(ORACLE_LENGTHS)}: max |dlogit| long / short row, prefill then 4 "
+                      f"decode steps: {rows} (logits up to {scale:.6g}; bound {atol:g}); oracle "
+                      f"{oracle_s:.1f} s, batched prefill {prefill_s * 1e3:.1f} ms")
+                if not all(math.isfinite(x) and x <= atol for r in rows for x in r):
+                    fail(f"{what}: batched prefill against the token-by-token oracle: {rows}, "
+                         f"bound {atol:g}")
+                out[f"{arch}/{size}/{compute}"] = dict(
+                    layers=cfg.num_layers, lengths=list(ORACLE_LENGTHS), atol=atol,
+                    max_dlogit_long_short=rows, logit_scale=scale, oracle_s=oracle_s,
+                    prefill_s=prefill_s)
+                del steps
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     # the caching allocator maps memory in growable segments, so the MoE
@@ -2056,12 +2347,19 @@ def main():
     moe_train = phase_arch_train(counters, MOE_TRAIN)
     moe_small = phase_arch_small(dev, tuple(MOE_TRAIN))
     moe_serve = phase_arch_serve(counters, MOE_SERVE)
+    rec_leaves, rec_b1 = phase_arch_leaves(dev, card_info, XLSTM_LEAF_SHAPES)
+    rec_train = phase_arch_train(counters, RECURRENT_TRAIN)
+    rec_small = phase_arch_small(dev, tuple(RECURRENT_TRAIN))
+    rec_q4_leaves = phase_q4_arch_leaves(dev)
+    rec_serve = phase_arch_serve(counters, RECURRENT_SERVE)
+    rec_oracle = phase_prefill_oracle(dev)
     # launches: every path run of the slices, each counted from 0 just before
-    # it and read just after (phases 6, 15, 21 train; 8, 17, 23 serve)
-    path_counts = [counts] + [r["launches"] for r in arch_train.values()] + [
-        r["launches"] for r in moe_train.values()]
-    serve_counts = [serving["launches"]] + [r["launches"] for r in arch_serve.values()] + [
-        r["launches"] for r in moe_serve.values()]
+    # it and read just after (phases 6, 15, 21, 25 train; 8, 17, 23, 27 serve)
+    path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train)
+                              for r in t.values()]
+    serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,
+                                                                    rec_serve)
+                                            for r in t.values()]
     launches = {k: sum(c[k] for c in path_counts) for k in ("fused_adamw4", "rank1_new_stats")}
     launches.update({k: sum(c[k] for c in serve_counts)
                      for k in ("quantize_blockwise_4bit", "dequantize_blockwise_4bit")})
@@ -2139,7 +2437,14 @@ def main():
          "moe_train": {a: {k: v for k, v in r.items() if k != "split"}
                        for a, r in moe_train.items()},
          "moe_train_split": {a: r["split"] for a, r in moe_train.items()},
-         "moe_small": moe_small, "moe_serve": moe_serve, "path_launches": launches,
+         "moe_small": moe_small, "moe_serve": moe_serve, "recurrent_leaves": rec_leaves,
+         "recurrent_b1_per_step": rec_b1,
+         "recurrent_train": {a: {k: v for k, v in r.items() if k != "split"}
+                             for a, r in rec_train.items()},
+         "recurrent_train_split": {a: r["split"] for a, r in rec_train.items()},
+         "recurrent_small": rec_small, "recurrent_q4_leaves": rec_q4_leaves,
+         "recurrent_serve": rec_serve,
+         "prefill_oracle": rec_oracle, "path_launches": launches,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

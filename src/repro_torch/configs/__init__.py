@@ -1,7 +1,8 @@
 """Architecture registry of the port (port of ``repro.configs`` for its
-dense decoders, internlm2-1.8b, qwen3-4b, chatglm3-6b, gemma2-2b, and its
-MoE decoders, phi3.5-moe-42b-a6.6b and mixtral-8x7b) and the reduced
-CPU-scale config of the same family."""
+dense decoders, internlm2-1.8b, qwen3-4b, chatglm3-6b, gemma2-2b, its MoE
+decoders, phi3.5-moe-42b-a6.6b and mixtral-8x7b, and its recurrent ones,
+xlstm-125m and hymba-1.5b) and the reduced CPU-scale config of the same
+family."""
 
 from __future__ import annotations
 
@@ -135,6 +136,50 @@ def mixtral_8x7b() -> ModelConfig:
     )
 
 
+def xlstm_125m() -> ModelConfig:
+    """xlstm-125m [arXiv:2405.04517]: 12L d_model=768 4H vocab=50304, d_ff=0
+    (the projections live inside the xLSTM blocks); three mLSTM blocks then
+    one sLSTM block, repeated: one scan unit of period 4
+    (``repro/configs/xlstm_125m.py``)."""
+    return ModelConfig(
+        name="xlstm-125m",
+        num_layers=12,
+        d_model=768,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=192,
+        d_ff=0,
+        vocab_size=50304,
+        blocks=(LayerSpec("mlstm", 0), LayerSpec("mlstm", 0),
+                LayerSpec("mlstm", 0), LayerSpec("slstm", 0)) * 3,
+    )
+
+
+HYMBA_WINDOW = 1024
+HYMBA_GLOBAL_LAYERS = (0, 15, 31)
+
+
+def hymba_1_5b() -> ModelConfig:
+    """hymba-1.5b [arXiv:2411.13676]: 32L d_model=1600 25H (GQA kv=5,
+    head_dim 64) d_ff=5504, ssm_state=16, vocab=32001; every block runs
+    attention and Mamba/SSD heads in parallel and averages their rescaled
+    outputs; layers 0, 15, 31 attend globally, the rest in a window of 1024
+    (aperiodic: five scan units of runs) (``repro/configs/hymba_1_5b.py``)."""
+    return ModelConfig(
+        name="hymba-1.5b",
+        num_layers=32,
+        d_model=1600,
+        num_heads=25,
+        num_kv_heads=5,
+        head_dim=64,
+        d_ff=5504,
+        vocab_size=32001,
+        ssm_state=16,
+        blocks=tuple(LayerSpec("hymba", 0 if i in HYMBA_GLOBAL_LAYERS else HYMBA_WINDOW)
+                     for i in range(32)),
+    )
+
+
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "mixtral-8x7b": mixtral_8x7b,
@@ -142,6 +187,8 @@ ARCHS: Dict[str, Callable[[], ModelConfig]] = {
     "gemma2-2b": gemma2_2b,
     "qwen3-4b": qwen3_4b,
     "internlm2-1.8b": internlm2_1_8b,
+    "xlstm-125m": xlstm_125m,
+    "hymba-1.5b": hymba_1_5b,
 }
 
 
@@ -156,7 +203,8 @@ def reduced_config(name: str) -> ModelConfig:
     ``reduced_config``): <= 4 layers (windows cut to <= 16, so gemma2 keeps
     its (16, 0) pattern), d_model 64, <= 4 heads of 16, d_ff 256
     (kernel-eligible mlp and expert leaves), vocab 512, <= 4 experts in
-    groups of 64 tokens; every feature flag kept."""
+    groups of 64 tokens, ssm_state <= 8, GLA chunks of 16; every feature
+    flag kept."""
     cfg = get_config(name)
     L = min(cfg.num_layers, 4)
     blocks = tuple(LayerSpec(b.kind, min(b.window, 16) if b.window else 0) for b in cfg.blocks[:L])
@@ -168,4 +216,5 @@ def reduced_config(name: str) -> ModelConfig:
         cfg, num_layers=L, blocks=blocks, d_model=64, num_heads=heads, num_kv_heads=kv,
         head_dim=16, d_ff=256 if cfg.d_ff else 0, vocab_size=512,
         num_experts=min(cfg.num_experts, 4), moe_group_size=64,
+        ssm_state=min(cfg.ssm_state, 8), gla_chunk=16,
     )

@@ -1,4 +1,4 @@
-"""Dense decoder model of the port (port of ``repro.models``)."""
+"""Decoder models of the port (port of ``repro.models``)."""
 
 from repro_torch.models.blocks import LayerSpec
 from repro_torch.models.model import (
@@ -12,6 +12,7 @@ from repro_torch.models.model import (
     loss_fn,
     named_params,
     plan_scan_units,
+    prefill,
     prefill_with_cache,
 )
 
@@ -27,5 +28,6 @@ __all__ = [
     "named_params",
     "init_serve_cache",
     "decode_step",
+    "prefill",
     "prefill_with_cache",
 ]

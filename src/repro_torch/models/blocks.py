@@ -1,21 +1,27 @@
-"""The dense and MoE transformer blocks: attention + (gated) MLP or a
-mixture of experts, pre-norm, with the reference's options (q/k RMS norm,
-2-D RoPE, attention softcap, sandwich norms, gelu).
+"""The block kinds of the decoders: dense and MoE transformer blocks
+(attention + (gated) MLP or a mixture of experts, pre-norm, with the
+reference's options: q/k RMS norm, 2-D RoPE, attention softcap, sandwich
+norms, gelu), the xLSTM mLSTM and sLSTM blocks, and hymba's block of
+attention and SSM heads in parallel.
 
 Port of ``repro/models/blocks.py`` (``LayerSpec``, ``apply_attention`` with
-its three cache regimes, ``apply_mlp``, the dense and MoE blocks and their
-decode cache). A ``DenseStack`` or ``MoEStack`` holds the parameters of
-``L`` identical layers stacked on a leading dim, in the reference's layout
-and under its names (``attn/wq`` ``(L, D, H, dh)``, ``attn/q_norm`` ``(L,
-dh)``, ``mlp/w1`` ``(L, D, F)``, ``moe/router`` ``(L, D, E)``, ``moe/w1``
-``(L, E, D, F)``, ``norm1``, ``post1`` ``(L, D)``, ...), so the optimizer
-sees the reference's leaves; training and serving both walk the layers
-through ``unstack``.
+its three cache regimes, ``apply_mlp``, the block kinds and their decode
+caches). A ``*Stack`` holds the parameters of ``L`` identical layers
+stacked on a leading dim, in the reference's layout and under its names
+(``attn/wq`` ``(L, D, H, dh)``, ``mlp/w1`` ``(L, D, F)``, ``moe/w1`` ``(L,
+E, D, F)``, mLSTM ``wq`` ``(L, D, H, D//H)``, sLSTM ``r_gates`` ``(L, H, 4,
+dh, dh)``, hymba ``ssm_B`` ``(L, D, H, ssm_state)``, ``norm1`` ``(L, D)``,
+...), so the optimizer sees the reference's leaves; training and serving
+both walk the layers through ``unstack``. Attention writes its K/V cache
+in place; the recurrent kinds (``RECURRENT``: mLSTM, sLSTM, hymba's SSM
+heads) return their new state beside ``x``, and the caller writes it back
+into its cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Iterator, Optional
 
 import torch
@@ -23,11 +29,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import gla as gla_lib
+from repro_torch.models.gla import GLAState, slstm_initial_state
 from repro_torch.models.layers import COMPUTE_DTYPE, dense, rmsnorm, rope, rope_half
 from repro_torch.models.moe import moe_apply
 
-__all__ = ["LayerSpec", "DenseStack", "MoEStack", "STACKS", "unstack", "apply_attention",
-           "apply_mlp", "apply_dense", "apply_moe", "init_block_cache"]
+__all__ = ["LayerSpec", "DenseStack", "MoEStack", "MLSTMStack", "SLSTMStack", "HymbaStack",
+           "STACKS", "RECURRENT", "unstack", "apply_attention", "apply_mlp", "apply_dense",
+           "apply_moe", "apply_mlstm", "apply_slstm", "apply_hymba", "slstm_ff",
+           "init_block_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +111,84 @@ class MoEStack(_Stack):
         self.L = L
 
 
+class MLSTMStack(_Stack):
+    """Parameters of ``L`` mLSTM layers, stacked: ``w_in (L, D, 2D)``,
+    ``wq``/``wk``/``wv`` ``(L, D, H, D//H)``, ``w_if (L, D, 2H)``, ``b_if (L,
+    2H)``, ``w_out (L, D, D)``, ``norm (L, D)``."""
+
+    def __init__(self, cfg, L: int, device):
+        super().__init__()
+        D, H = cfg.d_model, cfg.num_heads
+        self.w_in = _stacked(L, (D, 2 * D), device)
+        self.wq = _stacked(L, (D, H, D // H), device)
+        self.wk = _stacked(L, (D, H, D // H), device)
+        self.wv = _stacked(L, (D, H, D // H), device)
+        self.w_if = _stacked(L, (D, 2 * H), device)
+        self.b_if = _stacked(L, (2 * H,), device)
+        self.w_out = _stacked(L, (D, D), device)
+        self.norm = _stacked(L, (D,), device)
+        self.L = L
+
+
+def slstm_ff(d_model: int) -> int:
+    """The sLSTM block's (always gated) MLP width: 4/3 of d_model, rounded
+    (Python's ``round``) to a multiple of 128, at least 128."""
+    return max(int(round(4 * d_model / 3 / 128)) * 128, 128)
+
+
+class SLSTMStack(_Stack):
+    """Parameters of ``L`` sLSTM layers, stacked: ``w_gates (L, D, 4, D)``,
+    ``r_gates (L, H, 4, dh, dh)``, ``w_out (L, D, D)``, ``mlp/w1``-``w3``
+    (``slstm_ff`` wide), ``norm1``, ``norm2``."""
+
+    def __init__(self, cfg, L: int, device):
+        super().__init__()
+        D, H = cfg.d_model, cfg.num_heads
+        dh, Ff = D // H, slstm_ff(D)
+        self.w_gates = _stacked(L, (D, 4, D), device)
+        self.r_gates = _stacked(L, (H, 4, dh, dh), device)
+        self.w_out = _stacked(L, (D, D), device)
+        self.mlp = nn.ParameterDict({"w1": _stacked(L, (D, Ff), device),
+                                     "w2": _stacked(L, (Ff, D), device),
+                                     "w3": _stacked(L, (D, Ff), device)})
+        self.norm1 = _stacked(L, (D,), device)
+        self.norm2 = _stacked(L, (D,), device)
+        self.L = L
+
+
+class HymbaStack(_Stack):
+    """Parameters of ``L`` hymba layers, stacked: attention, the (gated) MLP,
+    ``norm1``, ``norm2``, and the SSM heads: ``ssm_in (L, D, 2D)``, ``ssm_dt
+    (L, D, H)``, ``ssm_dt_bias``, ``ssm_A_log``, ``ssm_D`` ``(L, H)``,
+    ``ssm_B``, ``ssm_C`` ``(L, D, H, ssm_state)``, ``ssm_out (L, D, D)``,
+    ``scale_attn``, ``scale_ssm`` ``(L, D)``."""
+
+    def __init__(self, cfg, L: int, device):
+        super().__init__()
+        D, H, Ff, st = cfg.d_model, cfg.num_heads, cfg.d_ff, cfg.ssm_state
+        self.attn = _attention_params(cfg, L, device)
+        mlp = {"w1": _stacked(L, (D, Ff), device), "w2": _stacked(L, (Ff, D), device)}
+        if cfg.gated_mlp:
+            mlp["w3"] = _stacked(L, (D, Ff), device)
+        self.mlp = nn.ParameterDict(mlp)
+        self.norm1 = _stacked(L, (D,), device)
+        self.norm2 = _stacked(L, (D,), device)
+        self.ssm_in = _stacked(L, (D, 2 * D), device)
+        self.ssm_dt = _stacked(L, (D, H), device)
+        self.ssm_dt_bias = _stacked(L, (H,), device)
+        self.ssm_B = _stacked(L, (D, H, st), device)
+        self.ssm_C = _stacked(L, (D, H, st), device)
+        self.ssm_A_log = _stacked(L, (H,), device)
+        self.ssm_D = _stacked(L, (H,), device)
+        self.ssm_out = _stacked(L, (D, D), device)
+        self.scale_attn = _stacked(L, (D,), device)
+        self.scale_ssm = _stacked(L, (D,), device)
+        self.L = L
+
+
 # the parameter stack of each block kind the port runs
-STACKS = {"dense": DenseStack, "moe": MoEStack}
+STACKS = {"dense": DenseStack, "moe": MoEStack, "mlstm": MLSTMStack, "slstm": SLSTMStack,
+          "hymba": HymbaStack}
 
 
 def unstack(tree: Dict[str, Any], L: int) -> Iterator[Dict[str, Any]]:
@@ -215,17 +301,144 @@ def apply_moe(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     return x + out, aux
 
 
-def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device,
-                     layers: int) -> attn_lib.KVCache:
-    """Decode-time cache of a dense or MoE block (the same K/V cache),
-    stacked over ``layers``. Windowed layers allocate only ``window`` slots;
-    the slot count is at least 256 and a multiple of 256, as in the
-    reference."""
-    if spec.kind not in STACKS:
-        raise ValueError(f"the port caches dense and moe blocks only, not {spec.kind!r}")
-    slots = min(s_max, spec.window) if spec.window > 0 else s_max
-    slots = max(256, slots)
-    if slots % 256:
-        slots += 256 - slots % 256
-    return attn_lib.make_cache(batch, slots, cfg.num_kv_heads, cfg.head_dim,
-                               device=device, layers=layers)
+def _divisor(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor of ``like``'s dtype on its device: the reference divides
+    a bf16 array by a weakly typed scalar, rounded to bf16 first; CUDA would
+    multiply by the reciprocal of a host scalar."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def _padded_identity(kv_lengths, S: int, log_a: torch.Tensor, k: torch.Tensor):
+    """Right-padded prefill: a padded step becomes an exact identity of the
+    recurrence (a = 1, k = 0), so S and n carry through it."""
+    step_ok = torch.arange(S, device=k.device)[None, :] < kv_lengths[:, None]
+    return (torch.where(step_ok[..., None], log_a, 0.0),
+            torch.where(step_ok[..., None, None], k, 0.0))
+
+
+def apply_mlstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
+                cache: Optional[GLAState] = None, cur_pos: Optional[torch.Tensor] = None,
+                kv_lengths: Optional[torch.Tensor] = None):
+    """The mLSTM block (the reference's ``_apply_mlstm``): up-projection to
+    (xm, z), per-head q/k/v of ``D // H``, sigmoid input gate folded into k,
+    ``log_sigmoid`` forget gate as the decay, the chunked recurrence (or one
+    decode step), ``silu(z)`` gating and the down-projection. Returns (x,
+    the new recurrent state)."""
+    B, S, D = x.shape
+    dh = D // cfg.num_heads
+    h = rmsnorm(x, p["norm"])
+    xm, z = dense(h, p["w_in"], "bsd,de->bse").chunk(2, dim=-1)
+    q = dense(xm, p["wq"], "bse,ehd->bshd")
+    k = dense(xm, p["wk"], "bse,ehd->bshd")
+    k = k / _divisor(math.sqrt(dh), k)
+    v = dense(xm, p["wv"], "bse,ehd->bshd")
+    gates = dense(xm, p["w_if"], "bse,eh->bsh").to(torch.float32) + p["b_if"]
+    i_gate, f_gate = gates.chunk(2, dim=-1)
+    log_a = F.logsigmoid(f_gate)                 # (B, S, H)
+    k = k * torch.sigmoid(i_gate)[..., None]     # fp32
+    if kv_lengths is not None and S > 1:
+        log_a, k = _padded_identity(kv_lengths, S, log_a, k)
+    if cache is not None and S == 1:
+        y, new = gla_lib.gla_decode_step(q, k, v, log_a, cache)
+    else:
+        y, new = gla_lib.gla_chunked(q, k, v, log_a, chunk=cfg.gla_chunk, init_state=cache)
+    out = dense(y.reshape(B, S, D) * F.silu(z), p["w_out"], "bse,ed->bsd")
+    return x + out, new
+
+
+def apply_slstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
+                cache: Optional[gla_lib.SLSTMState] = None,
+                cur_pos: Optional[torch.Tensor] = None,
+                kv_lengths: Optional[torch.Tensor] = None):
+    """The sLSTM block (the reference's ``_apply_slstm``): gate
+    pre-activations ``W x``, the sequential cell (padded prefill steps
+    frozen by ``step_mask``), the output projection, then a gated MLP.
+    Returns (x, the new recurrent state)."""
+    S = x.shape[1]
+    gates_x = dense(rmsnorm(x, p["norm1"]), p["w_gates"], "bsd,dge->bsge")
+    step_mask = None
+    if kv_lengths is not None and S > 1:
+        step_mask = torch.arange(S, device=x.device)[None, :] < kv_lengths[:, None]
+    hs, new = gla_lib.slstm_scan(gates_x, p["r_gates"], cfg.num_heads, init_state=cache,
+                                 step_mask=step_mask)
+    x = x + dense(hs, p["w_out"], "bsd,de->bse")
+    return x + apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]), cfg.act), new
+
+
+def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
+                cache: Optional[Dict[str, Any]] = None, cur_pos: Optional[torch.Tensor] = None,
+                kv_lengths: Optional[torch.Tensor] = None):
+    """The hymba block (the reference's ``_apply_hymba``): attention and
+    Mamba/SSD heads in parallel on one norm, their outputs rescaled and
+    averaged, then the MLP. The SSM's decay is ``-softplus(dt) *
+    exp(A_log)``, its heads ``D // H`` wide with ``ssm_state`` keys, no
+    normalizer, a ``D`` skip. ``cache`` is ``{"attn": KVCache, "ssm":
+    GLAState}``; the K/V cache is written in place. Returns (x, ``{"ssm":
+    the new SSM state}``)."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    h = rmsnorm(x, p["norm1"])
+    kv, ssm = (None, None) if cache is None else (cache["attn"], cache["ssm"])
+    a_out = apply_attention(p["attn"], h, cfg, window=spec.window, positions=positions,
+                            cache=kv, cur_pos=cur_pos, kv_lengths=kv_lengths)
+    xm, z = dense(h, p["ssm_in"], "bsd,de->bse").chunk(2, dim=-1)
+    dt = F.softplus(dense(xm, p["ssm_dt"], "bsd,dh->bsh").to(torch.float32)
+                    + p["ssm_dt_bias"])              # (B, S, H)
+    log_a = -dt * torch.exp(p["ssm_A_log"])          # <= 0
+    k = dense(xm, p["ssm_B"], "bsd,dhn->bshn")
+    q = dense(xm, p["ssm_C"], "bsd,dhn->bshn")
+    v = xm.reshape(B, S, H, D // H) * dt[..., None].to(COMPUTE_DTYPE)
+    if kv_lengths is not None and S > 1:
+        log_a, k = _padded_identity(kv_lengths, S, log_a, k)
+    if ssm is not None and S == 1:
+        y, new = gla_lib.gla_decode_step(q, k, v, log_a, ssm, normalize=False)
+    else:
+        y, new = gla_lib.gla_chunked(q, k, v, log_a, chunk=cfg.gla_chunk, normalize=False,
+                                     init_state=ssm)
+    y = y + p["ssm_D"][None, None, :, None].to(y.dtype) * v
+    y = (y.reshape(B, S, D) * F.silu(z)).to(COMPUTE_DTYPE)
+    s_out = dense(y, p["ssm_out"], "bse,ed->bsd")
+    x = x + 0.5 * (a_out * p["scale_attn"].to(COMPUTE_DTYPE)
+                   + s_out * p["scale_ssm"].to(COMPUTE_DTYPE))
+    return x + apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]), cfg.act), {"ssm": new}
+
+
+# the recurrent block kinds: apply(p, x, spec, cfg, ...) -> (x, new state)
+RECURRENT = {"mlstm": apply_mlstm, "slstm": apply_slstm, "hymba": apply_hymba}
+
+
+def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device, layers: int):
+    """Decode-time cache of one block kind, stacked over ``layers``:
+
+    * dense, moe: a ``KVCache``; windowed layers allocate only ``window``
+      slots; the slot count is at least 256 and a multiple of 256, as in
+      the reference;
+    * mlstm: ``GLAState(S (L, B, H, dh, dh), n (L, B, H, dh))``, fp32 zeros;
+    * slstm: ``SLSTMState(c, n, h (L, B, D)`` zeros, ``m`` -1e30);
+    * hymba: ``{"attn": KVCache, "ssm": GLAState(S (L, B, H, ssm_state,
+      dh), n (L, B, H, ssm_state))}``.
+    """
+    D, H = cfg.d_model, cfg.num_heads
+    dh = D // H
+
+    def kv():
+        slots = min(s_max, spec.window) if spec.window > 0 else s_max
+        slots = max(256, slots)
+        if slots % 256:
+            slots += 256 - slots % 256
+        return attn_lib.make_cache(batch, slots, cfg.num_kv_heads, cfg.head_dim,
+                                   device=device, layers=layers)
+
+    def gla(dk, dv):
+        z = lambda *s: torch.zeros((layers, batch, H) + s, dtype=torch.float32, device=device)
+        return GLAState(z(dk, dv), z(dk))
+
+    if spec.kind in ("dense", "moe"):
+        return kv()
+    if spec.kind == "mlstm":
+        return gla(dh, dh)
+    if spec.kind == "slstm":
+        return slstm_initial_state(batch, D, device=device, lead=(layers,))
+    if spec.kind == "hymba":
+        return {"attn": kv(), "ssm": gla(cfg.ssm_state, dh)}
+    raise ValueError(f"the port has no decode cache for {spec.kind!r} blocks")

@@ -1,10 +1,11 @@
-"""Model assembly for decoder stacks of dense and MoE blocks: config, scan
-units, init, forward, loss, and serving (prefill with cache, decode step).
+"""Model assembly for token decoders of dense, MoE, mLSTM, sLSTM and hymba
+blocks: config, scan units, init, forward, loss, and serving (cacheless
+prefill, prefill with cache, decode step).
 
 Port of ``repro/models/model.py`` (``ModelConfig``, ``plan_scan_units``,
-``init_model``, ``forward_hidden``, ``loss_fn``, ``init_serve_cache``,
-``prefill_with_cache``, ``decode_step``) for token decoders whose blocks
-are ``dense`` or ``moe``. The layers are grouped into the reference's scan units
+``init_model``, ``forward_hidden``, ``loss_fn``, ``prefill``,
+``init_serve_cache``, ``prefill_with_cache``, ``decode_step``). The layers
+are grouped into the reference's scan units
 (``plan_scan_units``: one periodic pattern, such as gemma2's local/global
 pair, repeated, or maximal runs of equal layers); unit ``u`` holds one
 stack of ``repeat`` layers per pattern position under the reference's paths
@@ -12,7 +13,9 @@ stack of ``repeat`` layers per pattern position under the reference's paths
 ``r`` runs ``sub0[r], sub1[r], ...`` where the reference scans, summing
 the MoE layers' load-balance losses in fp32 in that order (the loss adds
 ``0.01 *`` their sum). Tied embeddings have no ``head`` leaf: the head is
-``embed.T``.
+``embed.T``. The decode caches are per kind (``blocks.init_block_cache``):
+K/V caches, recurrent states, or both (hymba), stacked over each stack's
+layers; layer ``r`` reads and writes views of row ``r``.
 ``named_params`` gives the ordered ``{path: tensor}`` mapping the optimizer
 takes; the serving functions take such a mapping too (for instance
 ``serve.weights.materialize``'s output), and update the stacked decode
@@ -28,8 +31,8 @@ import torch
 import torch.nn as nn
 
 from repro_torch import resolve_device
-from repro_torch.models.attention import KVCache
 from repro_torch.models.blocks import (
+    RECURRENT,
     STACKS,
     LayerSpec,
     apply_dense,
@@ -48,7 +51,7 @@ from repro_torch.models.layers import (
 
 __all__ = ["ModelConfig", "ScanUnit", "plan_scan_units", "Transformer", "init_model",
            "forward_hidden", "loss_fn", "named_params", "init_serve_cache", "decode_step",
-           "prefill_with_cache"]
+           "prefill", "prefill_with_cache", "cache_map", "cache_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,8 @@ class ModelConfig:
     act: str = "silu"            # silu | gelu (tanh form)
     gated_mlp: bool = True
     tie_embeddings: bool = False
+    ssm_state: int = 16
+    gla_chunk: int = 128
     moe_group_size: int = 2048
     ce_chunk: int = 512
     decode_k_chunk: int = 1024
@@ -102,7 +107,7 @@ def plan_scan_units(blocks: Tuple[LayerSpec, ...]) -> List[ScanUnit]:
     return units
 
 
-_NOT_PORTED = "not ported yet (ROADMAP queue A item 4(c)-(e))"
+_NOT_PORTED = "not ported yet (ROADMAP queue A item 4(d)-(e))"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -122,7 +127,7 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Transformer(nn.Module):
-    """Decoder LM of dense and MoE blocks; parameters are fp32 masters in the reference's
+    """Decoder LM of the block kinds of ``STACKS``; parameters are fp32 masters in the reference's
     stacked layout, one ``ModuleDict`` of ``sub{i}`` stacks per scan unit."""
 
     def __init__(self, cfg: ModelConfig, device):
@@ -156,19 +161,38 @@ def named_params(model: nn.Module) -> Dict[str, nn.Parameter]:
     return tree_order({k.replace(".", "/"): p for k, p in model.named_parameters()})
 
 
-def _is_scale(path: str) -> bool:
-    """Norm scales, initialised to one (``norm1``, ``q_norm``, ``post1``, ...)."""
+# leaves the reference initialises to a constant, by name (the norm scales,
+# ``*norm*``, ``post1``/``post2``, are ones; mLSTM's ``b_if`` is 0 for the H
+# input gates and 3.0 for the H forget gates)
+_CONSTANTS = {"post1": 1.0, "post2": 1.0, "ssm_dt_bias": -2.0, "ssm_A_log": 0.0, "ssm_D": 1.0,
+              "scale_attn": 1.0, "scale_ssm": 1.0}
+
+
+def _init_constant(path: str, p: torch.Tensor) -> bool:
+    """Fill ``p`` if the reference makes its leaf a constant; True if so."""
     leaf = path.rsplit("/", 1)[-1]
-    return "norm" in leaf or leaf in ("post1", "post2")
+    if "norm" in leaf:
+        p.fill_(1.0)
+    elif leaf in _CONSTANTS:
+        p.fill_(_CONSTANTS[leaf])
+    elif leaf == "b_if":
+        H = p.shape[-1] // 2
+        p[..., :H] = 0.0
+        p[..., H:] = 3.0
+    else:
+        return False
+    return True
 
 
 @torch.no_grad()
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
                generator: Optional[torch.Generator] = None) -> Transformer:
     """Random model from a seed (or an explicit generator on ``device``):
-    normal(0, 0.02) weights, unit norm scales. On the ``meta`` device only
-    shapes are made. The draws are torch's, not ``jax.random``'s: to compute
-    what the reference computes, load its parameters (``convert``)."""
+    normal(0, 0.02) weights, the reference's constants elsewhere (unit norm
+    scales, mLSTM's gate bias, hymba's ``ssm_dt_bias``, ``ssm_A_log``,
+    ``ssm_D`` and output scales). On the ``meta`` device only shapes are
+    made. The draws are torch's, not ``jax.random``'s: to compute what the
+    reference computes, load its parameters (``convert``)."""
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     model = Transformer(cfg, device=dev)
     if dev.type == "meta":
@@ -177,9 +201,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     for path, p in named_params(model).items():
-        if _is_scale(path):
-            p.fill_(1.0)
-        else:
+        if not _init_constant(path, p):
             p.normal_(0.0, INIT_STD, generator=generator)
     return model
 
@@ -188,29 +210,61 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
 UnitLayers = List[List[Sequence[Dict[str, Any]]]]
 
 
+def cache_map(fn, tree):
+    """``fn`` applied to every tensor of a cache tree (lists, dicts,
+    NamedTuples of tensors), in a tree of the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: cache_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cache_map(fn, v) for v in tree]
+    return type(tree)(*(cache_map(fn, v) for v in tree))
+
+
+def cache_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a cache tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    nodes = tree.values() if isinstance(tree, dict) else tree
+    return [t for node in nodes for t in cache_leaves(node)]
+
+
+def _write_back(view, new) -> None:
+    """Copy a block's new recurrent state into its cache view, in place
+    (hymba's: the SSM state of its ``{"attn", "ssm"}`` cache)."""
+    if isinstance(view, dict):
+        view = {k: view[k] for k in new}
+    for a, b in zip(cache_leaves(view), cache_leaves(new)):
+        a.copy_(b)
+
+
 def _run_units(cfg: ModelConfig, units: List[ScanUnit], layers: UnitLayers, x: torch.Tensor,
-               positions, caches: Optional[List[Dict[str, KVCache]]] = None,
+               positions, caches: Optional[List[Dict[str, Any]]] = None,
                cur_pos: Optional[torch.Tensor] = None,
                kv_lengths: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer loop shared by training and serving, in the reference's
     order: per unit, ``sub0[r], sub1[r], ...`` for each repeat ``r``.
     ``caches[u]["sub{i}"]`` is that stack's ``(repeat, ...)`` cache: layer
-    ``r`` reads and writes its views. Returns (x, the fp32 sum of the MoE
-    layers' aux losses in that order)."""
+    ``r`` reads and writes its views (K/V in place inside attention, a
+    recurrent block's new state copied back here). Returns (x, the fp32 sum
+    of the MoE layers' aux losses in that order)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for ui, unit in enumerate(units):
         for r in range(unit.repeat):
             for si, spec in enumerate(unit.pattern):
-                c = None
-                if caches is not None:
-                    stacked = caches[ui][f"sub{si}"]
-                    c = KVCache(stacked.k[r], stacked.v[r], stacked.pos[r])
+                c = None if caches is None else cache_map(lambda t: t[r], caches[ui][f"sub{si}"])
                 kw = dict(positions=positions, cache=c, cur_pos=cur_pos, kv_lengths=kv_lengths)
+                p = layers[ui][si][r]
                 if spec.kind == "moe":
-                    x, a = apply_moe(layers[ui][si][r], x, spec, cfg, **kw)
+                    x, a = apply_moe(p, x, spec, cfg, **kw)
                     aux = aux + a
+                elif spec.kind == "dense":
+                    x = apply_dense(p, x, spec, cfg, **kw)
                 else:
-                    x = apply_dense(layers[ui][si][r], x, spec, cfg, **kw)
+                    x, state = RECURRENT[spec.kind](p, x, spec, cfg, **kw)
+                    if c is not None:
+                        _write_back(c, state)
     return x, aux
 
 
@@ -278,10 +332,12 @@ def _logits(params: Mapping[str, torch.Tensor], cfg: ModelConfig, x: torch.Tenso
 
 
 def init_serve_cache(cfg: ModelConfig, batch: int, s_max: int,
-                     device="cuda") -> List[Dict[str, KVCache]]:
-    """Decode cache: per scan unit, ``{"sub{i}": KVCache}`` stacked over the
-    unit's repeats (``(repeat, B, slots, Hkv, D)`` bf16, ``pos`` ``(repeat,
-    B, slots)``); windowed subs hold ``min(s_max, window)`` slots."""
+                     device="cuda") -> List[Dict[str, Any]]:
+    """Decode cache: per scan unit, ``{"sub{i}": cache}`` stacked over the
+    unit's repeats: a ``KVCache`` (``(repeat, B, slots, Hkv, D)`` bf16,
+    ``pos`` ``(repeat, B, slots)``; windowed subs hold ``min(s_max,
+    window)`` slots), a recurrent state, or hymba's dict of both
+    (``blocks.init_block_cache``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     return [{f"sub{si}": init_block_cache(cfg, spec, batch, s_max, device=dev,
@@ -291,7 +347,7 @@ def init_serve_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
-                caches: List[Dict[str, KVCache]], tokens: torch.Tensor, pos: torch.Tensor):
+                caches: List[Dict[str, Any]], tokens: torch.Tensor, pos: torch.Tensor):
     """One serving step: tokens (B,) at absolute positions pos (B,) ->
     (next-token logits (B, V) fp32, caches updated in place)."""
     units = plan_scan_units(cfg.blocks)
@@ -302,13 +358,27 @@ def decode_step(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     return _logits(params, cfg, x[:, 0]), caches
 
 
+def prefill(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Cacheless prefill: the whole sequence forward once -> the logits at
+    its last position (B, V) fp32."""
+    units = plan_scan_units(cfg.blocks)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = embed_lookup(params["embed"], tokens)
+    x, _ = _run_units(cfg, units, _unit_layers(params, units), x, positions)
+    return _logits(params, cfg, rmsnorm(x, params["final_norm"])[:, -1])
+
+
 def prefill_with_cache(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
                        tokens: torch.Tensor, lengths: torch.Tensor,
-                       caches: List[Dict[str, KVCache]]):
+                       caches: List[Dict[str, Any]]):
     """One-shot prompt consumption: right-padded tokens (B, S), real lengths
     (B,) -> (logits at each row's last real token (B, V) fp32, caches with
-    the prompts' K/V written in place). Padded keys are never attended
-    (causal), and padded slots keep pos -1."""
+    the prompts' K/V and recurrent states written in place). Padded keys are
+    never attended (causal), padded slots keep pos -1, and the recurrences
+    take identity steps there (a = 1, k = 0; the sLSTM state frozen)."""
     units = plan_scan_units(cfg.blocks)
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens)

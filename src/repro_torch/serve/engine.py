@@ -6,7 +6,8 @@ and drives them through admit -> prefill -> decode -> retire:
 * **admit/prefill**: queued requests fill free slots, and their prompts go
   through ONE forward pass (``prefill_with_cache``), right-padded to a
   power-of-two bucket, into a fresh cache that is merged into the live one
-  at the admitted slots only, so nothing of a slot's previous occupant
+  at the admitted slots only (every leaf of the cache tree: K/V, positions
+  and recurrent states), so nothing of a slot's previous occupant
   survives. The first token of each stream is sampled from the prefill
   logits on the device.
 * **decode**: chunks of ``drain_every`` decode steps stay on the device
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import ModelConfig, decode_step, init_serve_cache, prefill_with_cache
+from repro_torch.models.model import cache_leaves
 from repro_torch.serve.sampling import request_key_words, sample_tokens
 from repro_torch.serve.weights import materialize, prepare_params, weight_report
 
@@ -137,11 +139,11 @@ class ServeEngine:
         kw = self._dev(self.kw)
         first = sample_tokens(logits, kw, torch.zeros(B, dtype=torch.int64, device=self.device),
                               self._dev(self.temp), self._dev(self.topk))
+        # merge the fresh cache at the admitted slots: every stacked leaf
+        # (K/V, positions, recurrent states) along its batch axis, 1
         mask = self._dev(admit)
-        for live_unit, fresh_unit in zip(self.caches, fresh):
-            for sub, live_cache in live_unit.items():
-                for live, new in zip(live_cache, fresh_unit[sub]):
-                    live[:, mask] = new[:, mask]
+        for live, new in zip(cache_leaves(self.caches), cache_leaves(fresh)):
+            live[:, mask] = new[:, mask]
         return first
 
     def _admit_and_prefill(self) -> List[int]:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain torch versions: both passes
 of the fused 4-bit AdamW step (the rank-1 stats pass and the update pass),
 the block-wise 4-bit quantize / dequantize kernels and a short q4 serving
-run.
+run; and the recurrences of the xLSTM and hymba blocks (``gla_chunked``,
+``slstm_scan``, a reduced recurrent arch's training step and serving) on
+the card against the same functions on the CPU.
 
 Needs an NVIDIA card (the kernel has no CPU mode), so every test here is
 marked ``cuda`` and skips without one. It imports torch and the port only,
@@ -664,3 +666,113 @@ def test_leafwise_compressed_keeps_kernel_leaves_bit_equal(cuda):
     assert torch.equal(inner2.v[w1].codes, want[2].codes)
     for a, b in zip(inner2.v[w1].scales, want[2].scales):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences and recurrent blocks (plain torch ops) on the card
+# ---------------------------------------------------------------------------
+
+
+def _rel(a, b):
+    a, b = a.cpu().double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+def test_gla_chunked_on_card_matches_cpu(cuda, normalize):
+    """gla_chunked (S not a whole number of chunks, from an init state) and
+    three decode steps after it, card against CPU: fp32 within 1e-5 of the
+    output's scale (einsums sum in other orders)."""
+    from repro_torch.models.gla import GLAState, gla_chunked, gla_decode_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    B, S, H, dk, dv = 2, 37, 3, 16, 32
+    q, k = torch.randn(B, S, H, dk, generator=g), torch.randn(B, S, H, dk, generator=g) * 0.3
+    v = torch.randn(B, S, H, dv, generator=g)
+    log_a = -torch.rand(B, S, H, generator=g) * 0.2
+    st = GLAState(torch.randn(B, H, dk, dv, generator=g), torch.randn(B, H, dk, generator=g))
+    outs = {}
+    for dev in ("cpu", cuda):
+        to = lambda t: t.to(dev)  # noqa: E731
+        y, s = gla_chunked(to(q[:, :34]), to(k[:, :34]), to(v[:, :34]), to(log_a[:, :34]),
+                           chunk=16, normalize=normalize, init_state=GLAState(*map(to, st)))
+        ys = [y]
+        for t in range(34, S):
+            yt, s = gla_decode_step(*(to(x[:, t:t + 1]) for x in (q, k, v, log_a)), s,
+                                    normalize=normalize)
+            ys.append(yt)
+        outs[str(dev)] = (torch.cat(ys, dim=1), s)
+    (yc, sc), (yg, sg) = outs["cpu"], outs[str(cuda)]
+    assert _rel(yg, yc) <= 1e-5
+    for a, b in zip(sg, sc):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_slstm_scan_on_card_matches_cpu(cuda, masked):
+    """slstm_scan from bf16 gate inputs, card against CPU: h within one bf16
+    rounding, the fp32 state within 1e-5 of its scale; masked rows frozen
+    alike."""
+    from repro_torch.models.gla import slstm_scan
+
+    g = torch.Generator().manual_seed(6)
+    B, S, H, dh = 3, 13, 4, 16
+    gates = torch.randn(B, S, 4, H * dh, generator=g).to(torch.bfloat16)
+    r = torch.randn(H, 4, dh, dh, generator=g) * 0.3
+    mask = torch.arange(S)[None, :] < torch.tensor([13, 7, 1])[:, None] if masked else None
+    hc, sc = slstm_scan(gates, r, H, step_mask=mask)
+    hg, sg = slstm_scan(gates.to(cuda), r.to(cuda), H,
+                        step_mask=None if mask is None else mask.to(cuda))
+    assert float((hg.cpu().float() - hc.float()).abs().max()) <= 2.0 ** -7
+    for a, b in zip(sg, sc):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
+def test_recurrent_arch_step_on_card_matches_cpu(cuda, arch):
+    """One training step's loss and gradients of each reduced recurrent arch
+    (mLSTM, sLSTM, hymba blocks), then a batched prefill and three decode
+    steps, card against CPU from the same weights: loss within 3e-4
+    relative, gradients within 3e-2 relative L2, logits within 2e-2 (bf16
+    products sum in other orders)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import load_params
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import (decode_step, init_model, init_serve_cache, loss_fn,
+                                    named_params, prefill_with_cache)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    cpu_model = init_model(cfg, seed=0, device="cpu")
+    card_model = init_model(cfg, device="meta").to_empty(device=cuda)
+    load_params(card_model, {k: p.detach() for k, p in named_params(cpu_model).items()})
+    b = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4)).batch_at(0)
+    losses = {}
+    for tag, model, dev in (("cpu", cpu_model, "cpu"), ("card", card_model, cuda)):
+        loss, _ = loss_fn(model, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        loss.backward()
+        losses[tag] = float(loss.detach())
+    assert abs(losses["card"] - losses["cpu"]) <= 3e-4 * abs(losses["cpu"])
+    card_p = named_params(card_model)
+    for k, p in named_params(cpu_model).items():
+        err = float((card_p[k].grad.cpu() - p.grad).norm() / p.grad.norm().clamp_min(1e-12))
+        assert err < 3e-2, (k, err)
+    toks = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12, 13], [9, 10, 0, 0, 0, 0, 0, 0, 0]])
+    lens = torch.tensor([9, 2])
+    logits = {}
+    with torch.no_grad():
+        for tag, model, dev in (("cpu", cpu_model, "cpu"), ("card", card_model, cuda)):
+            params = {k: p.detach() for k, p in named_params(model).items()}
+            c = init_serve_cache(cfg, 2, 256, device=dev)
+            lg, c = prefill_with_cache(params, cfg, toks.to(dev), lens.to(dev), c)
+            out = [lg.cpu()]
+            tok = torch.tensor([3, 4], device=dev)
+            for t in range(3):
+                lg, c = decode_step(params, cfg, c, tok, lens.to(dev) + t)
+                out.append(lg.cpu())
+            logits[tag] = torch.stack(out)
+    assert float((logits["card"] - logits["cpu"]).abs().max()) < 2e-2

@@ -11,6 +11,7 @@ and the kernel-eligible ``KERNEL_CFG`` (d_ff 256) of
 ``tests/test_checkpoint_roundtrip.py``.
 """
 
+import dataclasses
 import filecmp
 import json
 import os
@@ -249,18 +250,38 @@ def test_port_checkpoint_restores_in_jax(name, ov, tmp_path):
     assert_leaves_equal(jax_leaves(restored), port_leaves(state), "port -> JAX @3")
 
 
+# hymba at reduced width with the full config's layout of scan units, five
+# runs ([global], 2 windowed, [global], [windowed], [global]; the full one
+# has 14 and 15 windowed layers in its runs)
+HYMBA_UNITS = (0, 16, 16, 0, 16, 0)
+
+
+def _io_configs(arch):
+    jcfg, cfg = j_reduced(arch), reduced_config(arch)
+    if arch == "hymba-1.5b":
+        L = len(HYMBA_UNITS)
+        jcfg = dataclasses.replace(jcfg, num_layers=L,
+                                   blocks=tuple(JLayerSpec("hymba", w) for w in HYMBA_UNITS))
+        cfg = dataclasses.replace(cfg, num_layers=L,
+                                  blocks=tuple(LayerSpec("hymba", w) for w in HYMBA_UNITS))
+    return jcfg, cfg
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "phi3.5-moe-42b-a6.6b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "xlstm-125m", "hymba-1.5b"])
 def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
     """Reduced gemma2-2b (two subs, tied embeddings: no head, 4-bit
     sandwich-norm scales), qwen3-4b (qk-norm leaves), phi3.5-moe and
     mixtral (``moe/router``, ``moe/w1``-``w3`` leaves, the expert stacks'
-    4-bit moments with one rank-1 stat per dim), production4bit with an SR
+    4-bit moments with one rank-1 stat per dim), xlstm-125m (two units, the
+    mLSTM's and the sLSTM's leaves, the 5-D ``r_gates``), hymba-1.5b
+    (``HYMBA_UNITS``: five units of runs, the SSM leaves), production4bit
+    with an SR
     key: from the same params the port writes the reference's files
     byte for byte; the reference trains 2 steps and saves, the port
     restores it bit-equal, trains 2 more and saves, and the reference
     restores that bit-equal."""
-    jcfg, cfg = j_reduced(arch), reduced_config(arch)
+    jcfg, cfg = _io_configs(arch)
     jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
     jopt = j_make("production4bit", 3e-3)
     jstate = j_make_state(jparams, jopt, key=jax.random.PRNGKey(17))
@@ -275,6 +296,9 @@ def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
     assert any("'head'" in k for k in keys) == (arch != "gemma2-2b")
     assert any("'moe'" in k and "'router'" in k for k in keys) == ("moe" in arch
                                                                    or "mixtral" in arch)
+    if arch == "hymba-1.5b":
+        units = {k.split("['decoder']")[1].split("]")[0] for k in keys if "['decoder']" in k}
+        assert units == {f"[{u}" for u in range(5)}, units
 
     data = (SyntheticLM(DataConfig(512, 16, 4)), JSyntheticLM(JDataConfig(512, 16, 4)))
     jstep = jax.jit(j_build(jcfg, jopt))
