@@ -196,10 +196,49 @@ Phases, each failing the run on error:
     width and depth with fp32 compute on both paths within 1e-3 (they then
     differ only in the order they sum in), and with bf16 compute within
     ``ORACLE_BF16_ATOL`` (the two paths' bf16 roundings part, more with
-    depth).
+    depth);
+29. hold both B1 passes against their plain versions, RTN and SR, at the
+    fused leaves of whisper-large-v3 (encoder ``attn/wo``, decoder
+    ``self/wo`` and ``cross/wo`` (32, 20, 64, 1280), ``mlp/w1`` (32, 1280,
+    5120) and ``mlp/w2`` (32, 5120, 1280) of both stacks) and qwen2-vl-2b
+    (``attn/wo`` (28, 12, 128, 1536), ``mlp/w1``/``w3`` (28, 1536, 8960),
+    ``mlp/w2`` (28, 8960, 1536)) at full depth; time both passes against
+    their bounds and sum each arch's step;
+30. drive both through the library's training path (``build_train_step``;
+    the CLIs refuse the modality-stub archs, as the reference's do) at full
+    width and depth, production4bit with SR seed 0, 5 steps, counts set to
+    0 just before and read just after: whisper at batch 2 of 1,500 frames
+    (its 30-s encoder window, from a seeded torch generator) and 448 tokens,
+    qwen2-vl at batch 4 x 1,024 with one image (64 text positions, a 16 x 16
+    grid of patch embeddings with M-RoPE positions t = 64, h = 64 + row, w =
+    64 + col, then text from 80 on); tokens and labels from the data
+    pipeline. Check state bytes (the reference's counts), 7 / 4 launches of
+    each B1 pass a step, none of B2/B3, losses finite and falling; report
+    step ms split into model and optimizer, peak memory;
+31. card against CPU on each one's reduced config (2 encoder layers, M-RoPE
+    sections (4, 2, 2)), 3 production4bit SR steps from the same weights,
+    losses within 3e-4 relative and a gap the steps open five times over;
+32. hold B2 and B3 bit-equal to their plain versions at every q4 leaf view
+    of both full trees (27 and 10 leaves, every one with a view: whisper's
+    stacked LayerNorm scales and biases (32, 1280) among them), timed; then
+    serve each with q4 weights at full size through the library: whisper
+    encodes 4 x 1,500 frames once and decodes 64 greedy tokens of 4 rows
+    over a 448-position cache (every step projects the cross K/V of all
+    1,500 frames again, as the reference does); qwen2-vl prefills the 4 x
+    1,024 image prompt and decodes 64 greedy steps over a 1,024-position
+    cache. Check weight bytes (the reference's), one B2 launch per q4
+    leaf, B3 per leaf and materialize, no B1, finite logits; report the
+    encode / prefill ms, the decode step and peak memory;
+33. the reference's decode parity checks on the card: teacher-forced
+    logits against a token-by-token decode (whisper with ``enc_out``,
+    qwen2-vl with embeds equal to the tokens' embedding rows), at the
+    reduced configs within the reference's 2e-2, at full width and depth
+    with fp32 compute within 1e-3 and with bf16 compute within
+    ``STUB_BF16_ATOL``.
 
-The kernel table's launch counts sum the path runs (phases 6, 15, 21 and
-25 for B1; 8, 17, 23 and 27 for B2/B3), each counted from 0 just before it.
+The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25
+and 30 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0 just
+before it.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. Needs a CUDA card and the repository beside it; without either it
@@ -413,6 +452,43 @@ RECURRENT_SERVE = {
 ORACLE_LENGTHS, ORACLE_S_MAX, ORACLE_ATOL = (150, 41), 256, 5e-2
 ORACLE_FP32_ATOL = 1e-3
 ORACLE_BF16_ATOL = {XLSTM: 0.1, HYMBA: 0.5}
+# phases 29-33 (slice 10): whisper-large-v3 (encoder-decoder: 32 + 32 layers,
+# LayerNorm, sinusoidal positions, cross-attention) and qwen2-vl-2b (embeds
+# input, M-RoPE), through the library entry points (the CLIs refuse them, as
+# the reference's do). Phase 29: their fused leaves at full depth
+WHISPER, QWEN2VL = "whisper-large-v3", "qwen2-vl-2b"
+STUB_LEAF_SHAPES = (
+    (WHISPER, "attn/wo, self/wo, cross/wo", (32, 20, 64, 1280), 3),
+    (WHISPER, "mlp/w1", (32, 1280, 5120), 2),
+    (WHISPER, "mlp/w2", (32, 5120, 1280), 2),
+    (QWEN2VL, "attn/wo", (28, 12, 128, 1536), 1),
+    (QWEN2VL, "mlp/w1,w3", (28, 1536, 8960), 2),
+    (QWEN2VL, "mlp/w2", (28, 8960, 1536), 1),
+)
+# whisper's 30-s encoder window and its decoder's positions; qwen2-vl's
+# prompt: VL_TEXT text tokens, one 448 x 448 image as a VL_GRID x VL_GRID
+# grid of merged patches, then text
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+VL_SEQ, VL_TEXT, VL_GRID = 1024, 64, (16, 16)
+# phase 30: arch -> (B1 leaves a step, state bytes: the reference's
+# eval_shape count (tests/test_torch_stub_optim.py), batch, decoder length)
+STUB_TRAIN = {
+    WHISPER: (7, 2_048_477_144, 2, WHISPER_TOKENS),
+    QWEN2VL: (4, 3_218_982_808, 4, VL_SEQ),
+}
+# phase 32: as RECURRENT_SERVE (the reference's weight_report); 4 rows
+STUB_SERVE = {
+    WHISPER: (815_385_360, 27, None, 27),
+    QWEN2VL: (820_073_088, 10, None, 10),
+}
+STUB_ROWS = 4
+# phase 33: rows and tokens of the teacher-forced check, the reference's
+# tolerance (test_encdec_decode_parity, test_archs_smoke) at the reduced
+# configs, and the full-size bounds with bf16 compute: about twice the
+# readings of the first chip run on an H100 80GB HBM3 at 700 W (0.057 and
+# 0.090; fp32 compute read 6.2e-6 and 1.25e-5; PERF.md section 2)
+STUB_ORACLE_ROWS, STUB_ORACLE_TOKENS, STUB_ORACLE_ATOL = 2, 16, 2e-2
+STUB_BF16_ATOL = {WHISPER: 0.12, QWEN2VL: 0.18}
 
 
 def fail(msg: str) -> None:
@@ -1531,7 +1607,8 @@ def _small_pair(name, lr, mode, seed, dev, arch="internlm2-1.8b", routes=None):
     dev_model = init_model(cfg, device="meta").to_empty(device=dev)
     load_params(dev_model, {k: p.detach() for k, p in named_params(cpu_model).items()})
     data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4))
-    cpu_batch = lambda t: {k: torch.from_numpy(v) for k, v in data.batch_at(t).items()}
+    cpu_batch = lambda t: {k: torch.from_numpy(v)
+                           for k, v in _with_stub_inputs(cfg, data.batch_at(t), t).items()}
     with torch.no_grad():
         still = [float(loss_fn(cpu_model, cpu_batch(t))[0]) for t in range(3)]
     losses, codes = {}, {}
@@ -2287,6 +2364,363 @@ def phase_prefill_oracle(dev, archs=(XLSTM, HYMBA)):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: whisper-large-v3, qwen2-vl-2b
+# ---------------------------------------------------------------------------
+
+
+def _vl_positions(B, S, text, grid, dev):
+    """(3, B, S) M-RoPE positions of Qwen2-VL's layout for text around one
+    image, the same in every row: ``text`` text tokens (t = h = w), a
+    ``grid`` of merged image patches (t = text, h = text + row, w = text +
+    col), then text from ``text + max(grid)`` on, all three streams equal."""
+    import torch
+
+    gh, gw = grid
+    n = gh * gw
+    pos = torch.arange(S).repeat(3, 1)
+    idx = torch.arange(n)
+    pos[0, text:text + n] = text
+    pos[1, text:text + n] = text + idx // gw
+    pos[2, text:text + n] = text + idx % gw
+    pos[:, text + n:] = text + max(gh, gw) + torch.arange(S - text - n)
+    return pos[:, None].expand(3, B, S).contiguous().to(dev)
+
+
+def _with_stub_inputs(cfg, b, t):
+    """A numpy token batch with a modality-stub arch's inputs: whisper's
+    frames (a normal (B, S, D) from seed ``t``) beside the tokens; in place
+    of qwen2-vl's tokens, their rows of a fixed normal (V, D) table as
+    embeds (so the labels stay learnable) and M-RoPE positions
+    (``_vl_positions``, 4 text tokens around a 3 x 4 grid); other archs'
+    batches as they are."""
+    import numpy as np
+
+    if cfg.family != "encdec" and cfg.input_mode != "embeds":
+        return b
+    B, S = b["tokens"].shape
+    if cfg.family == "encdec":
+        x = np.random.default_rng(t).normal(size=(B, S, cfg.d_model)).astype(np.float32)
+        return dict(b, frames=x)
+    table = np.random.default_rng(0).normal(size=(cfg.vocab_size, cfg.d_model))
+    return {"embeds": table[b["tokens"]].astype(np.float32),
+            "positions": _vl_positions(B, S, 4, (3, 4), "cpu").numpy(), "labels": b["labels"]}
+
+
+def _stub_batch(cfg, embed, B, S, t, dev):
+    """Step ``t``'s batch of a modality-stub arch at full size, on the card:
+    tokens and labels from the data pipeline (``SyntheticLM``, seed 0);
+    whisper: WHISPER_FRAMES frames per row from a torch generator seeded
+    with ``t``; qwen2-vl: the tokens' bf16 rows of ``embed``, the image's
+    grid of positions replaced by patch embeddings from that generator
+    (their labels masked), and the image layout's M-RoPE positions."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(cfg.vocab_size, S, B)).batch_at(t)
+    tokens = torch.from_numpy(data["tokens"]).to(dev).long()
+    labels = torch.from_numpy(data["labels"]).to(dev).long()
+    g = torch.Generator(device=dev).manual_seed(1000 + t)
+    if cfg.family == "encdec":
+        frames = torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=g, device=dev)
+        return {"frames": frames.to(torch.bfloat16), "tokens": tokens, "labels": labels}
+    embeds = embed.detach().to(torch.bfloat16)[tokens]
+    img = slice(VL_TEXT, VL_TEXT + VL_GRID[0] * VL_GRID[1])
+    patches = torch.randn((B, img.stop - img.start, cfg.d_model), generator=g, device=dev)
+    embeds[:, img] = (patches * 0.02).to(torch.bfloat16)
+    labels[:, img] = -1
+    return {"embeds": embeds, "positions": _vl_positions(B, S, VL_TEXT, VL_GRID, dev),
+            "labels": labels}
+
+
+def phase_stub_train(counters, dev):
+    """Each modality-stub arch at full width and depth through the library's
+    training path (``init_model``, ``make_train_state``,
+    ``build_train_step``; the CLI refuses them, as the reference's does),
+    production4bit with SR seed 0, STEPS steps of ``_stub_batch``, counts
+    set to 0 just before and read just after: state bytes (the reference's
+    count), the B1 launches of each pass a step, none of B2/B3, losses
+    finite and falling; step ms split into model and optimizer, peak
+    memory."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizers import linear_warmup_linear_decay, state_nbytes
+    from repro_torch.kernels import sr
+    from repro_torch.launch import train
+    from repro_torch.models import init_model
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    out = {}
+    for arch, (fused, state_bytes, B, S) in STUB_TRAIN.items():
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms = [], []
+        _reset(counters)
+        with _StepSplit() as timer:
+            model = init_model(cfg, seed=0, device=dev)
+            # the CLI's optimizer and schedule (train.make_optimizer is the
+            # name _StepSplit times)
+            opt = train.make_optimizer("production4bit", linear_warmup_linear_decay(
+                1e-3, max(1, STEPS // 10), STEPS))
+            state = make_train_state(model, opt, key=sr.PRNGKey(0))
+            step = build_train_step(model, opt)
+            for t in range(STEPS):
+                batch = _stub_batch(cfg, model.embed, B, S, t, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))  # waits for the whole step
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                del batch, metrics
+        counts = _read(counters)
+        split = timer.split()
+        res = dict(batch=B, seq=S, frames=WHISPER_FRAMES if cfg.family == "encdec" else None,
+                   n_params=sum(p.numel() for p in state.params.values()),
+                   state_bytes=state_nbytes(state.opt_state), losses=losses, step_ms=step_ms,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev), launches=counts, split=split)
+        del model, opt, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        what = f"{arch} (library path, batch {B} x {S}" + (
+            f" + {WHISPER_FRAMES} frames)" if cfg.family == "encdec" else ", image layout)")
+        for i, (loss, ms, sp) in enumerate(zip(losses, step_ms, split)):
+            print(f"{what} step {i}: loss {loss:.4f}  {ms:.1f} ms (model {sp['model_ms']:.1f}, "
+                  f"optimizer {sp['optimizer_ms']:.1f} ms)")
+        res["step_ms_median"] = _median(step_ms[1:])
+        res["model_ms_median"] = _median([x["model_ms"] for x in split[1:]])
+        res["optimizer_ms_median"] = _median([x["optimizer_ms"] for x in split[1:]])
+        print(f"{what}: params {res['n_params']:,}, state_bytes {res['state_bytes']:,}, step "
+              f"{res['step_ms_median']:.1f} ms (median of steps 1-4; model "
+              f"{res['model_ms_median']:.1f}, optimizer {res['optimizer_ms_median']:.1f} ms), "
+              f"peak {res['peak_bytes']:,} B ({res['peak_bytes'] / 1e9:.2f} GB), launches {counts}")
+        _check_trains(res, what)
+        if res["state_bytes"] != state_bytes:
+            fail(f"{what}: state_bytes {res['state_bytes']:,} != {state_bytes:,}")
+        for name in ("fused_adamw4", "rank1_new_stats"):
+            if counts[name] != fused * STEPS:
+                fail(f"{what}: {name} launched {counts[name]} times, expected {fused} a step")
+        if counts["quantize_blockwise_4bit"] or counts["dequantize_blockwise_4bit"]:
+            fail(f"{what} launched the q4 kernels: {counts}")
+        out[arch] = res
+    return out
+
+
+def phase_stub_serve(counters, dev):
+    """Each modality-stub arch served with q4 weights at full width and depth
+    through the library (``prepare_params``, ``materialize``, ``encode`` /
+    ``prefill``, ``decode_step``; the engine refuses them, as the
+    reference's does), STUB_ROWS rows, counts set to 0 just before and read
+    just after. whisper: WHISPER_FRAMES frames per row encoded once, then
+    SERVE_NEW_TOKENS greedy ``decode_step(enc_out=)`` over a cache of
+    WHISPER_TOKENS positions (each step projects the cross K/V of all
+    frames again, as the reference does). qwen2-vl: ``prefill`` of the
+    VL_SEQ-position image prompt, then SERVE_NEW_TOKENS greedy steps over a
+    cache of VL_SEQ positions from position 0 (the reference carries no
+    embeds prompt into a decode cache). As the engine: one ``materialize``
+    (B3 per q4 leaf) for the encode or prefill and one per chunk of
+    SERVE_DRAIN steps, inside the CUDA events that time them. Checks weight
+    bytes and q4 leaves (the reference's ``weight_report``), one B2 launch
+    per q4 leaf, B3 per leaf and materialize, no B1, finite logits, tokens
+    in the vocabulary."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, encode, init_model, init_serve_cache, prefill
+    from repro_torch.models import named_params
+    from repro_torch.serve.weights import materialize, prepare_params, weight_report
+
+    out = {}
+    for arch, (q4_bytes, q4_leaves, _, kernel_leaves) in STUB_SERVE.items():
+        cfg = get_config(arch)
+        B, V = STUB_ROWS, cfg.vocab_size
+        model = init_model(cfg, seed=0, device=dev)
+        masters = {k: p.detach() for k, p in named_params(model).items()}
+        embed = masters["embed"]
+        shapes = {k: torch.empty(v.shape, device="meta") for k, v in masters.items()}
+        g = torch.Generator(device=dev).manual_seed(2000)
+        if cfg.family == "encdec":
+            prompt = {"frames": torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=g,
+                                            device=dev).to(torch.bfloat16)}
+        else:
+            prompt = _stub_batch(cfg, embed, B, VL_SEQ, 0, dev)
+            prompt.pop("labels")
+        del model, embed
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset(counters)
+        calls, chunk_ms, toks = 0, [], []
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.no_grad():
+            q4 = prepare_params(masters, "q4")
+            del masters
+            start.record()
+            params = materialize(q4)
+            calls += 1
+            if cfg.family == "encdec":
+                enc_out = encode(params, cfg, prompt["frames"])
+                tok = torch.randint(0, V, (B,), generator=g, device=dev)
+                s_max = WHISPER_TOKENS
+            else:
+                enc_out = None
+                tok = prefill(params, cfg, prompt).argmax(-1)
+                s_max = VL_SEQ
+            end.record()
+            end.synchronize()
+            first_ms = start.elapsed_time(end)
+            del params
+            caches = init_serve_cache(cfg, B, s_max, device=dev)
+            pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+            finite = torch.ones((), dtype=torch.bool, device=dev)
+            for _ in range(SERVE_NEW_TOKENS // SERVE_DRAIN):
+                start.record()
+                params = materialize(q4)
+                calls += 1
+                for _ in range(SERVE_DRAIN):
+                    logits, caches = decode_step(params, cfg, caches, tok, pos, enc_out=enc_out)
+                    finite &= torch.isfinite(logits).all()
+                    tok = logits.argmax(-1)
+                    toks.append(tok)
+                    pos = pos + 1
+                del params
+                end.record()
+                end.synchronize()
+                chunk_ms.append(start.elapsed_time(end))
+        counts = _read(counters)
+        toks = torch.stack(toks).cpu()
+        rep = weight_report(shapes, "q4")
+        with_view = sum(1 for q in q4.values() if hasattr(q, "codes") and _has_kernel_view(q.shape))
+        step_ms = sum(chunk_ms) / SERVE_NEW_TOKENS
+        what = (f"serve {arch} q4 ({cfg.num_layers} layers, {B} rows, "
+                + (f"{WHISPER_FRAMES} frames encoded" if enc_out is not None
+                   else f"prefill of {VL_SEQ} embeds") + ")")
+        # first_ms: the encode (whisper) or the prefill (qwen2-vl), with its materialize
+        row = dict(rows=B, weight_bytes=rep["total_serve_bytes"],
+                   quantized_leaves=rep["quantized_leaves"], n_leaves=rep["n_leaves"],
+                   kernel_leaves=with_view, launches=counts, materialize_calls=calls,
+                   first_ms=first_ms, decode_chunk_ms=chunk_ms, decode_ms_per_step=step_ms,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   tokens_row0=toks[:, 0].tolist())
+        print(f"{what}: {'encode' if enc_out is not None else 'prefill'} {first_ms:.1f} ms "
+              f"(with its materialize); {step_ms:.2f} ms per decode step of {B} rows (chunks "
+              f"{', '.join(f'{m:.1f}' for m in chunk_ms)} ms of {SERVE_DRAIN} steps with their "
+              f"materialize); weight bytes {rep['total_serve_bytes']:,} "
+              f"({rep['quantized_leaves']} of {rep['n_leaves']} leaves q4, {with_view} through "
+              f"B2/B3); peak {row['peak_bytes']:,} B ({row['peak_bytes'] / 1e9:.2f} GB); "
+              f"launches {counts}; row 0's first tokens {row['tokens_row0'][:8]}")
+        if rep["total_serve_bytes"] != q4_bytes or rep["quantized_leaves"] != q4_leaves:
+            fail(f"{what}: weight bytes {rep['total_serve_bytes']:,} ({rep['quantized_leaves']} "
+                 f"q4 leaves), expected {q4_bytes:,} ({q4_leaves})")
+        if with_view != kernel_leaves or counts["quantize_blockwise_4bit"] != kernel_leaves:
+            fail(f"{what}: {with_view} q4 leaves with a kernel view, B2 launched "
+                 f"{counts['quantize_blockwise_4bit']} times; expected {kernel_leaves}")
+        if counts["dequantize_blockwise_4bit"] != kernel_leaves * calls:
+            fail(f"{what}: B3 launched {counts['dequantize_blockwise_4bit']} times, expected "
+                 f"{kernel_leaves} x {calls}")
+        if counts["fused_adamw4"] or counts["rank1_new_stats"]:
+            fail(f"{what} launched the optimizer kernels: {counts}")
+        if not bool(finite) or not bool(((toks >= 0) & (toks < V)).all()):
+            fail(f"{what}: non-finite logits or tokens out of the vocabulary")
+        out[arch] = row
+        del q4, caches, enc_out, prompt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _teacher_forced_pair(model, cfg, dev, dtype, frames_len):
+    """The reference's decode parity checks (``test_encdec_decode_parity``,
+    ``test_archs_smoke``'s decode) on the card: STUB_ORACLE_TOKENS tokens
+    of STUB_ORACLE_ROWS rows teacher-forced through the whole forward
+    against a token-by-token ``decode_step``, computing in ``dtype`` (K/V
+    caches too). whisper: frames from a torch generator, the encoder run
+    once (``encode``) for the decode; qwen2-vl: ``embeds`` equal to the
+    tokens' embedding rows and the default (pure-text) positions. Returns
+    per token the largest |dlogit| of each row and the logits' scale."""
+    import torch
+
+    from repro_torch.models import decode_step, encode, forward_hidden, init_serve_cache
+    from repro_torch.models import named_params
+    from repro_torch.models.model import cache_map
+
+    B, S = STUB_ORACLE_ROWS, STUB_ORACLE_TOKENS
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    with torch.no_grad(), _compute_dtype(dtype):
+        params = {k: p.detach() for k, p in named_params(model).items()}
+        enc_out = None
+        if cfg.family == "encdec":
+            batch = {"frames": torch.randn((B, frames_len, cfg.d_model), generator=g,
+                                           device=dev),
+                     "tokens": tokens}
+            enc_out = encode(params, cfg, batch["frames"])
+        else:
+            batch = {"embeds": params["embed"].to(dtype)[tokens]}
+        x = forward_hidden(model, batch)
+        full = torch.einsum("bsd,dv->bsv", x.to(dtype), model.head_weight().to(dtype)).float()
+        caches = cache_map(lambda t: t.to(dtype) if t.dtype == torch.bfloat16 else t,
+                           init_serve_cache(cfg, B, 256, device=dev))
+        rows = []
+        for t in range(S):
+            logits, caches = decode_step(params, cfg, caches, tokens[:, t],
+                                         torch.full((B,), t, device=dev), enc_out=enc_out)
+            rows.append([float(d) for d in (logits - full[:, t]).abs().amax(dim=-1)])
+    return rows, float(full.abs().max())
+
+
+def phase_stub_oracle(dev):
+    """Teacher-forced logits against the token-by-token decode
+    (``_teacher_forced_pair``), random weights from seed 0, per
+    modality-stub arch: at the reduced config (bf16 compute, 20 frames)
+    within the reference's 2e-2; at full width and depth (WHISPER_FRAMES
+    frames) with fp32 compute within ORACLE_FP32_ATOL (the two paths then
+    differ in the order they sum in only) and with bf16 compute within
+    STUB_BF16_ATOL (their bf16 roundings part, more with depth)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init_model
+
+    out = {}
+    for arch in (WHISPER, QWEN2VL):
+        for size, cfg, frames in (("reduced", reduced_config(arch), 20),
+                                  ("full", get_config(arch), WHISPER_FRAMES)):
+            model = init_model(cfg, seed=0, device=dev)
+            runs = ((torch.bfloat16, STUB_ORACLE_ATOL),) if size == "reduced" else (
+                (torch.float32, ORACLE_FP32_ATOL), (torch.bfloat16, STUB_BF16_ATOL[arch]))
+            for dtype, atol in runs:
+                t0 = time.perf_counter()
+                rows, scale = _teacher_forced_pair(model, cfg, dev, dtype, frames)
+                secs = time.perf_counter() - t0
+                compute = str(dtype).removeprefix("torch.")
+                what = (f"{arch} {size} ({cfg.num_layers} layers, width {cfg.d_model}), "
+                        f"{compute} compute")
+                worst = max(x for r in rows for x in r)
+                print(f"teacher-forced vs token-by-token decode, {what}: max |dlogit| per token "
+                      f"(rows 0 / 1) {[[round(x, 6) for x in r] for r in rows]}; largest "
+                      f"{worst:.6g} (logits up to {scale:.6g}; bound {atol:g}); {secs:.1f} s")
+                if not all(math.isfinite(x) and x <= atol for r in rows for x in r):
+                    fail(f"{what}: teacher-forced logits against the decode: largest |dlogit| "
+                         f"{worst}, bound {atol:g}")
+                out[f"{arch}/{size}/{compute}"] = dict(
+                    layers=cfg.num_layers, atol=atol, max_dlogit_per_token=rows,
+                    max_dlogit=worst, logit_scale=scale, seconds=secs)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     # the caching allocator maps memory in growable segments, so the MoE
@@ -2353,12 +2787,20 @@ def main():
     rec_q4_leaves = phase_q4_arch_leaves(dev)
     rec_serve = phase_arch_serve(counters, RECURRENT_SERVE)
     rec_oracle = phase_prefill_oracle(dev)
+    stub_leaves, stub_b1 = phase_arch_leaves(dev, card_info, STUB_LEAF_SHAPES)
+    stub_train = phase_stub_train(counters, dev)
+    stub_small = phase_arch_small(dev, tuple(STUB_TRAIN))
+    stub_q4_leaves = phase_q4_arch_leaves(dev, STUB_SERVE)
+    stub_serve = phase_stub_serve(counters, dev)
+    stub_oracle = phase_stub_oracle(dev)
     # launches: every path run of the slices, each counted from 0 just before
-    # it and read just after (phases 6, 15, 21, 25 train; 8, 17, 23, 27 serve)
-    path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train)
+    # it and read just after (phases 6, 15, 21, 25, 30 train; 8, 17, 23, 27,
+    # 32 serve)
+    path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train,
+                                                      stub_train)
                               for r in t.values()]
     serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,
-                                                                    rec_serve)
+                                                                    rec_serve, stub_serve)
                                             for r in t.values()]
     launches = {k: sum(c[k] for c in path_counts) for k in ("fused_adamw4", "rank1_new_stats")}
     launches.update({k: sum(c[k] for c in serve_counts)
@@ -2444,7 +2886,13 @@ def main():
          "recurrent_train_split": {a: r["split"] for a, r in rec_train.items()},
          "recurrent_small": rec_small, "recurrent_q4_leaves": rec_q4_leaves,
          "recurrent_serve": rec_serve,
-         "prefill_oracle": rec_oracle, "path_launches": launches,
+         "prefill_oracle": rec_oracle, "stub_leaves": stub_leaves,
+         "stub_b1_per_step": stub_b1,
+         "stub_train": {a: {k: v for k, v in r.items() if k != "split"}
+                        for a, r in stub_train.items()},
+         "stub_train_split": {a: r["split"] for a, r in stub_train.items()},
+         "stub_small": stub_small, "stub_q4_leaves": stub_q4_leaves, "stub_serve": stub_serve,
+         "stub_oracle": stub_oracle, "path_launches": launches,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

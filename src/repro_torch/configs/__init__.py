@@ -1,8 +1,9 @@
-"""Architecture registry of the port (port of ``repro.configs`` for its
-dense decoders, internlm2-1.8b, qwen3-4b, chatglm3-6b, gemma2-2b, its MoE
-decoders, phi3.5-moe-42b-a6.6b and mixtral-8x7b, and its recurrent ones,
-xlstm-125m and hymba-1.5b) and the reduced CPU-scale config of the same
-family."""
+"""Architecture registry of the port (port of ``repro.configs``, all ten of
+its archs: the dense decoders internlm2-1.8b, qwen3-4b, chatglm3-6b,
+gemma2-2b, the MoE decoders phi3.5-moe-42b-a6.6b and mixtral-8x7b, the
+recurrent xlstm-125m and hymba-1.5b, and the modality-stub archs
+whisper-large-v3 (encoder-decoder) and qwen2-vl-2b (embeds input, M-RoPE))
+and the reduced CPU-scale config of the same family."""
 
 from __future__ import annotations
 
@@ -180,6 +181,55 @@ def hymba_1_5b() -> ModelConfig:
     )
 
 
+def whisper_large_v3() -> ModelConfig:
+    """whisper-large-v3 [arXiv:2212.04356]: 32 encoder + 32 decoder layers,
+    d_model=1280 20H d_ff=5120 vocab=51866, LayerNorm, ungated tanh-gelu
+    MLP, sinusoidal positions, tied embeddings; the conv audio frontend is a
+    stub: inputs are precomputed frames (B, frames, d_model)
+    (``repro/configs/whisper_large_v3.py``)."""
+    return ModelConfig(
+        name="whisper-large-v3",
+        num_layers=32,
+        d_model=1280,
+        num_heads=20,
+        num_kv_heads=20,
+        head_dim=64,
+        d_ff=5120,
+        vocab_size=51866,
+        family="encdec",
+        norm_type="layernorm",
+        rope_variant="none",
+        act="gelu",
+        gated_mlp=False,
+        tie_embeddings=True,
+        blocks=(LayerSpec("dec", 0),) * 32,
+        encoder_blocks=(LayerSpec("enc", 0),) * 32,
+    )
+
+
+def qwen2_vl_2b() -> ModelConfig:
+    """qwen2-vl-2b [arXiv:2409.12191]: 28L d_model=1536 12H (GQA kv=2)
+    d_ff=8960 vocab=151936; M-RoPE with (t, h, w) sections (16, 24, 24) over
+    head_dim=128, tied embeddings; the vision frontend is a stub: inputs are
+    patch embeddings (B, S, d_model) and 3-stream positions
+    (``repro/configs/qwen2_vl_2b.py``)."""
+    return ModelConfig(
+        name="qwen2-vl-2b",
+        num_layers=28,
+        d_model=1536,
+        num_heads=12,
+        num_kv_heads=2,
+        head_dim=128,
+        d_ff=8960,
+        vocab_size=151936,
+        rope_variant="mrope",
+        mrope_sections=(16, 24, 24),
+        input_mode="embeds",
+        tie_embeddings=True,
+        blocks=(LayerSpec("dense", 0),) * 28,
+    )
+
+
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "mixtral-8x7b": mixtral_8x7b,
@@ -187,7 +237,9 @@ ARCHS: Dict[str, Callable[[], ModelConfig]] = {
     "gemma2-2b": gemma2_2b,
     "qwen3-4b": qwen3_4b,
     "internlm2-1.8b": internlm2_1_8b,
+    "whisper-large-v3": whisper_large_v3,
     "xlstm-125m": xlstm_125m,
+    "qwen2-vl-2b": qwen2_vl_2b,
     "hymba-1.5b": hymba_1_5b,
 }
 
@@ -201,20 +253,21 @@ def get_config(name: str) -> ModelConfig:
 def reduced_config(name: str) -> ModelConfig:
     """Small same-family config for CPU runs (the reference's
     ``reduced_config``): <= 4 layers (windows cut to <= 16, so gemma2 keeps
-    its (16, 0) pattern), d_model 64, <= 4 heads of 16, d_ff 256
-    (kernel-eligible mlp and expert leaves), vocab 512, <= 4 experts in
-    groups of 64 tokens, ssm_state <= 8, GLA chunks of 16; every feature
-    flag kept."""
+    its (16, 0) pattern) and <= 2 encoder layers, d_model 64, <= 4 heads of
+    16, d_ff 256 (kernel-eligible mlp and expert leaves), vocab 512, <= 4
+    experts in groups of 64 tokens, ssm_state <= 8, GLA chunks of 16, M-RoPE
+    sections (4, 2, 2); every feature flag kept."""
     cfg = get_config(name)
     L = min(cfg.num_layers, 4)
     blocks = tuple(LayerSpec(b.kind, min(b.window, 16) if b.window else 0) for b in cfg.blocks[:L])
+    enc_blocks = tuple(LayerSpec(b.kind, 0) for b in cfg.encoder_blocks[:2])
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
         kv -= 1
     return dataclasses.replace(
-        cfg, num_layers=L, blocks=blocks, d_model=64, num_heads=heads, num_kv_heads=kv,
-        head_dim=16, d_ff=256 if cfg.d_ff else 0, vocab_size=512,
-        num_experts=min(cfg.num_experts, 4), moe_group_size=64,
-        ssm_state=min(cfg.ssm_state, 8), gla_chunk=16,
+        cfg, num_layers=L, blocks=blocks, encoder_blocks=enc_blocks, d_model=64,
+        num_heads=heads, num_kv_heads=kv, head_dim=16, d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512, num_experts=min(cfg.num_experts, 4), moe_group_size=64,
+        ssm_state=min(cfg.ssm_state, 8), gla_chunk=16, mrope_sections=(4, 2, 2),
     )

@@ -11,6 +11,9 @@ the reference's, plus ``--reduced``, ``--device`` and ``--s-max`` (the
 cache's slots per sequence). Each request's prompt is ``[1 + i, 2 + i]``, as
 in the reference; ``main`` also takes a list of ``Request``s to serve
 instead, and returns its results (tokens, times, weight bytes, peak memory).
+It serves token decoders only: whisper-large-v3 and qwen2-vl-2b are refused,
+as the reference's CLI refuses them (they serve through ``models.prefill``
+and ``models.decode_step``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ def main(argv: Optional[List[str]] = None, requests: Optional[List[Request]] = N
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family == "encdec" or cfg.input_mode == "embeds":
+        raise SystemExit(f"{args.arch}: token-decoder archs only in this CLI")
     model = init_model(cfg, seed=0, device=device)
     masters = {k: p.detach() for k, p in named_params(model).items()}
     del model

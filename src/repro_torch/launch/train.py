@@ -7,7 +7,9 @@ Port of ``repro/launch/train.py`` for one device:
 
 runs on ``cuda`` (``--device cpu --reduced`` runs the same path at CPU
 scale). The flags are the reference's; ``--mesh`` is not ported yet and is
-refused. ``--grad-comm {fp32,bf16,int8,int4}`` applies the gradient wire
+refused. The modality-stub archs (whisper-large-v3, qwen2-vl-2b) are
+refused, as the reference's CLI refuses them: they train through the
+library (``train_loop.build_train_step``). ``--grad-comm {fp32,bf16,int8,int4}`` applies the gradient wire
 format on the one device (int8/int4: block-quantized transport with
 stochastic rounding keyed off the ``--sr-seed`` stream).
 
@@ -123,6 +125,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.input_mode == "embeds" or cfg.family == "encdec":
+        raise SystemExit(f"{args.arch}: modality-stub arch — use examples/ or the dry-run")
     overrides = {k: _parse_value(v) for k, _, v in (kv.partition("=") for kv in args.opt_arg)}
     opt = make_optimizer(
         args.optimizer,

@@ -1,4 +1,4 @@
-"""Decoder models of the port (port of ``repro.models``)."""
+"""Models of the port (port of ``repro.models``)."""
 
 from repro_torch.models.blocks import LayerSpec
 from repro_torch.models.model import (
@@ -6,6 +6,7 @@ from repro_torch.models.model import (
     ScanUnit,
     Transformer,
     decode_step,
+    encode,
     forward_hidden,
     init_model,
     init_serve_cache,
@@ -28,6 +29,7 @@ __all__ = [
     "named_params",
     "init_serve_cache",
     "decode_step",
+    "encode",
     "prefill",
     "prefill_with_cache",
 ]

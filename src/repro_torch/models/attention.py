@@ -1,11 +1,15 @@
 """Attention with GQA: training attention, and the serving KV cache with
 one-query decode attention (port of ``repro/models/attention.py``).
 
-``train_attention``: the reference runs an online-softmax scan over (q-chunk, k-chunk) pairs in
-fp32; at the slice's sequence lengths (one chunk) that is exactly the
-plain masked softmax written here: ``exp(s - max) @ v / sum``, fp32 inside,
-output in the input dtype. q heads are grouped per kv head, as in the
-reference (head ``h`` reads kv head ``h // G``).
+``train_attention``: the reference runs an online-softmax scan over
+(q-chunk, k-chunk) pairs in fp32 (k-chunks of ``attn_k_chunk`` = 1024, so
+whisper's 1500 encoder frames take two); the port computes the one masked
+softmax over all keys, ``exp(s - max) @ v / sum``, fp32 inside, output in
+the input dtype. The two differ by fp32 rounding only (the online softmax
+rescales its partial sums per chunk). Self-attention is causal; cross- and
+encoder attention (``causal=False``) may have ``Sq != Sk``. q heads are
+grouped per kv head, as in the reference (head ``h`` reads kv head
+``h // G``).
 
 Serving: ``KVCache`` is the reference's circular cache; ``cache_prefill``
 writes a whole right-padded prompt batch at once (a gather), and

@@ -1,8 +1,9 @@
-"""The block kinds of the decoders: dense and MoE transformer blocks
-(attention + (gated) MLP or a mixture of experts, pre-norm, with the
-reference's options: q/k RMS norm, 2-D RoPE, attention softcap, sandwich
-norms, gelu), the xLSTM mLSTM and sLSTM blocks, and hymba's block of
-attention and SSM heads in parallel.
+"""The block kinds: dense and MoE transformer blocks (attention + (gated)
+MLP or a mixture of experts, pre-norm, with the reference's options: q/k
+RMS norm, 2-D RoPE or M-RoPE, attention softcap, sandwich norms, gelu), the
+xLSTM mLSTM and sLSTM blocks, hymba's block of attention and SSM heads in
+parallel, and whisper's encoder and decoder blocks (LayerNorm, ungated
+gelu MLP; the decoder's cross-attention over the encoder's output).
 
 Port of ``repro/models/blocks.py`` (``LayerSpec``, ``apply_attention`` with
 its three cache regimes, ``apply_mlp``, the block kinds and their decode
@@ -10,12 +11,13 @@ caches). A ``*Stack`` holds the parameters of ``L`` identical layers
 stacked on a leading dim, in the reference's layout and under its names
 (``attn/wq`` ``(L, D, H, dh)``, ``mlp/w1`` ``(L, D, F)``, ``moe/w1`` ``(L,
 E, D, F)``, mLSTM ``wq`` ``(L, D, H, D//H)``, sLSTM ``r_gates`` ``(L, H, 4,
-dh, dh)``, hymba ``ssm_B`` ``(L, D, H, ssm_state)``, ``norm1`` ``(L, D)``,
-...), so the optimizer sees the reference's leaves; training and serving
-both walk the layers through ``unstack``. Attention writes its K/V cache
-in place; the recurrent kinds (``RECURRENT``: mLSTM, sLSTM, hymba's SSM
-heads) return their new state beside ``x``, and the caller writes it back
-into its cache.
+dh, dh)``, hymba ``ssm_B`` ``(L, D, H, ssm_state)``, ``norm1`` ``(L, D)``
+or, under ``norm_type="layernorm"``, ``norm1/scale`` and ``norm1/bias``,
+the decoder block's ``self/wq`` and ``cross/wq``, ...), so the optimizer
+sees the reference's leaves; training and serving both walk the layers
+through ``unstack``. Attention writes its K/V cache in place; the
+recurrent kinds (``RECURRENT``: mLSTM, sLSTM, hymba's SSM heads) return
+their new state beside ``x``, and the caller writes it back into its cache.
 """
 
 from __future__ import annotations
@@ -31,18 +33,27 @@ import torch.nn.functional as F
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import gla as gla_lib
 from repro_torch.models.gla import GLAState, slstm_initial_state
-from repro_torch.models.layers import COMPUTE_DTYPE, dense, rmsnorm, rope, rope_half
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
+    dense,
+    layernorm,
+    mrope,
+    rmsnorm,
+    rope,
+    rope_half,
+)
 from repro_torch.models.moe import moe_apply
 
 __all__ = ["LayerSpec", "DenseStack", "MoEStack", "MLSTMStack", "SLSTMStack", "HymbaStack",
-           "STACKS", "RECURRENT", "unstack", "apply_attention", "apply_mlp", "apply_dense",
-           "apply_moe", "apply_mlstm", "apply_slstm", "apply_hymba", "slstm_ff",
+           "EncStack", "DecStack", "STACKS", "RECURRENT", "unstack", "norm_params",
+           "norm_apply", "apply_attention", "apply_mlp", "apply_dense", "apply_moe",
+           "apply_mlstm", "apply_slstm", "apply_hymba", "apply_enc", "apply_dec", "slstm_ff",
            "init_block_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str = "dense"
+    kind: str = "dense"  # dense | moe | mlstm | slstm | hymba | enc | dec
     window: int = 0  # 0 = full attention; >0 = sliding window
 
 
@@ -50,7 +61,22 @@ def _stacked(L, shape, device):
     return nn.Parameter(torch.empty((L,) + tuple(shape), dtype=torch.float32, device=device))
 
 
-def _attention_params(cfg, L: int, device) -> nn.ParameterDict:
+def norm_params(cfg, device, L: Optional[int] = None):
+    """A norm's parameters, stacked over ``L`` layers (``None``: one norm):
+    the RMS norm's scale, or LayerNorm's ``{scale, bias}``."""
+    lead = () if L is None else (L,)
+    make = lambda: nn.Parameter(torch.empty(lead + (cfg.d_model,), dtype=torch.float32,
+                                            device=device))
+    if cfg.norm_type == "layernorm":
+        return nn.ParameterDict({"scale": make(), "bias": make()})
+    return make()
+
+
+def norm_apply(cfg, x: torch.Tensor, p) -> torch.Tensor:
+    return layernorm(x, p) if cfg.norm_type == "layernorm" else rmsnorm(x, p)
+
+
+def _attention_params(cfg, L: int, device, cross: bool = False) -> nn.ParameterDict:
     D, Hq, Hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = {
         "wq": _stacked(L, (D, Hq, dh), device),
@@ -58,21 +84,13 @@ def _attention_params(cfg, L: int, device) -> nn.ParameterDict:
         "wv": _stacked(L, (D, Hkv, dh), device),
         "wo": _stacked(L, (Hq, dh, D), device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         attn["q_norm"] = _stacked(L, (dh,), device)
         attn["k_norm"] = _stacked(L, (dh,), device)
     return nn.ParameterDict(attn)
 
 
-class _Stack(nn.Module):
-    def layers(self):
-        """Per-layer parameter dicts (views of the stacked tensors)."""
-        tree = {name: dict(m) for name, m in self.named_children()}
-        tree.update((k, p) for k, p in self.named_parameters(recurse=False))
-        return unstack(tree, self.L)
-
-
-class DenseStack(_Stack):
+class DenseStack(nn.Module):
     """Parameters of ``L`` dense layers, stacked (one scan unit)."""
 
     def __init__(self, cfg, L: int, device):
@@ -83,15 +101,14 @@ class DenseStack(_Stack):
         if cfg.gated_mlp:
             mlp["w3"] = _stacked(L, (D, Ff), device)
         self.mlp = nn.ParameterDict(mlp)
-        self.norm1 = _stacked(L, (D,), device)
-        self.norm2 = _stacked(L, (D,), device)
+        self.norm1 = norm_params(cfg, device, L)
+        self.norm2 = norm_params(cfg, device, L)
         if cfg.sandwich_norm:
-            self.post1 = _stacked(L, (D,), device)
-            self.post2 = _stacked(L, (D,), device)
-        self.L = L
+            self.post1 = norm_params(cfg, device, L)
+            self.post2 = norm_params(cfg, device, L)
 
 
-class MoEStack(_Stack):
+class MoEStack(nn.Module):
     """Parameters of ``L`` MoE layers, stacked (one scan unit): attention,
     ``moe/router (L, D, E)``, ``moe/w1``, ``moe/w3 (L, E, D, F)``, ``moe/w2
     (L, E, F, D)``, ``norm1``, ``norm2``."""
@@ -106,12 +123,11 @@ class MoEStack(_Stack):
             "w3": _stacked(L, (E, D, Ff), device),
             "w2": _stacked(L, (E, Ff, D), device),
         })
-        self.norm1 = _stacked(L, (D,), device)
-        self.norm2 = _stacked(L, (D,), device)
-        self.L = L
+        self.norm1 = norm_params(cfg, device, L)
+        self.norm2 = norm_params(cfg, device, L)
 
 
-class MLSTMStack(_Stack):
+class MLSTMStack(nn.Module):
     """Parameters of ``L`` mLSTM layers, stacked: ``w_in (L, D, 2D)``,
     ``wq``/``wk``/``wv`` ``(L, D, H, D//H)``, ``w_if (L, D, 2H)``, ``b_if (L,
     2H)``, ``w_out (L, D, D)``, ``norm (L, D)``."""
@@ -126,8 +142,7 @@ class MLSTMStack(_Stack):
         self.w_if = _stacked(L, (D, 2 * H), device)
         self.b_if = _stacked(L, (2 * H,), device)
         self.w_out = _stacked(L, (D, D), device)
-        self.norm = _stacked(L, (D,), device)
-        self.L = L
+        self.norm = norm_params(cfg, device, L)
 
 
 def slstm_ff(d_model: int) -> int:
@@ -136,7 +151,7 @@ def slstm_ff(d_model: int) -> int:
     return max(int(round(4 * d_model / 3 / 128)) * 128, 128)
 
 
-class SLSTMStack(_Stack):
+class SLSTMStack(nn.Module):
     """Parameters of ``L`` sLSTM layers, stacked: ``w_gates (L, D, 4, D)``,
     ``r_gates (L, H, 4, dh, dh)``, ``w_out (L, D, D)``, ``mlp/w1``-``w3``
     (``slstm_ff`` wide), ``norm1``, ``norm2``."""
@@ -151,12 +166,11 @@ class SLSTMStack(_Stack):
         self.mlp = nn.ParameterDict({"w1": _stacked(L, (D, Ff), device),
                                      "w2": _stacked(L, (Ff, D), device),
                                      "w3": _stacked(L, (D, Ff), device)})
-        self.norm1 = _stacked(L, (D,), device)
-        self.norm2 = _stacked(L, (D,), device)
-        self.L = L
+        self.norm1 = norm_params(cfg, device, L)
+        self.norm2 = norm_params(cfg, device, L)
 
 
-class HymbaStack(_Stack):
+class HymbaStack(nn.Module):
     """Parameters of ``L`` hymba layers, stacked: attention, the (gated) MLP,
     ``norm1``, ``norm2``, and the SSM heads: ``ssm_in (L, D, 2D)``, ``ssm_dt
     (L, D, H)``, ``ssm_dt_bias``, ``ssm_A_log``, ``ssm_D`` ``(L, H)``,
@@ -171,8 +185,8 @@ class HymbaStack(_Stack):
         if cfg.gated_mlp:
             mlp["w3"] = _stacked(L, (D, Ff), device)
         self.mlp = nn.ParameterDict(mlp)
-        self.norm1 = _stacked(L, (D,), device)
-        self.norm2 = _stacked(L, (D,), device)
+        self.norm1 = norm_params(cfg, device, L)
+        self.norm2 = norm_params(cfg, device, L)
         self.ssm_in = _stacked(L, (D, 2 * D), device)
         self.ssm_dt = _stacked(L, (D, H), device)
         self.ssm_dt_bias = _stacked(L, (H,), device)
@@ -183,12 +197,44 @@ class HymbaStack(_Stack):
         self.ssm_out = _stacked(L, (D, D), device)
         self.scale_attn = _stacked(L, (D,), device)
         self.scale_ssm = _stacked(L, (D,), device)
-        self.L = L
 
 
-# the parameter stack of each block kind the port runs
+def _ungated_mlp(cfg, L: int, device) -> nn.ParameterDict:
+    D, Ff = cfg.d_model, cfg.d_ff
+    return nn.ParameterDict({"w1": _stacked(L, (D, Ff), device), "w2": _stacked(L, (Ff, D), device)})
+
+
+class EncStack(nn.Module):
+    """Parameters of ``L`` whisper encoder layers, stacked: ``attn``, the
+    ungated ``mlp`` (``w1 (L, D, F)``, ``w2 (L, F, D)``), ``norm1``,
+    ``norm2``."""
+
+    def __init__(self, cfg, L: int, device):
+        super().__init__()
+        self.attn = _attention_params(cfg, L, device)
+        self.mlp = _ungated_mlp(cfg, L, device)
+        self.norm1 = norm_params(cfg, device, L)
+        self.norm2 = norm_params(cfg, device, L)
+
+
+class DecStack(nn.Module):
+    """Parameters of ``L`` whisper decoder layers, stacked: ``self`` and
+    ``cross`` attention (no q/k norms on ``cross``), the ungated ``mlp``,
+    ``norm1``-``norm3``."""
+
+    def __init__(self, cfg, L: int, device):
+        super().__init__()
+        self.add_module("self", _attention_params(cfg, L, device))
+        self.cross = _attention_params(cfg, L, device, cross=True)
+        self.mlp = _ungated_mlp(cfg, L, device)
+        self.norm1 = norm_params(cfg, device, L)
+        self.norm2 = norm_params(cfg, device, L)
+        self.norm3 = norm_params(cfg, device, L)
+
+
+# the parameter stack of each block kind
 STACKS = {"dense": DenseStack, "moe": MoEStack, "mlstm": MLSTMStack, "slstm": SLSTMStack,
-          "hymba": HymbaStack}
+          "hymba": HymbaStack, "enc": EncStack, "dec": DecStack}
 
 
 def unstack(tree: Dict[str, Any], L: int) -> Iterator[Dict[str, Any]]:
@@ -218,41 +264,52 @@ def _qk_normalize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _rope_apply(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_variant == "none":
+        return x
     if cfg.rope_variant == "rope2d":
         return rope_half(x, positions, cfg.rope_theta)
+    if cfg.rope_variant == "mrope":
+        return mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return rope(x, positions, cfg.rope_theta)
 
 
-def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, positions=None,
+def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = True,
+                    positions=None, kv_source: Optional[torch.Tensor] = None,
                     cache: Optional[attn_lib.KVCache] = None,
                     cur_pos: Optional[torch.Tensor] = None,
                     kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention.
+    """Self-attention, or cross-attention with ``kv_source``.
 
     Three cache regimes, as the reference's: ``cache`` + ``cur_pos`` with a
     one-token input is a decode step (circular write, position-masked
     attention); ``cache`` + ``kv_lengths`` with a whole sequence is a one-shot
     prefill (training attention, then the whole K/V sequence written into
     the cache at once); without a cache it is training attention. The cache
-    is written in place.
+    is written in place. ``positions`` is (B, S), or (3, B, S) for M-RoPE,
+    or None for no rotary. Cross-attention takes its queries from ``x`` and
+    its K/V from ``kv_source`` (no rotary on them) and keeps no cache: every
+    call, so every decode step, projects the whole source again, as the
+    reference's decoder block does (its cross cache stays None).
     """
+    src = x if kv_source is None else kv_source
     q = dense(x, p["wq"], "bsd,dhe->bshe")
     if "q_norm" in p:
         q = _qk_normalize(q, p["q_norm"])
-    k = dense(x, p["wk"], "bsd,dhe->bshe")
-    v = dense(x, p["wv"], "bsd,dhe->bshe")
+    k = dense(src, p["wk"], "bsd,dhe->bshe")
+    v = dense(src, p["wv"], "bsd,dhe->bshe")
     if "k_norm" in p:
         k = _qk_normalize(k, p["k_norm"])
     if positions is not None:
         q = _rope_apply(cfg, q, positions)
-        k = _rope_apply(cfg, k, positions)
+        if kv_source is None:
+            k = _rope_apply(cfg, k, positions)
     if cache is not None and cur_pos is not None and x.shape[1] == 1:
         attn_lib.cache_update(cache, k, v, cur_pos)
         out = attn_lib.decode_attention(q, cache, cur_pos, window=window,
                                         softcap_val=cfg.attn_softcap,
                                         k_chunk=cfg.decode_k_chunk)
     else:
-        out = attn_lib.train_attention(q, k, v, causal=True, window=window,
+        out = attn_lib.train_attention(q, k, v, causal=causal, window=window,
                                        softcap_val=cfg.attn_softcap)
         if cache is not None and kv_lengths is not None:
             attn_lib.cache_prefill(cache, k, v, kv_lengths)
@@ -275,14 +332,14 @@ def apply_dense(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     """Pre-norm dense block (the cache regimes of ``apply_attention``); with
     ``sandwich_norm`` each branch's output is normed again (``post1``,
     ``post2``) before the residual add."""
-    h = apply_attention(p["attn"], rmsnorm(x, p["norm1"]), cfg, window=spec.window,
+    h = apply_attention(p["attn"], norm_apply(cfg, x, p["norm1"]), cfg, window=spec.window,
                         positions=positions, cache=cache, cur_pos=cur_pos, kv_lengths=kv_lengths)
     if cfg.sandwich_norm:
-        h = rmsnorm(h, p["post1"])
+        h = norm_apply(cfg, h, p["post1"])
     x = x + h
-    h2 = apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]), cfg.act)
+    h2 = apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act)
     if cfg.sandwich_norm:
-        h2 = rmsnorm(h2, p["post2"])
+        h2 = norm_apply(cfg, h2, p["post2"])
     return x + h2
 
 
@@ -293,10 +350,10 @@ def apply_moe(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     """Pre-norm MoE block (the reference's ``_apply_moe``): attention (the
     cache regimes of ``apply_attention``), then ``x + moe(norm2(x))``.
     Returns (x, the layer's fp32 load-balance aux loss)."""
-    h = apply_attention(p["attn"], rmsnorm(x, p["norm1"]), cfg, window=spec.window,
+    h = apply_attention(p["attn"], norm_apply(cfg, x, p["norm1"]), cfg, window=spec.window,
                         positions=positions, cache=cache, cur_pos=cur_pos, kv_lengths=kv_lengths)
     x = x + h
-    out, aux = moe_apply(p["moe"], rmsnorm(x, p["norm2"]), top_k=cfg.top_k,
+    out, aux = moe_apply(p["moe"], norm_apply(cfg, x, p["norm2"]), top_k=cfg.top_k,
                          group_size=cfg.moe_group_size)
     return x + out, aux
 
@@ -326,7 +383,7 @@ def apply_mlstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
     the new recurrent state)."""
     B, S, D = x.shape
     dh = D // cfg.num_heads
-    h = rmsnorm(x, p["norm"])
+    h = norm_apply(cfg, x, p["norm"])
     xm, z = dense(h, p["w_in"], "bsd,de->bse").chunk(2, dim=-1)
     q = dense(xm, p["wq"], "bse,ehd->bshd")
     k = dense(xm, p["wk"], "bse,ehd->bshd")
@@ -355,14 +412,14 @@ def apply_slstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
     frozen by ``step_mask``), the output projection, then a gated MLP.
     Returns (x, the new recurrent state)."""
     S = x.shape[1]
-    gates_x = dense(rmsnorm(x, p["norm1"]), p["w_gates"], "bsd,dge->bsge")
+    gates_x = dense(norm_apply(cfg, x, p["norm1"]), p["w_gates"], "bsd,dge->bsge")
     step_mask = None
     if kv_lengths is not None and S > 1:
         step_mask = torch.arange(S, device=x.device)[None, :] < kv_lengths[:, None]
     hs, new = gla_lib.slstm_scan(gates_x, p["r_gates"], cfg.num_heads, init_state=cache,
                                  step_mask=step_mask)
     x = x + dense(hs, p["w_out"], "bsd,de->bse")
-    return x + apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]), cfg.act), new
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act), new
 
 
 def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
@@ -377,7 +434,7 @@ def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     the new SSM state}``)."""
     B, S, D = x.shape
     H = cfg.num_heads
-    h = rmsnorm(x, p["norm1"])
+    h = norm_apply(cfg, x, p["norm1"])
     kv, ssm = (None, None) if cache is None else (cache["attn"], cache["ssm"])
     a_out = apply_attention(p["attn"], h, cfg, window=spec.window, positions=positions,
                             cache=kv, cur_pos=cur_pos, kv_lengths=kv_lengths)
@@ -400,11 +457,35 @@ def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     s_out = dense(y, p["ssm_out"], "bse,ed->bsd")
     x = x + 0.5 * (a_out * p["scale_attn"].to(COMPUTE_DTYPE)
                    + s_out * p["scale_ssm"].to(COMPUTE_DTYPE))
-    return x + apply_mlp(p["mlp"], rmsnorm(x, p["norm2"]), cfg.act), {"ssm": new}
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act), {"ssm": new}
 
 
 # the recurrent block kinds: apply(p, x, spec, cfg, ...) -> (x, new state)
 RECURRENT = {"mlstm": apply_mlstm, "slstm": apply_slstm, "hymba": apply_hymba}
+
+
+def apply_enc(p, x: torch.Tensor, spec: LayerSpec, cfg) -> torch.Tensor:
+    """Whisper's encoder block (the reference's ``_apply_enc``): pre-norm
+    bidirectional self-attention without rotary, then the ungated MLP with
+    the tanh gelu (hard-wired, as in the reference)."""
+    x = x + apply_attention(p["attn"], norm_apply(cfg, x, p["norm1"]), cfg, causal=False)
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), act="gelu")
+
+
+def apply_dec(p, x: torch.Tensor, spec: LayerSpec, cfg, *, enc_out: torch.Tensor,
+              cache: Optional[Dict[str, Any]] = None, cur_pos: Optional[torch.Tensor] = None,
+              kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whisper's decoder block (the reference's ``_apply_dec``), each part
+    pre-norm: causal self-attention without rotary (the cache regimes of
+    ``apply_attention`` on ``cache["self"]``), cross-attention over
+    ``enc_out`` (its K/V projected anew every call), then the ungated
+    tanh-gelu MLP. ``cache`` is ``{"self": KVCache, "cross": None}``."""
+    kv = None if cache is None else cache["self"]
+    x = x + apply_attention(p["self"], norm_apply(cfg, x, p["norm1"]), cfg, window=spec.window,
+                            cache=kv, cur_pos=cur_pos, kv_lengths=kv_lengths)
+    x = x + apply_attention(p["cross"], norm_apply(cfg, x, p["norm2"]), cfg, causal=False,
+                            kv_source=enc_out)
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm3"]), act="gelu")
 
 
 def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device, layers: int):
@@ -416,7 +497,9 @@ def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device, la
     * mlstm: ``GLAState(S (L, B, H, dh, dh), n (L, B, H, dh))``, fp32 zeros;
     * slstm: ``SLSTMState(c, n, h (L, B, D)`` zeros, ``m`` -1e30);
     * hymba: ``{"attn": KVCache, "ssm": GLAState(S (L, B, H, ssm_state,
-      dh), n (L, B, H, ssm_state))}``.
+      dh), n (L, B, H, ssm_state))}``;
+    * dec: ``{"self": KVCache, "cross": None}``: the cross-attention's K/V
+      are not cached (recomputed from the encoder's output every step).
     """
     D, H = cfg.d_model, cfg.num_heads
     dh = D // H
@@ -441,4 +524,6 @@ def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device, la
         return slstm_initial_state(batch, D, device=device, lead=(layers,))
     if spec.kind == "hymba":
         return {"attn": kv(), "ssm": gla(cfg.ssm_state, dh)}
+    if spec.kind == "dec":
+        return {"self": kv(), "cross": None}
     raise ValueError(f"the port has no decode cache for {spec.kind!r} blocks")

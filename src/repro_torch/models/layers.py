@@ -1,9 +1,10 @@
-"""Shared layers: rmsnorm, embedding lookup, RoPE (full and half-dim),
-softcap, chunked cross entropy.
+"""Shared layers: rmsnorm, layernorm, embedding lookup, RoPE (full,
+half-dim and Qwen2-VL's M-RoPE), whisper's sinusoidal positions, softcap,
+chunked cross entropy.
 
-Port of ``repro/models/layers.py`` (the dense path). Compute is bf16 with
-fp32 master weights cast in (``COMPUTE_DTYPE``, as ``layers.py:34``);
-norms, RoPE and the loss run in fp32 inside.
+Port of ``repro/models/layers.py``. Compute is bf16 with fp32 master
+weights cast in (``COMPUTE_DTYPE``, as ``layers.py:34``); norms, RoPE, the
+sinusoids and the loss run in fp32 inside.
 """
 
 from __future__ import annotations
@@ -16,9 +17,13 @@ __all__ = [
     "COMPUTE_DTYPE",
     "dense",
     "rmsnorm",
+    "layernorm",
     "embed_lookup",
     "rope",
     "rope_half",
+    "mrope",
+    "sinusoidal_positions",
+    "sinusoidal_at",
     "softcap",
     "chunked_cross_entropy",
 ]
@@ -38,6 +43,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (x32 * torch.rsqrt(var + eps) * scale).to(COMPUTE_DTYPE)
 
 
+def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with ``p = {"scale", "bias"}``; the
+    variance is the mean of ``(x - mu)^2``, as ``jnp.var`` computes it."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    xc = x32 - mu
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(COMPUTE_DTYPE)
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids.long(), table.to(COMPUTE_DTYPE))
 
@@ -46,11 +61,9 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
-    """Standard RoPE, halves rotated (LLaMA convention). x: (B, S, H, D);
-    positions: (B, S)."""
-    freqs = _rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, D/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) rotated by the angles ``ang`` (B, S, D/2), halves
+    paired (LLaMA convention), in fp32; back to x's dtype."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x32 = x.to(torch.float32)
@@ -59,11 +72,48 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Standard RoPE, halves rotated (LLaMA convention). x: (B, S, H, D);
+    positions: (B, S)."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
 def rope_half(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """ChatGLM-style 2-D RoPE: the rotary of the first ``D // 2`` lanes (its
     frequencies from that half width); the second half passes through."""
     half = x.shape[-1] // 2
     return torch.cat([rope(x[..., :half], positions, theta), x[..., half:]], dim=-1)
+
+
+def mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the head's D/2 frequency bands split into (t, h, w)
+    sections, each rotated by its own position stream. x: (B, S, H, D);
+    positions: (3, B, S) (equal streams for pure text); sum(sections) ==
+    D // 2."""
+    D = x.shape[-1]
+    assert sum(sections) == D // 2, (sections, D)
+    freqs = _rope_freqs(D, theta, x.device)
+    parts, start = [], 0
+    for s, sec in enumerate(sections):
+        parts.append(positions[s][..., None].to(torch.float32) * freqs[start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, dim=-1))
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings (S, D) in fp32."""
+    return sinusoidal_at(torch.arange(length, dtype=torch.float32, device=device), dim)
+
+
+def sinusoidal_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal rows for arbitrary positions (...,) -> (..., D) in fp32:
+    ``[sin(p / 10000^(2i/D)), cos(...)]``. The divisor is ``torch.pow``'s;
+    the reference's ``jnp.power`` is not correctly rounded, so the two agree
+    within fp32 rounding, not bit for bit."""
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.to(torch.float32)[..., None] / torch.pow(10000.0, 2 * idx / dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

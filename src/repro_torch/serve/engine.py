@@ -17,7 +17,9 @@ and drives them through admit -> prefill -> decode -> retire:
   EOS or ``max_new_tokens`` (tokens decoded past the end inside the chunk
   are dropped), and frees their slots for the next tick's backfill.
 
-Weights are held in the format ``weights=`` names (``serve.weights``); a
+The engine serves token decoders only, as the reference's: an
+encoder-decoder or an embeds-input arch raises ``ValueError``. Weights are
+held in the format ``weights=`` names (``serve.weights``); a
 ``q4`` tree stays packed on the device and ``materialize`` dequantizes it
 once per prefill and once per decode chunk, never per token. The fp32
 masters are not kept: after ``prepare_params`` only their shapes are (for
@@ -67,6 +69,8 @@ def _bucket_len(n: int, lo: int = 16) -> int:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Mapping[str, torch.Tensor], max_batch: int = 4,
                  s_max: int = 256, weights: str = "bf16", drain_every: int = 8, seed: int = 0):
+        if cfg.family != "decoder" or cfg.input_mode != "tokens":
+            raise ValueError("ServeEngine serves token-decoder archs only")
         self.cfg = cfg
         self.max_batch = max_batch
         self.s_max = s_max

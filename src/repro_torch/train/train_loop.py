@@ -46,6 +46,19 @@ def make_train_state(model: Transformer, optimizer: Optimizer,
     return TrainState(params, opt_state, 0, key)
 
 
+def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of one batch leaf, sliced on its batch dim
+    by the reference's rule: dim 1 for M-RoPE positions ``(3, B, S)``
+    (``shape[0] == 3 != shape[1]``), else dim 0."""
+    if x.dim() == 0:
+        return x
+    bdim = 1 if x.dim() >= 2 and x.shape[0] == 3 and x.shape[1] != 3 else 0
+    B = x.shape[bdim]
+    if B % n:
+        raise ValueError(f"batch {B} does not split into {n} microbatches")
+    return x.narrow(bdim, i * (B // n), B // n)
+
+
 def build_train_step(model: Transformer, optimizer: Optimizer, *, accum_steps: int = 1,
                      comms: Optional[CommsConfig] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics are
@@ -63,13 +76,9 @@ def build_train_step(model: Transformer, optimizer: Optimizer, *, accum_steps: i
         for p in params.values():
             p.grad = None
         if accum_steps > 1:
-            B = batch["tokens"].shape[0]
-            if B % accum_steps:
-                raise ValueError(f"batch {B} does not split into {accum_steps} microbatches")
-            size = B // accum_steps
             loss_sum, mets = 0.0, []
             for i in range(accum_steps):
-                micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                micro = {k: _microbatch(v, i, accum_steps) for k, v in batch.items()}
                 loss_i, m_i = compute_grads(micro)
                 loss_sum = loss_sum + loss_i
                 mets.append(m_i)

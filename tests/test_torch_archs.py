@@ -19,8 +19,10 @@ Parameters are the reference's own (initialised by JAX, carried across with
   bf16-level tolerances), tied ``embed`` included;
 * reduced gemma2's ``prefill_with_cache`` against a token-at-a-time decode
   oracle (``tests/test_serving.py``), 2e-2, and the caches' positions;
-* the block kinds and rope variants the port does not run (whisper's
-  enc/dec, mrope, none) are refused, naming the roadmap item.
+* the modality-stub archs (whisper-large-v3, qwen2-vl-2b) are refused
+  where the reference refuses them: ``prefill_with_cache`` and
+  ``ServeEngine`` (``ValueError``, as the reference's), the training and
+  serving CLIs (``SystemExit`` with the reference's messages).
 """
 
 import numpy as np
@@ -49,7 +51,6 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     LayerSpec,
     ModelConfig,
-    Transformer,
     decode_step,
     forward_hidden,
     init_model,
@@ -89,7 +90,7 @@ def test_configs_match_reference():
                              (reduced_config(name), j_reduced(name))):
             for f in mine.__dataclass_fields__:
                 want = getattr(theirs, f)
-                if f == "blocks":
+                if f in ("blocks", "encoder_blocks"):
                     want = tuple(LayerSpec(b.kind, b.window) for b in want)
                 assert getattr(mine, f) == want, (name, f)
 
@@ -135,20 +136,35 @@ def test_gemma2_stacks_and_tied_head():
     assert tuple(qwen["decoder/0/sub0/attn/q_norm"].shape) == (36, 128)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(blocks=(LayerSpec("enc", 0),) * 2), "enc"),
-    (dict(blocks=(LayerSpec("dense", 0), LayerSpec("dec", 0))), "dec"),
-    (dict(blocks=(LayerSpec("moe", 0), LayerSpec("dec", 0))), "dec"),
-    (dict(blocks=(LayerSpec("dense", 0),) * 2, rope_variant="mrope"), "mrope"),
-    (dict(blocks=(LayerSpec("dense", 0),) * 2, rope_variant="none"), "none"),
-])
-def test_unported_variants_are_refused(kw, match):
-    cfg = ModelConfig(name="x", num_layers=2, d_model=32, num_heads=4, num_kv_heads=2,
-                      head_dim=8, d_ff=64, vocab_size=128, **kw)
-    with pytest.raises(ValueError, match=rf"{match}.*queue A item 4"):
-        Transformer(cfg, device="meta")
-    with pytest.raises(ValueError, match="queue A item 4"):
-        init_serve_cache(cfg, 1, 256, device="cpu")
+@pytest.mark.parametrize("entry", ["prefill_with_cache", "ServeEngine", "train CLI",
+                                   "serve CLI"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-2b"])
+def test_modality_archs_are_refused_where_the_reference_refuses(arch, entry):
+    from repro.models import prefill_with_cache as j_prefill_with_cache
+    from repro.serve import ServeEngine as JServeEngine
+    from repro_torch.launch import serve, train
+    from repro_torch.serve import ServeEngine
+
+    cfg, jcfg = reduced_config(arch), j_reduced(arch)
+    if entry == "prefill_with_cache":
+        params = named_params(init_model(cfg, device="cpu"))
+        toks, lens = torch.zeros((1, 4), dtype=torch.int64), torch.tensor([4])
+        with pytest.raises(ValueError, match="serves token-decoder archs only"):
+            prefill_with_cache(params, cfg, toks, lens, init_serve_cache(cfg, 1, 256, "cpu"))
+        with pytest.raises(ValueError, match="serves token-decoder archs only"):
+            j_prefill_with_cache({}, jcfg, jnp.zeros((1, 4), jnp.int32), jnp.array([4]), [])
+    elif entry == "ServeEngine":
+        params = {k: p.detach() for k, p in named_params(init_model(cfg, device="cpu")).items()}
+        with pytest.raises(ValueError, match="ServeEngine serves token-decoder archs only"):
+            ServeEngine(cfg, params)
+        with pytest.raises(ValueError, match="ServeEngine serves token-decoder archs only"):
+            JServeEngine(jcfg, {})
+    elif entry == "train CLI":
+        with pytest.raises(SystemExit, match=f"{arch}: modality-stub arch"):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1"])
+    else:
+        with pytest.raises(SystemExit, match=f"{arch}: token-decoder archs only in this CLI"):
+            serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from test_torch_encdec import encdec_batch  # noqa: E402
+from test_torch_vl import vl_batch  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import reduced_config as j_reduced  # noqa: E402
@@ -267,15 +269,31 @@ def _io_configs(arch):
     return jcfg, cfg
 
 
+def _arch_batch(cfg, data, t):
+    """``data``'s batch ``t``, with a modality-stub arch's inputs in place
+    of (qwen2-vl) or beside (whisper) its tokens."""
+    b = data.batch_at(t)
+    B, S = b["tokens"].shape
+    if cfg.family == "encdec":
+        b["frames"] = encdec_batch(cfg, t, B=B, Se=S)["frames"]
+    if cfg.input_mode == "embeds":
+        b = dict(vl_batch(cfg, t, B=B, S=S), labels=b["labels"])
+    return b
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-4b", "phi3.5-moe-42b-a6.6b",
-                                  "mixtral-8x7b", "xlstm-125m", "hymba-1.5b"])
+                                  "mixtral-8x7b", "xlstm-125m", "hymba-1.5b",
+                                  "whisper-large-v3", "qwen2-vl-2b"])
 def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
     """Reduced gemma2-2b (two subs, tied embeddings: no head, 4-bit
     sandwich-norm scales), qwen3-4b (qk-norm leaves), phi3.5-moe and
     mixtral (``moe/router``, ``moe/w1``-``w3`` leaves, the expert stacks'
     4-bit moments with one rank-1 stat per dim), xlstm-125m (two units, the
     mLSTM's and the sLSTM's leaves, the 5-D ``r_gates``), hymba-1.5b
-    (``HYMBA_UNITS``: five units of runs, the SSM leaves), production4bit
+    (``HYMBA_UNITS``: five units of runs, the SSM leaves), whisper-large-v3
+    (the ``encoder`` list, ``enc_norm``, LayerNorm ``{scale, bias}`` dicts,
+    the decoder's ``self``/``cross`` leaves; trained on frames) and
+    qwen2-vl-2b (trained on embeds with M-RoPE positions), production4bit
     with an SR
     key: from the same params the port writes the reference's files
     byte for byte; the reference trains 2 steps and saves, the port
@@ -293,24 +311,29 @@ def test_arch_checkpoints_cross_both_ways(arch, tmp_path):
     assert filecmp.cmp(os.path.join(dt, ckfmt.shard_file(0)),
                        os.path.join(dj, ckfmt.shard_file(0)), shallow=False)
     keys = [m["key"] for m in ckfmt.read_manifest(dt)["leaves"]]
-    assert any("'head'" in k for k in keys) == (arch != "gemma2-2b")
+    assert any("'head'" in k for k in keys) == (not cfg.tie_embeddings)
     assert any("'moe'" in k and "'router'" in k for k in keys) == ("moe" in arch
                                                                    or "mixtral" in arch)
     if arch == "hymba-1.5b":
         units = {k.split("['decoder']")[1].split("]")[0] for k in keys if "['decoder']" in k}
         assert units == {f"[{u}" for u in range(5)}, units
+    if arch == "whisper-large-v3":
+        assert any("['encoder'][0]['sub0']['norm1']['bias']" in k for k in keys)
+        assert any("['decoder'][0]['sub0']['cross']['wq']" in k for k in keys)
 
     data = (SyntheticLM(DataConfig(512, 16, 4)), JSyntheticLM(JDataConfig(512, 16, 4)))
     jstep = jax.jit(j_build(jcfg, jopt))
     for t in range(2):
-        jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in data[1].batch_at(t).items()})
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v)
+                                   for k, v in _arch_batch(jcfg, data[1], t).items()})
     j_save(str(tmp_path / "jax"), 2, jstate)
     model, opt, state = restore_port(str(tmp_path / "jax"), cfg, "production4bit", {},
                                      sr.PRNGKey(17))
     assert_leaves_equal(port_leaves(state), jax_leaves(jstate), f"{arch}: JAX -> port @2")
     step = build_train_step(model, opt)
     for t in range(2, 4):
-        state, _ = step(state, {k: torch.from_numpy(v) for k, v in data[0].batch_at(t).items()})
+        state, _ = step(state, {k: torch.from_numpy(v)
+                                for k, v in _arch_batch(cfg, data[0], t).items()})
     save_checkpoint(str(tmp_path / "port"), 4, state)
     target = jax.eval_shape(lambda: j_make_state(jparams, jopt, key=jax.random.PRNGKey(17)))
     restored, _ = j_restore(str(tmp_path / "port"), target)
