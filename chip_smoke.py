@@ -234,14 +234,38 @@ Phases, each failing the run on error:
     qwen2-vl with embeds equal to the tokens' embedding rows), at the
     reduced configs within the reference's 2e-2, at full width and depth
     with fp32 compute within 1e-3 and with bf16 compute within
-    ``STUB_BF16_ATOL``.
+    ``STUB_BF16_ATOL``;
+34. B1 on tiles, in one process: internlm2-1.8b's ``wo``, ``w1``, ``w2`` and
+    ``w3`` at full size, cut into the tiles of the (2, 1), (1, 2) and (2, 2)
+    plans (``sharding.rules.wire_spec``, the parameters' ZeRO layout); both
+    passes per tile with the tile's offsets, the stats max-merged across the
+    tiles here; params, codes, scales and stats bit-equal to one whole-leaf
+    launch of each pass, RTN and SR; the tiles' SR launches timed against
+    the whole leaf's (event pairs, median of 21);
+35. the mesh train step: internlm2-1.8b at full width and depth,
+    production4bit with SR, as two processes on ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one card; gloo moves CUDA tensors through host
+    memory), mesh (data=2, model=1). Fed one seeded gradient tree, the
+    update's params and state bit-equal to the one-process update on the
+    card; then 3 steps of the smoke's batch with every launch count set to 0
+    just before and read just after: losses within 1e-4 relative of phase
+    6's, each rank's state bytes equal to its plan's to the byte, 4
+    launches of each B1 pass a step on each rank's tiles and none of B2/B3;
+    each step's time split into compute, collective and update, and each
+    rank's peak;
+36. ``quantized_all_reduce`` (int4, SR) in the same two ranks on one layer's
+    leaves of internlm2-1.8b (and a norm): each rank's result bit-equal to
+    the host oracle of ``tests/test_comms.py`` computed on the card, the
+    two ranks' bits equal; timed.
 
-The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25
-and 30 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0 just
+The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
+30 and 35 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0 just
 before it.
 
 Prints the kernel table as a JSON line, then the device line as the last
-line. Needs a CUDA card and the repository beside it; without either it
+line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
+phases 34-36 alone (no result lines). Needs a CUDA card and the repository
+beside it; without either it
 exits non-zero and prints no result.
 """
 
@@ -489,6 +513,17 @@ STUB_ROWS = 4
 # 0.090; fp32 compute read 6.2e-6 and 1.25e-5; PERF.md section 2)
 STUB_ORACLE_ROWS, STUB_ORACLE_TOKENS, STUB_ORACLE_ATOL = 2, 16, 2e-2
 STUB_BF16_ATOL = {WHISPER: 0.12, QWEN2VL: 0.18}
+# phases 34-36 (slice 11): internlm2-1.8b's fused leaves with their axes, the
+# plans B1 is held on tile by tile, the mesh of the two-process run and its
+# steps, and the leaves of the all-reduce check (one layer's, and a norm)
+MESH_LEAVES = (("wo", (24, 16, 128, 2048), ("layers", "heads", "head_dim", "embed")),
+               ("w1", (24, 2048, 8192), ("layers", "embed", "mlp")),
+               ("w2", (24, 8192, 2048), ("layers", "mlp", "embed")),
+               ("w3", (24, 2048, 8192), ("layers", "embed", "mlp")))
+TILE_MESHES = ((2, 1), (1, 2), (2, 2))
+MESH_SHAPE, MESH_STEPS = (2, 1), 3
+ALL_REDUCE_LEAVES = (("wq", (2048, 16, 128)), ("wo", (16, 128, 2048)), ("w1", (2048, 8192)),
+                     ("w2", (8192, 2048)), ("norm1", (2048,)))
 
 
 def fail(msg: str) -> None:
@@ -1952,7 +1987,7 @@ def phase_q4_arch_leaves(dev, table=RECURRENT_SERVE):
     from repro_torch.kernels import quant4
     from repro_torch.kernels.timing import event_ms
     from repro_torch.models import init_model, named_params
-    from repro_torch.serve.weights import THRESHOLD, WEIGHT_Q4, kernel_view
+    from repro_torch.serve.weights import DEFAULT_THRESHOLD, WEIGHT_Q4, kernel_view
 
     q4 = WEIGHT_Q4.table("cpu")
     out = {}
@@ -1962,7 +1997,7 @@ def phase_q4_arch_leaves(dev, table=RECURRENT_SERVE):
         params = named_params(init_model(get_config(arch), device="meta"))
         views = {}
         for path, p in params.items():
-            if p.dim() >= 2 and p.numel() > THRESHOLD and _has_kernel_view(p.shape):
+            if p.dim() >= 2 and p.numel() > DEFAULT_THRESHOLD and _has_kernel_view(p.shape):
                 views.setdefault(kernel_view(tuple(p.shape)), []).append(path)
         n_leaves = sum(len(paths) for paths in views.values())
         if n_leaves != kernel_leaves:
@@ -2721,6 +2756,334 @@ def phase_stub_oracle(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 34-36 (slice 11): the mesh path
+# ---------------------------------------------------------------------------
+
+
+def _tile_work(t, box, shape):
+    """A tile of a whole-leaf QuantizedTensor in the mesh step's working
+    layout: the tile's codes, the whole leaf's scales."""
+    from repro_torch.core.quantizer import QuantizedTensor
+
+    cbox = box[:-1] + ((box[-1][0] // 2, box[-1][1] // 2),)
+    codes = t.codes.reshape(shape[:-1] + (shape[-1] // 2,))[_index(cbox)].contiguous()
+    return QuantizedTensor(codes, t.scales, tuple(b - a for a, b in box), t.config)
+
+
+def _index(box):
+    return tuple(slice(a, b) for a, b in box)
+
+
+def phase_b1_tiles(dev):
+    """Phase 34: B1 on the tiles of internlm2-1.8b's fused leaves under the
+    (2, 1), (1, 2) and (2, 2) plans, in one process: pass 1 per tile, the
+    per-dim maxima max-merged here, pass 2 per tile with the tile's offsets;
+    params, codes, scales and stats bit-equal to one whole-leaf launch of
+    each pass, RTN and SR; then the tiles' SR launches timed against the
+    whole leaf's."""
+    import torch
+
+    from repro_torch.kernels import ops, sr
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.sharding.context import Tile
+    from repro_torch.sharding.rules import wire_spec
+    from repro_torch.sharding.specs import local_box
+
+    hp = dict(lr=SCAL["lr"], bc1=SCAL["bc1"], bc2=SCAL["bc2"], **HP)
+    rows = []
+    for name, shape, axes in MESH_LEAVES:
+        C = shape[-1]
+        for sr_on in (False, True):
+            w, grad, m_q, v_q = _states(shape, sr_on, 2, dev)
+            key = sr.PRNGKey(0) if sr_on else None
+            whole_w = w.clone()
+            _, m2, v2 = ops.fused_adamw4_leaf(whole_w, grad, m_q, v_q, **hp, key=key)
+            m2_codes = m2.codes.reshape(shape[:-1] + (C // 2,))
+            v2_codes = v2.codes.reshape(shape[:-1] + (C // 2,))
+            if sr_on:
+                scratch = w.clone()
+                whole_ms = event_ms(lambda: ops.fused_adamw4_leaf(scratch, grad, m_q, v_q, **hp,
+                                                                  key=key))
+                del scratch
+            for mesh in TILE_MESHES:
+                sizes = dict(zip(("data", "model"), mesh))
+                spec = wire_spec(shape, axes, sizes)
+                tiles = [Tile(shape, local_box(spec, shape, dict(zip(sizes, c)), sizes))
+                         for c in ((d, m) for d in range(mesh[0]) for m in range(mesh[1]))]
+                ops_in = []
+                for tile in tiles:
+                    idx = _index(tile.box)
+                    ops_in.append((tile, w[idx].contiguous(), grad[idx].contiguous(),
+                                   _tile_work(m_q, tile.box, shape),
+                                   _tile_work(v_q, tile.box, shape)))
+                merged = [torch.zeros(n, device=dev) for n in shape]
+                for tile, _, g_t, _, v_t in ops_in:
+                    for d, st in enumerate(ops.tile_stats(tile, g_t, v_t, HP["b2"])):
+                        lo, hi = tile.box[d]
+                        merged[d][lo:hi] = torch.maximum(merged[d][lo:hi], st)
+                for d, (a, b) in enumerate(zip(merged, v2.scales)):
+                    if not torch.equal(a, b):
+                        fail(f"B1 tiles {name} {mesh} sr={sr_on}: merged stats of dim {d} differ "
+                             "from the whole leaf's")
+                elapsed = 0.0
+                for tile, w_t, g_t, m_t, v_t in ops_in:
+                    p, mp, ms, vp, blk = ops.tile_update(tile, w_t.clone(), g_t, m_t, v_t, merged,
+                                                         **hp, key=key)
+                    cidx = _index(tile.box[:-1] + ((tile.box[-1][0] // 2,
+                                                    tile.box[-1][1] // 2),))
+                    for what, a, b in (("params", p, whole_w[_index(tile.box)]),
+                                       ("m codes", mp.reshape(m2_codes[cidx].shape),
+                                        m2_codes[cidx]),
+                                       ("m scales", ms, m2.scales[0][blk]),
+                                       ("v codes", vp.reshape(v2_codes[cidx].shape),
+                                        v2_codes[cidx])):
+                        if not torch.equal(a, b):
+                            fail(f"B1 tiles {name} {mesh} sr={sr_on} tile {tile.box}: {what} "
+                                 "differ from the whole leaf's")
+                    del p, mp, ms, vp
+                    if sr_on:
+                        elapsed += event_ms(lambda: ops.tile_stats(tile, g_t, v_t, HP["b2"]))
+                        elapsed += event_ms(lambda: ops.tile_update(tile, w_t, g_t, m_t, v_t,
+                                                                    merged, **hp, key=key))
+                print(f"B1 tiles {name} {shape} on {mesh[0]}x{mesh[1]} ({spec}, {len(tiles)} "
+                      f"tiles) sr={sr_on}: stats, params, codes and scales bit-equal to the "
+                      f"whole leaf's"
+                      + (f"; both passes {elapsed:.4f} ms over the tiles against {whole_ms:.4f} "
+                         f"ms whole ({elapsed / whole_ms - 1:+.1%})" if sr_on else ""))
+                if sr_on:
+                    rows.append(dict(leaf=name, shape=list(shape), mesh=list(mesh),
+                                     spec=[e if not isinstance(e, tuple) else list(e)
+                                           for e in spec],
+                                     tiles=len(tiles), tiles_ms=elapsed, whole_ms=whole_ms))
+                del ops_in, merged
+            del w, grad, m_q, v_q, whole_w, m2, v2, m2_codes, v2_codes
+            torch.cuda.empty_cache()
+    for mesh in TILE_MESHES:
+        t = sum(r["tiles_ms"] for r in rows if tuple(r["mesh"]) == mesh)
+        whole = sum(r["whole_ms"] for r in rows if tuple(r["mesh"]) == mesh)
+        print(f"B1 tiles on {mesh[0]}x{mesh[1]}, the step's four leaves (wo, w1, w2, w3), SR: "
+              f"{t:.4f} ms over the tiles against {whole:.4f} ms whole ({t / whole - 1:+.1%})")
+    return rows
+
+
+def _mesh_train(rank, dev, counters):
+    """Phase 35 in one rank: the update fed one gradient tree against the
+    one-process update (rank 0), then 3 steps of the mesh train step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizers import (
+        linear_warmup_linear_decay,
+        make_optimizer,
+        state_nbytes,
+    )
+    from repro_torch.core.optimizers.base import _leaves
+    from repro_torch.core.quantizer import QuantizedTensor
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.sharding.specs import plan_nbytes
+    from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+
+    cfg = get_config("internlm2-1.8b")
+    opt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, STEPS))
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    axes = param_axes(cfg)
+    key = sr.PRNGKey(0)
+
+    def fresh():
+        model = init_model(cfg, seed=0, device=dev)
+        state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
+        return model, state, build_train_step(model, opt, mesh, axes)
+
+    def grads_of(shapes, cut=None):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        out = {}
+        for k, shape in shapes.items():
+            g = torch.randn(shape, generator=gen, device=dev) * 1e-3
+            out[k] = g[_index(cut[k])].clone() if cut else g
+            del g
+        return out
+
+    flat = lambda st: [x for leaf in _leaves(st) for x in (
+        (leaf.codes, *leaf.scales) if isinstance(leaf, QuantizedTensor) else (leaf,))]
+    res = {}
+    model, state, fn = fresh()
+    ms = fn.mesh_step
+    meta = named_params(init_model(cfg, device="meta"))
+    res["state_bytes"] = state_nbytes(state.opt_state)
+    res["plan_bytes"] = plan_nbytes(opt.init(meta), ms.state_plan, ms.run.coord, ms.run.sizes)
+    res["param_bytes"] = sum(p.numel() * 4 for p in state.params.values())
+    with torch.no_grad():
+        new = ms.update(opt, grads_of(ms.shapes, {k: t.box for k, t in ms.tiles.items()}),
+                        state.opt_state, state.params, key=sr.fold_in(key, 0))
+        whole_p, whole_s = ms.whole_params(state.params), flat(ms.whole_state(new))
+    del model, state, new, fn
+    torch.cuda.empty_cache()
+    if rank == 0:  # the one-process update of the same state and gradients
+        model = init_model(cfg, seed=0, device=dev)
+        st = make_train_state(model, opt, key=key)
+        with torch.no_grad():  # (the update's params are the model's own)
+            one = opt.update(grads_of(ms.shapes), st.opt_state, st.params,
+                             key=sr.fold_in(key, 0))[1]
+        if not all(torch.equal(p, whole_p[k]) for k, p in st.params.items()):
+            fail("mesh update: the params differ from the one-process update")
+        mine = flat(one)
+        if len(mine) != len(whole_s) or not all(torch.equal(a, b)
+                                                for a, b in zip(mine, whole_s)):
+            fail("mesh update: the optimizer state differs from the one-process update")
+        res["update_leaves_equal"] = len(mine) + len(whole_p)
+        del model, st, one, mine
+    del whole_p, whole_s
+    torch.cuda.empty_cache()
+    # three steps end to end, counts from 0 just before and read just after
+    model, state, fn = fresh()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    steps = []
+    for t in range(MESH_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(t).items()}
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append({"step": t, "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                      **fn.times})
+    res["launches"] = _read(counters)
+    res["steps"] = steps
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    res["state_bytes_after"] = state_nbytes(state.opt_state)
+    return res
+
+
+def _mesh_all_reduce(rank, dev):
+    """Phase 36 in one rank: quantized_all_reduce (int4, SR) on leaves of
+    internlm2-1.8b's shapes against the host oracle computed on the card."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comms import CommsConfig, quantized_all_reduce
+    from repro_torch.core.quantizer import dequantize, quantize
+    from repro_torch.kernels import sr
+
+    qcfg = CommsConfig(mode="int4").quant_config()
+    key = sr.PRNGKey(11)
+    out = []
+    for i, (name, shape) in enumerate(ALL_REDUCE_LEAVES):
+        xs = [torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(100 * r + i),
+                          device=dev) for r in range(dist.get_world_size())]
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = quantized_all_reduce(xs[rank], qcfg, None, key=key)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        oracle = None
+        for r, x in enumerate(xs):  # the host oracle, on the card, in rank order
+            u = sr.tensor_uniforms(sr.fold_in(key, r), shape, sr.STREAM_GRAD, dev)
+            d = dequantize(quantize(x, qcfg, uniforms=u))
+            oracle = d if oracle is None else oracle + d
+        if not torch.equal(got, oracle):
+            fail(f"quantized_all_reduce {name} {shape}: rank {rank} differs from the oracle")
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        out.append({"leaf": name, "shape": list(shape), "ms": ms, "digest": digest})
+    return out
+
+
+def _mesh_child(rank, world, run_dir):
+    """One rank of phases 35-36: ``cuda:0`` shared with the other rank, gloo
+    through a FileStore in ``run_dir``; results to ``rank<r>.json``."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import adamw4bit, quant4
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(run_dir, "rendezvous"),
+                            rank=rank, world_size=world)
+    try:
+        res = {"train": _mesh_train(rank, dev, (adamw4bit.LAUNCHES, quant4.LAUNCHES)),
+               "all_reduce": _mesh_all_reduce(rank, dev)}
+        with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh():
+    """Phases 35-36: two processes on ``cuda:0`` over gloo (NCCL refuses two
+    ranks on one device; gloo moves CUDA tensors through host memory)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    run_dir = ROOT / "build" / "mesh_smoke"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    print(f"mesh data={MESH_SHAPE[0]} model={MESH_SHAPE[1]}: {world} processes on cuda:0, "
+          "backend gloo (collectives copy CUDA tensors through host memory)")
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_mesh_child, args=(world, str(run_dir)), nprocs=world, join=True)
+    except Exception as e:  # a rank's failure, with its traceback
+        fail(f"mesh phases: {e}")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    # phase 35
+    launches = {}
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        if tr["state_bytes"] != tr["plan_bytes"] or tr["state_bytes_after"] != tr["plan_bytes"]:
+            fail(f"rank {r}: state bytes {tr['state_bytes']} / {tr['state_bytes_after']} != the "
+                 f"plan's {tr['plan_bytes']}")
+        for k, v in tr["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        losses = [s["loss"] for s in tr["steps"]]
+        for a, b in zip(losses, EXPECTED_LOSSES):
+            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+                fail(f"rank {r}: mesh losses {losses} not within 1e-4 relative of phase 6's "
+                     f"{EXPECTED_LOSSES[:MESH_STEPS]}")
+        for s in tr["steps"]:
+            coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
+            print(f"mesh rank {r} step {s['step']}: loss {s['loss']:.4f}  {s['ms']:.1f} ms "
+                  f"(compute {1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, "
+                  f"collective {1e3 * coll:.1f}, update "
+                  f"{1e3 * (s['update_s'] - s['collective_update_s']):.1f} ms; "
+                  f"{s['collective_bytes'] / 1e9:.2f} GB through the collectives)")
+        print(f"mesh rank {r}: state_bytes {tr['state_bytes']:,} (the plan's "
+              f"{tr['plan_bytes']:,}), param_bytes {tr['param_bytes']:,}, peak "
+              f"{tr['peak_bytes']:,} B ({tr['peak_bytes'] / 1e9:.2f} GB), launches "
+              f"{tr['launches']}")
+    if ranks[0]["train"].get("update_leaves_equal") is None:
+        fail("mesh update: the one-process comparison did not run")
+    print(f"mesh update fed one gradient tree: {ranks[0]['train']['update_leaves_equal']} "
+          "params and state tensors bit-equal to the one-process update on the card")
+    for name in ("fused_adamw4", "rank1_new_stats"):
+        if launches[name] != 4 * MESH_STEPS * world:
+            fail(f"mesh: {name} launched {launches[name]} times, expected "
+                 f"{4 * MESH_STEPS * world} (4 leaves a step on each rank's tiles)")
+    if launches["quantize_blockwise_4bit"] or launches["dequantize_blockwise_4bit"]:
+        fail(f"mesh: the training path launched the q4 kernels: {launches}")
+    # phase 36
+    for a, b in zip(*(res["all_reduce"] for res in ranks)):
+        if a["digest"] != b["digest"]:
+            fail(f"quantized_all_reduce {a['leaf']}: the ranks' bits differ")
+    for row in ranks[0]["all_reduce"]:
+        print(f"quantized_all_reduce int4+SR {row['leaf']} {tuple(row['shape'])}: both ranks "
+              f"bit-equal to the host oracle on the card, {row['ms']:.1f} ms on rank 0")
+    print(f"mesh phases (35-36): {wall:.1f} s with both processes' start")
+    return {"launches": launches, "ranks": ranks, "seconds": wall}
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     # the caching allocator maps memory in growable segments, so the MoE
@@ -2751,6 +3114,11 @@ def main():
 
     counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
     build_report = phase_build()
+    if sys.argv[1:] == ["--mesh-phases"]:  # phases 34-36 alone, for work on them
+        phase_b1_tiles(dev)
+        phase_mesh()
+        print(f"chip_smoke: phases 34-36 passed in {time.perf_counter() - t_start:.1f} s")
+        return
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.split()
     card_info = dict(sms=torch.cuda.get_device_properties(0).multi_processor_count,
@@ -2793,12 +3161,14 @@ def main():
     stub_q4_leaves = phase_q4_arch_leaves(dev, STUB_SERVE)
     stub_serve = phase_stub_serve(counters, dev)
     stub_oracle = phase_stub_oracle(dev)
+    b1_tiles = phase_b1_tiles(dev)
+    mesh = phase_mesh()
     # launches: every path run of the slices, each counted from 0 just before
     # it and read just after (phases 6, 15, 21, 25, 30 train; 8, 17, 23, 27,
     # 32 serve)
     path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train,
                                                       stub_train)
-                              for r in t.values()]
+                              for r in t.values()] + [mesh["launches"]]
     serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,
                                                                     rec_serve, stub_serve)
                                             for r in t.values()]
@@ -2892,7 +3262,8 @@ def main():
                         for a, r in stub_train.items()},
          "stub_train_split": {a: r["split"] for a, r in stub_train.items()},
          "stub_small": stub_small, "stub_q4_leaves": stub_q4_leaves, "stub_serve": stub_serve,
-         "stub_oracle": stub_oracle, "path_launches": launches,
+         "stub_oracle": stub_oracle, "b1_tiles": b1_tiles, "mesh": mesh,
+         "path_launches": launches,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

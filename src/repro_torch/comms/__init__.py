@@ -3,8 +3,8 @@
 ``CommsConfig`` is the one gradient-compression knob (``--grad-comm
 {fp32,bf16,int8,int4}``); ``reduce_grads`` applies the configured wire
 format to the gradient mapping inside the train step; ``accounting`` owns
-bytes-on-the-wire reporting. One device only: the mesh path and
-``quantized_all_reduce`` raise ``NotImplementedError``.
+bytes-on-the-wire reporting; ``quantized_all_reduce`` is the wire primitive
+of a mesh and ``collectives`` the transport under it.
 """
 
 from repro_torch.comms.accounting import (

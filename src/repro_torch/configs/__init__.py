@@ -8,11 +8,12 @@ and the reduced CPU-scale config of the same family."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 from repro_torch.models import LayerSpec, ModelConfig
 
-__all__ = ["ARCHS", "get_config", "reduced_config"]
+__all__ = ["ARCHS", "get_config", "reduced_config", "ShapeSpec", "SHAPES", "LONG_CONTEXT_ARCHS",
+           "cell_is_runnable"]
 
 
 def internlm2_1_8b() -> ModelConfig:
@@ -242,6 +243,32 @@ ARCHS: Dict[str, Callable[[], ModelConfig]] = {
     "qwen2-vl-2b": qwen2_vl_2b,
     "hymba-1.5b": hymba_1_5b,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# long_500k needs a bounded decode state (sub-quadratic or windowed archs).
+LONG_CONTEXT_ARCHS = ("mixtral-8x7b", "xlstm-125m", "hymba-1.5b")
+
+
+def cell_is_runnable(arch: str, shape: str) -> Tuple[bool, str]:
+    """(runnable, reason-if-skipped) for an (arch, shape) dry-run cell."""
+    if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, "pure full-attention arch: 500k decode state unbounded"
+    return True, ""
 
 
 def get_config(name: str) -> ModelConfig:

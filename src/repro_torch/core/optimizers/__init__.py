@@ -29,7 +29,11 @@ from repro_torch.core.optimizers.base import (
     tree_order,
 )
 from repro_torch.core.optimizers.presets import production4bit
-from repro_torch.core.optimizers.schedule import constant, linear_warmup_linear_decay
+from repro_torch.core.optimizers.schedule import (
+    constant,
+    linear_warmup_cosine,
+    linear_warmup_linear_decay,
+)
 from repro_torch.core.optimizers.sgdm import sgdm, sgdm4bit
 from repro_torch.core.optimizers.shampoo import FACTOR_4BIT, shampoo32, shampoo4bit, shampoo_chain
 from repro_torch.core.optimizers.sm3 import sm3
@@ -63,6 +67,7 @@ __all__ = [
     "shampoo4bit",
     "constant",
     "linear_warmup_linear_decay",
+    "linear_warmup_cosine",
     "OPTIMIZER_SPECS",
     "make_optimizer",
     "optimizer_names",

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["constant", "linear_warmup_linear_decay", "fp32_power"]
+__all__ = ["constant", "linear_warmup_linear_decay", "linear_warmup_cosine", "fp32_power"]
 
 _f = np.float32
 
@@ -35,5 +35,19 @@ def linear_warmup_linear_decay(lr: float, warmup: int, total: int):
         warm = _f(lr) * s / _f(max(1.0, float(warmup)))
         decay = _f(lr) * max(_f(0.0), (_f(total) - s) / _f(max(1.0, float(total - warmup))))
         return _f(warm if s < warmup else decay)
+
+    return f
+
+
+def linear_warmup_cosine(lr: float, warmup: int, total: int, final_frac: float = 0.1):
+    """Warmup, then cosine decay to ``final_frac * lr``; fp32 throughout, in
+    the reference's operation order (``cos`` of the fp32 product ``pi * t``)."""
+
+    def f(step):
+        s = _f(step)
+        warm = _f(lr) * s / _f(max(1.0, float(warmup)))
+        t = min(max((s - _f(warmup)) / _f(max(1.0, float(total - warmup))), _f(0.0)), _f(1.0))
+        cos = _f(final_frac) + _f((1 - final_frac) * 0.5) * (_f(1) + np.cos(_f(np.pi) * t))
+        return _f(warm if s < warmup else _f(lr) * cos)
 
     return f

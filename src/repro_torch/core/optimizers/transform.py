@@ -18,7 +18,9 @@ whole tree to the rule and leaves the scheduling to XLA), and only on the
 leaves that the fused kernel does not carry; ``apply_updates`` and the
 fused kernel update fp32 params in place. Every inner rule of the repo is
 leafwise (per-leaf norms, one shared count), so the result is the
-reference's.
+reference's. On a mesh, ``compressed()`` marks the leaf it updates
+(``sharding.context.leaf``): the quantizer and the fused route then take
+the rank's tile of it with the whole leaf's statistics and noise.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from repro_torch.core.optimizers.base import (
 from repro_torch.core.optimizers.schedule import fp32_power
 from repro_torch.core.quantizer import QuantizedTensor, quantize
 from repro_torch.kernels import sr
+from repro_torch.sharding import context as mesh_context
 
 __all__ = [
     "GradientTransformation",
@@ -538,6 +541,10 @@ class FusedAdamWRoute:
     v_field: str = "v"
 
     def eligible(self, comp: Mapping[str, Any], p: torch.Tensor) -> bool:
+        """By the whole leaf's shape: on a mesh, ``p`` is a rank's tile and
+        the route stays the one-device route (``sharding.context``)."""
+        tile = mesh_context.current_tile()
+        shape = tile.shape if tile is not None else tuple(p.shape)
         m_s = comp.get(self.m_field)
         v_s = comp.get(self.v_field)
         return (
@@ -549,8 +556,8 @@ class FusedAdamWRoute:
             and v_s.config.bits == 4
             and v_s.config.normalization == "rank1"
             and m_s.config.stochastic_rounding == v_s.config.stochastic_rounding
-            and p.ndim >= 2
-            and p.shape[-1] % 256 == 0
+            and len(shape) >= 2
+            and shape[-1] % 256 == 0
         )
 
     def run(self, p, g, comp, step: int, key=None):
@@ -612,32 +619,33 @@ def compressed(inner: GradientTransformation, policies: Mapping[str, QuantPolicy
         out_u: Params = {}
         new = {f: {} for f in fields}
         for i, k in enumerate(updates):
-            lk = sr.fold_in(key, i) if key is not None else None
-            comp = {name: getattr(state.inner, name)[k] for name in names}
-            if kernel is not None and kernel.eligible(comp, params[k]):
-                w_new, nc = kernel.run(params[k], updates[k], comp, step, key=lk)
-                out_u[k] = Replace(w_new)
+            with mesh_context.leaf(k):  # a no-op off the mesh
+                lk = sr.fold_in(key, i) if key is not None else None
+                comp = {name: getattr(state.inner, name)[k] for name in names}
+                if kernel is not None and kernel.eligible(comp, params[k]):
+                    w_new, nc = kernel.run(params[k], updates[k], comp, step, key=lk)
+                    out_u[k] = Replace(w_new)
+                    for f in fields:
+                        new[f][k] = nc[f] if f in nc else getattr(state.inner, f)[k]
+                    continue
+                # Alg. 1 lines 3-4 on this leaf alone: fp32 views of quantized
+                # moments (FactoredMoment and raw leaves pass through structurally)
+                view = {}
                 for f in fields:
-                    new[f][k] = nc[f] if f in nc else getattr(state.inner, f)[k]
-                continue
-            # Alg. 1 lines 3-4 on this leaf alone: fp32 views of quantized
-            # moments (FactoredMoment and raw leaves pass through structurally)
-            view = {}
-            for f in fields:
-                x = getattr(state.inner, f)[k]
-                view[f] = {k: decompress_moment(x) if isinstance(x, QuantizedTensor) else x}
-            u, one = inner.update({k: updates[k]}, state.inner._replace(**view),
-                                  {k: params[k]} if params is not None else None, key=key)
-            del view
-            out_u[k] = u[k]
-            # Alg. 1 line 5: recompress with per-leaf, per-field SR keys
-            fkeys = (dict(zip(names, sr.split(lk, len(names))))
-                     if lk is not None and len(names) > 1 else {n: lk for n in names})
-            for f in fields:
-                old, x = getattr(state.inner, f)[k], getattr(one, f)[k]
-                new[f][k] = (quantize(x, old.config, key=fkeys[f])
-                             if isinstance(old, QuantizedTensor) else x)
-            del u, one
+                    x = getattr(state.inner, f)[k]
+                    view[f] = {k: decompress_moment(x) if isinstance(x, QuantizedTensor) else x}
+                u, one = inner.update({k: updates[k]}, state.inner._replace(**view),
+                                      {k: params[k]} if params is not None else None, key=key)
+                del view
+                out_u[k] = u[k]
+                # Alg. 1 line 5: recompress with per-leaf, per-field SR keys
+                fkeys = (dict(zip(names, sr.split(lk, len(names))))
+                         if lk is not None and len(names) > 1 else {n: lk for n in names})
+                for f in fields:
+                    old, x = getattr(state.inner, f)[k], getattr(one, f)[k]
+                    new[f][k] = (quantize(x, old.config, key=fkeys[f])
+                                 if isinstance(old, QuantizedTensor) else x)
+                del u, one
         return out_u, CompressedState(count, shared._replace(**new))
 
     return GradientTransformation(init, update)

@@ -27,6 +27,10 @@ __all__ = [
     "dequantize",
     "quantized_nbytes",
     "state_bytes",
+    "B2048_DE",
+    "B128_DE",
+    "B128_DE0",
+    "RANK1_LINEAR",
 ]
 
 
@@ -58,6 +62,13 @@ class QuantConfig:
 
     def table(self, device) -> torch.Tensor:
         return mappings.mapping_table(self.mapping, self.bits, self.signed, device)
+
+
+# Paper-named quantizer presets.
+B2048_DE = QuantConfig(normalization="blockwise", block_size=2048, mapping="de")
+B128_DE = QuantConfig(normalization="blockwise", block_size=128, mapping="de")
+B128_DE0 = QuantConfig(normalization="blockwise", block_size=128, mapping="de0", signed=False)
+RANK1_LINEAR = QuantConfig(normalization="rank1", mapping="linear", signed=False)
 
 
 class QuantizedTensor:
@@ -115,14 +126,84 @@ def _denorm_scale(scales, shape, config: QuantConfig) -> torch.Tensor:
     raise ValueError(f"unknown normalization {config.normalization!r}")
 
 
+def _tile_of(x: torch.Tensor):
+    """The mesh tile ``x`` is (``sharding.context``), or None."""
+    from repro_torch.sharding.context import current_tile
+
+    tile = current_tile()
+    return tile if tile is not None and tuple(x.shape) == tile.local_shape else None
+
+
+def _tile_normalize(x: torch.Tensor, config: QuantConfig, tile):
+    """``_normalize`` of a rank's tile of a leaf: the statistics are the
+    whole leaf's (each rank's partial maxima merged over the ranks), so the
+    normalized values are the whole leaf's at the tile's elements; the
+    scales returned are the whole leaf's."""
+    from repro_torch.comms.collectives import merge_max
+    from repro_torch.kernels.sr import flat_indices
+
+    a = torch.abs(x)
+    if config.normalization == "blockwise":
+        n_all = 1
+        for d in tile.shape:
+            n_all *= d
+        blk = flat_indices(tile.shape, tile.box, x.device) // config.block_size
+        part = torch.zeros(normalization.blockwise_num_blocks(n_all, config.block_size),
+                           dtype=torch.float32, device=x.device)
+        part.scatter_reduce_(0, blk.reshape(-1), a.reshape(-1), "amax")
+        part[blk[torch.isnan(x)]] = float("nan")
+        s = normalization._guard(merge_max(part))
+        return x / s[blk], (s,)
+    if config.normalization == "pertensor" or (config.normalization == "rank1"
+                                               and x.ndim <= 1):
+        s = normalization._guard(merge_max(torch.amax(a)[None]))
+        return x / s[0], (s,)
+    if config.normalization == "rank1":
+        stats = []
+        for r, (lo, hi) in enumerate(tile.box):
+            part = torch.zeros(tile.shape[r], dtype=torch.float32, device=x.device)
+            part[lo:hi] = torch.amax(a, dim=tuple(i for i in range(x.ndim) if i != r))
+            stats.append(merge_max(part))
+        return x / _tile_denorm(tuple(stats), config, tile), tuple(stats)
+    raise ValueError(f"unknown normalization {config.normalization!r}")
+
+
+def _tile_denorm(scales, config: QuantConfig, tile) -> torch.Tensor:
+    """Per-element scale of a tile from the whole leaf's scales."""
+    from repro_torch.kernels.sr import flat_indices
+
+    if config.normalization == "blockwise":
+        blk = flat_indices(tile.shape, tile.box, scales[0].device) // config.block_size
+        return scales[0][blk]
+    local = tile.local_shape
+    if config.normalization == "pertensor" or len(local) <= 1:
+        return normalization._guard(scales[0][0]).expand(local)
+    return normalization.rank1_denorm(tuple(s[lo:hi] for s, (lo, hi) in zip(scales, tile.box)),
+                                      local)
+
+
 def quantize(x: torch.Tensor, config: QuantConfig, key=None, *,
              uniforms: Optional[torch.Tensor] = None) -> QuantizedTensor:
     """Compress a tensor. ``key`` (a ``sr`` key pair) drives stochastic
     rounding; ``uniforms`` (same shape as ``x``, in [0, 1)) overrides the
     draw. An SR config without either rounds to nearest (e.g. zeros at init).
+
+    On a mesh, ``x`` may be this rank's tile of the leaf being updated
+    (``sharding.context.current_tile``): the statistics are then the whole
+    leaf's, the scales kept are the whole leaf's, and the SR draw is the
+    whole leaf's at the tile's elements, so the codes are the whole leaf's
+    codes at the tile.
     """
     x = x.to(torch.float32)
-    n, scales = _normalize(x, config)
+    tile = _tile_of(x)
+    if tile is None:
+        n, scales = _normalize(x, config)
+    else:
+        n, scales = _tile_normalize(x, config, tile)
+        if config.stochastic_rounding and uniforms is None and key is not None:
+            from repro_torch.kernels import sr
+
+            uniforms = sr.uniform(key, tile.shape, x.device, tile.box)
     table = config.table(x.device)
     if config.stochastic_rounding and uniforms is not None:
         codes = mappings.encode_stochastic_uniform(n, table, uniforms)
@@ -144,6 +225,9 @@ def dequantize(q: QuantizedTensor) -> torch.Tensor:
         codes = packing.unpack4(codes, q.shape[-1])
     codes = codes.reshape(q.shape)
     vals = mappings.decode(codes, config.table(codes.device))
+    tile = _tile_of(vals)
+    if tile is not None:  # a mesh tile with the whole leaf's scales
+        return vals * _tile_denorm(q.scales, config, tile)
     return vals * _denorm_scale(q.scales, q.shape, config)
 
 

@@ -9,11 +9,11 @@ permutation of its predecessor, so the loss falls during training.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "host_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,3 +49,15 @@ class SyntheticLM:
         toks[:, 1:] = np.where(use_prev[:, 1:], self.perm[toks[:, :-1]], toks[:, 1:])
         labels = np.concatenate([toks[:, 1:], np.full((local, 1), -1, np.int64)], axis=1)
         return {"tokens": toks.astype(np.int32), "labels": labels.astype(np.int32)}
+
+    def iterate(self, start_step: int = 0, host: int = 0,
+                num_hosts: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+        step = start_step
+        while True:
+            yield self.batch_at(step, host, num_hosts)
+            step += 1
+
+
+def host_batch(stream: SyntheticLM, step: int, mesh=None) -> Dict[str, np.ndarray]:
+    """Single-process convenience: the whole global batch on this host."""
+    return stream.batch_at(step, host=0, num_hosts=1)

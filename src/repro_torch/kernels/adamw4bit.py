@@ -65,6 +65,7 @@ def _library():
             p, i,                   # seeds, use_sr
             p, p, p,                # m_codes_out, m_scale_out, v_codes_out
             ll, ll, ll,             # L, R, C
+            ll, ll, ll,             # r0, c0, C_glob (the tile's place)
             p, p, i,                # m_table, m_mid, m_points (host)
             p, p, i,                # v_table, v_mid, v_points (host)
             f, f, f, f, f, f, f, f, f,  # lr b1 omb1 b2 omb2 eps wd bc1 bc2
@@ -150,8 +151,8 @@ def rank1_new_stats(
         return rank1_new_stats_plain(v_packed, v_r, v_c, g, v_table, b2, shape)
     if dev.type != "cuda":
         raise ValueError(f"rank1_new_stats: unsupported device {dev}")
-    if C % 256:
-        raise ValueError(f"rank1_new_stats: C={C} must be a multiple of 256")
+    if C % _BLOCK:
+        raise ValueError(f"rank1_new_stats: C={C} must be a multiple of {_BLOCK}")
     check = lambda what, x, dtype, shp: build.check_operand("rank1_new_stats", what, x, dtype,
                                                             shp, dev)
     check("v_packed", v_packed, torch.uint8, (L, R, C // 2))
@@ -176,10 +177,12 @@ def rank1_new_stats(
 
 def fused_adamw4_plain(w, g, m_packed, m_scale, v_packed, v_r, v_c, v_r_new, v_c_new,
                        m_table, v_table, lr, bc1, bc2, sr_seed=None, *,
-                       b1, b2, eps, weight_decay, use_sr=False):
+                       b1, b2, eps, weight_decay, use_sr=False, tile=None):
     """The plain torch version on (L, R, C) operands; returns (w_new,
     m_packed_new, m_scale_new, v_packed_new). Scalars become 0-d tensors on
-    the operands' device so every division is a true IEEE division."""
+    the operands' device so every division is a true IEEE division.
+    ``tile = (r0, c0, C_glob)`` places the operands in their slices (the SR
+    counters)."""
     dev = w.device
     t = lambda x: torch.full((), float(x), dtype=torch.float32, device=dev)
     m_table, v_table = m_table.to(dev), v_table.to(dev)
@@ -188,7 +191,7 @@ def fused_adamw4_plain(w, g, m_packed, m_scale, v_packed, v_r, v_c, v_r_new, v_c
     args = (w, g, m_packed, m_scale, v_packed, v_r, v_c, m_table, v_table,
             t(lr), b1, b2, eps, weight_decay, t(bc1), t(bc2))
     if use_sr:
-        out = ref.fused_adamw4_sr_reference(*args, sr_seed, v_r_new, v_c_new)
+        out = ref.fused_adamw4_sr_reference(*args, sr_seed, v_r_new, v_c_new, tile=tile)
     else:
         out = ref.fused_adamw4_reference(*args, v_r_new, v_c_new)
     return out[:4]
@@ -217,19 +220,28 @@ def fused_adamw4(
     weight_decay: float,
     use_sr: bool = False,
     out: Optional[torch.Tensor] = None,
+    tile: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused AdamW step over all stacked slices in ONE launch.
 
     Returns (w_new, m_packed_new, m_scale_new, v_packed_new) in the input
     rank. ``out`` (shaped like ``w``) receives the param, and may be ``w``.
+    ``tile = (r0, c0, C_glob)``: the operands are rows ``[r0, r0 + R)`` and
+    columns ``[c0, c0 + C)`` of slices ``C_glob`` wide (``c0 % 128 == 0``);
+    the SR noise is then the whole leaf's at those elements. ``None`` is a
+    whole leaf, ``(0, 0, C)``.
     """
     squeeze = w.ndim == 2
     if squeeze:
         (R, C), L = w.shape, 1
     else:
         L, R, C = w.shape
-    if C % 256:
-        raise ValueError(f"fused_adamw4: C={C} must be a multiple of 256")
+    if C % _BLOCK:
+        raise ValueError(f"fused_adamw4: C={C} must be a multiple of {_BLOCK}")
+    tile = (0, 0, C) if tile is None else tuple(int(t) for t in tile)
+    r0, c0, C_glob = tile
+    if r0 < 0 or c0 < 0 or c0 % _BLOCK or c0 + C > C_glob or (r0 + R) * C_glob > 1 << 32:
+        raise ValueError(f"fused_adamw4: tile {tile} does not place ({R}, {C}) in its slices")
     if use_sr and sr_seed is None:
         raise ValueError("fused_adamw4(use_sr=True) requires sr_seed")
     w3 = w.reshape(L, R, C)
@@ -248,7 +260,7 @@ def fused_adamw4(
             w3, ops["g"], ops["m_packed"], ops["m_scale"], ops["v_packed"],
             ops["v_r"], v_c, ops["v_r_new"], v_c_new, m_table, v_table, lr, bc1, bc2,
             None if sr_seed is None else sr_seed.reshape(L, 2),
-            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, use_sr=use_sr,
+            b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, use_sr=use_sr, tile=tile,
         )
         w_new = res[0]
         if out is not None:
@@ -257,7 +269,7 @@ def fused_adamw4(
         res = (w_new.reshape(L, R, C),) + tuple(res[1:])
     elif dev.type == "cuda":
         res = _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
-                      L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes)
+                      L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes, tile)
     else:
         raise ValueError(f"fused_adamw4: unsupported device {dev}")
     if squeeze:
@@ -270,7 +282,7 @@ def _check(what, x, dtype, shape, dev):
 
 
 def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
-            L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes):
+            L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes, tile):
     dev = w3.device
     if w3.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_adamw4: param dtype {w3.dtype} (fp32 or bf16 only)")
@@ -304,7 +316,7 @@ def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
         ptr(ops["v_r"]), ptr(v_c), ptr(ops["v_r_new"]), ptr(v_c_new),
         ptr(seeds) if seeds is not None else None, int(use_sr),
         ptr(m_out), ptr(ms_out), ptr(v_out),
-        L, R, C,
+        L, R, C, *tile,
         fp(mt), fp(mmid), mp, fp(vt), fp(vmid), vp,
         float(np.float32(lr)), hs["b1"], hs["omb1"], hs["b2"], hs["omb2"],
         hs["eps"], hs["wd"], float(np.float32(bc1)), float(np.float32(bc2)),

@@ -14,6 +14,15 @@ row stats ``(L, R)`` and shared column stats ``(C,)``. Stochastic rounding:
 slice ``l`` is keyed by ``fold_in(leaf_key, l)``; the seed rows are derived
 on the host (no device work, no synchronisation).
 
+On a mesh (``sharding.context``), ``p`` is a rank's tile of the leaf: the
+tile's slices, rows ``[r0, r1)`` and columns ``[c0, c1)`` (``c0`` and the
+width multiples of 128, so B128 blocks stay whole). The moments come in the
+mesh step's working layout: codes of the tile, the whole leaf's scales. Pass
+1 runs on the tile and its per-dim maxima are merged over the ranks
+(NaN-propagating max) before pass 2, which runs on the tile with the whole
+leaf's seed rows and SR counters; the tile's new m scales are merged into
+the whole leaf's. The route was chosen by the whole leaf's shape.
+
 Dispatch follows the tensors: a CUDA leaf launches the CUDA kernels
 (``adamw4bit.LAUNCHES`` counts launches of both passes, in place of the
 reference's ``count_pallas_calls``), a CPU leaf takes the plain versions.
@@ -21,6 +30,7 @@ reference's ``count_pallas_calls``), a CPU leaf takes the plain versions.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +39,8 @@ from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.kernels.adamw4bit import LAUNCHES, fused_adamw4, rank1_new_stats
 from repro_torch.kernels.sr import threefry2x32
 
-__all__ = ["fused_adamw4_leaf", "leaf_operands", "seed_rows", "LAUNCHES"]
+__all__ = ["fused_adamw4_leaf", "leaf_operands", "seed_rows", "tile_stats", "tile_update",
+           "LAUNCHES"]
 
 _BLOCK = 128
 
@@ -105,6 +116,11 @@ def fused_adamw4_leaf(
     in-kernel stochastic rounding when the configs ask for it (no key =>
     round-to-nearest, as ``quantize()`` falls back). ``lr``/``bc1``/``bc2``
     are host fp32 values."""
+    from repro_torch.sharding.context import current_tile
+
+    tile = current_tile()
+    if tile is not None:
+        return _tile_leaf(tile, p, g, m_s, v_s, lr, b1, b2, eps, weight_decay, bc1, bc2, key)
     operands, new_stats = leaf_operands(p, g, m_s, v_s, b2, key)
     _, mp3, ms3, vp3 = fused_adamw4(
         **operands, lr=lr, bc1=bc1, bc2=bc2,
@@ -112,5 +128,89 @@ def fused_adamw4_leaf(
     )
     m2 = QuantizedTensor(mp3.reshape(m_s.codes.shape), (ms3.reshape(m_s.scales[0].shape),),
                          m_s.shape, m_s.config)
+    v2 = QuantizedTensor(vp3.reshape(v_s.codes.shape), new_stats, v_s.shape, v_s.config)
+    return p, m2, v2
+
+
+def _merged(parts: Tuple[torch.Tensor, ...], box, shape) -> Tuple[torch.Tensor, ...]:
+    """Per-dim maxima of a tile, placed in the whole leaf's dims and merged
+    over the ranks (every value is >= 0 or NaN, so 0 is the identity)."""
+    from repro_torch.comms.collectives import merge_max
+
+    out = []
+    for st, (lo, hi), n in zip(parts, box, shape):
+        full = torch.zeros(n, dtype=torch.float32, device=st.device)
+        full[lo:hi] = st
+        out.append(merge_max(full))
+    return tuple(out)
+
+
+def _tile_geometry(tile, p):
+    shape, box = tile.shape, tile.box
+    R, C = shape[-2], shape[-1]
+    (r0, r1), (c0, c1) = box[-2], box[-1]
+    if (c1 - c0) % _BLOCK or c0 % _BLOCK:
+        raise ValueError(f"fused_adamw4: the tile {box} of a leaf of shape {shape} cuts B128 "
+                         f"blocks (columns must start and end at multiples of {_BLOCK})")
+    from repro_torch.kernels.sr import flat_indices
+
+    slices = flat_indices(shape[:-2], box[:-2], "cpu").reshape(-1)  # global slice ids
+    return slices, r0, r1, c0, c1, R, C
+
+
+def tile_stats(tile, g: torch.Tensor, v_s: QuantizedTensor, b2: float) -> Tuple[torch.Tensor, ...]:
+    """Pass 1 on a rank's tile (``v_s``: the tile's codes, the whole leaf's
+    stats): the per-dim maxima of the updated v over the tile, in the tile's
+    extents. Merged over the tiles (max) they are the whole leaf's."""
+    slices, r0, r1, c0, c1, _, _ = _tile_geometry(tile, g)
+    Lt, Rt, Ct = slices.numel(), r1 - r0, c1 - c0
+    local = tile.local_shape
+    v_r, v_c = (x.contiguous() for x in _rank1_slice_stats(
+        tuple(s[lo:hi] for s, (lo, hi) in zip(v_s.scales, tile.box)), local))
+    return rank1_new_stats(v_s.codes.reshape(Lt, Rt, Ct // 2), v_r, v_c,
+                           g.to(torch.float32).reshape(Lt, Rt, Ct), v_s.config.table("cpu"), b2,
+                           local)
+
+
+def tile_update(tile, p, g, m_s: QuantizedTensor, v_s: QuantizedTensor, new_stats,
+                lr, b1, b2, eps, weight_decay, bc1, bc2, key=None):
+    """Pass 2 on a rank's tile with the whole leaf's new stats ``new_stats``:
+    the tile's slices keep their seed rows and its elements their SR
+    counters. ``p`` is updated in place. Returns (p, m codes, the tile's m
+    scales (Lt, Rt, Ct / 128), v codes, the flat indices of those scales in
+    the whole leaf's scale vector)."""
+    slices, r0, r1, c0, c1, R, C = _tile_geometry(tile, p)
+    Lt, Rt, Ct = slices.numel(), r1 - r0, c1 - c0
+    local, box = tile.local_shape, tile.box
+    blk = ((slices[:, None, None] * R + torch.arange(r0, r1)[None, :, None]) * (C // _BLOCK)
+           + torch.arange(c0 // _BLOCK, c1 // _BLOCK)[None, None, :]).to(p.device)
+    v_r, v_c = _rank1_slice_stats(tuple(s[lo:hi] for s, (lo, hi) in zip(v_s.scales, box)),
+                                  local)
+    v_r_new, v_c_new = _rank1_slice_stats(
+        tuple(s[lo:hi] for s, (lo, hi) in zip(new_stats, box)), local)
+    use_sr = bool(m_s.config.stochastic_rounding) and key is not None
+    seeds = seed_rows(key, math.prod(tile.shape[:-2]))[slices] if use_sr else None
+    w3 = p.reshape(Lt, Rt, Ct)
+    _, mp3, ms3, vp3 = fused_adamw4(
+        w3, g.to(torch.float32).reshape(Lt, Rt, Ct), m_s.codes.reshape(Lt, Rt, Ct // 2),
+        m_s.scales[0][blk].contiguous(), v_s.codes.reshape(Lt, Rt, Ct // 2), v_r.contiguous(),
+        v_c.contiguous(), v_r_new.contiguous(), v_c_new.contiguous(), m_s.config.table("cpu"),
+        v_s.config.table("cpu"), lr, bc1, bc2, seeds,
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, use_sr=use_sr, out=w3,
+        tile=(r0, c0, C),
+    )
+    return p, mp3, ms3, vp3, blk
+
+
+def _tile_leaf(tile, p, g, m_s, v_s, lr, b1, b2, eps, weight_decay, bc1, bc2, key):
+    from repro_torch.comms.collectives import merge_max
+
+    new_stats = _merged(tile_stats(tile, g, v_s, b2), tile.box, tile.shape)
+    p, mp3, ms3, vp3, blk = tile_update(tile, p, g, m_s, v_s, new_stats, lr, b1, b2, eps,
+                                        weight_decay, bc1, bc2, key)
+    m_scale = torch.zeros_like(m_s.scales[0])
+    m_scale[blk] = ms3
+    m2 = QuantizedTensor(mp3.reshape(m_s.codes.shape), (merge_max(m_scale),), m_s.shape,
+                         m_s.config)
     v2 = QuantizedTensor(vp3.reshape(v_s.codes.shape), new_stats, v_s.shape, v_s.config)
     return p, m2, v2

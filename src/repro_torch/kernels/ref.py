@@ -76,11 +76,17 @@ def dequant_rank1(packed: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
     return vals * _guard(torch.minimum(r[..., :, None], c))
 
 
-def slice_uniforms(seed: torch.Tensor, shape: Tuple[int, int], stream: int) -> torch.Tensor:
+def slice_uniforms(seed: torch.Tensor, shape: Tuple[int, int], stream: int,
+                   tile: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Per-element uniforms for stacked (R, C) slices: slice ``l`` is keyed
-    by seed row ``seed[l]`` (int64 words), counter = slice-local r*C + c."""
+    by seed row ``seed[l]`` (int64 words), counter = slice-local r*C + c.
+    ``tile = (r0, c0, C_glob)``: the (R, C) are rows ``r0...`` and columns
+    ``c0...`` of slices ``C_glob`` wide, and the counter is the slice's."""
     R, C = shape
-    linear = torch.arange(R * C, dtype=torch.int64, device=seed.device).reshape(R, C)
+    r0, c0, C_glob = (0, 0, C) if tile is None else tile
+    rows = torch.arange(r0, r0 + R, dtype=torch.int64, device=seed.device)
+    cols = torch.arange(c0, c0 + C, dtype=torch.int64, device=seed.device)
+    linear = rows[:, None] * C_glob + cols[None, :]
     k0 = seed[..., 0, None, None]
     k1 = seed[..., 1, None, None]
     w0, _ = threefry2x32(k0, k1, linear, stream)
@@ -142,15 +148,17 @@ def fused_adamw4_sr_reference(
     lr, b1: float, b2: float, eps: float, weight_decay: float, bc1, bc2,
     seed: torch.Tensor,
     v_r_new: Optional[torch.Tensor] = None, v_c_new: Optional[torch.Tensor] = None,
+    tile: Optional[Tuple[int, int, int]] = None,
 ):
     """Stochastic-rounding twin of ``fused_adamw4_reference``: both moments
     requantize with counter-based Threefry uniforms keyed by ``seed``
-    ((..., 2) int64 key words, one row per slice)."""
+    ((..., 2) int64 key words, one row per slice) at the slice-local
+    counters of ``tile`` (``slice_uniforms``)."""
     w_new, m_new, v_new = _adamw_core(
         w, g, m_packed, m_scale, v_packed, v_r, v_c, m_table, v_table,
         lr, b1, b2, eps, weight_decay, bc1, bc2,
     )
     shape = tuple(w.shape[-2:])
-    u_m = slice_uniforms(seed, shape, STREAM_M)
-    u_v = slice_uniforms(seed, shape, STREAM_V)
+    u_m = slice_uniforms(seed, shape, STREAM_M, tile)
+    u_v = slice_uniforms(seed, shape, STREAM_V, tile)
     return (w_new,) + _requant(m_new, v_new, v_r_new, v_c_new, m_table, v_table, u_m, u_v)

@@ -23,7 +23,7 @@ The fused kernel's own draw is ``element_uniforms``: counter0 = slice-local
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +32,7 @@ __all__ = [
     "uniform_from_bits",
     "element_uniforms",
     "tensor_uniforms",
+    "flat_indices",
     "PRNGKey",
     "fold_in",
     "split",
@@ -54,6 +55,7 @@ _PARITY = 0x1BD11BDA  # Threefry key-schedule parity constant
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 
 Key = Tuple[int, int]
+Box = Tuple[Tuple[int, int], ...]
 
 
 def _rotl(x, r: int):
@@ -93,13 +95,31 @@ def element_uniforms(k0: int, k1: int, shape: Tuple[int, int], stream: int,
     return uniform_from_bits(w0)
 
 
-def tensor_uniforms(key: Key, shape, stream: int, device) -> torch.Tensor:
-    """Per-element uniforms for any rank, counter = flat global index."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    linear = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
-    w0, _ = threefry2x32(key[0], key[1], linear, stream)
+def flat_indices(shape, box: Optional[Box], device) -> torch.Tensor:
+    """int64 flat (row-major) indices in ``shape`` of the elements of
+    ``box`` (``(start, stop)`` per dim; ``None`` is the whole tensor),
+    shaped like the box."""
+    shape = tuple(int(d) for d in shape)
+    if box is None:
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        a, b = box[d]
+        r = torch.arange(a, b, dtype=torch.int64, device=device) * stride
+        idx = r.reshape((-1,) + (1,) * (len(shape) - 1 - d)) + idx
+        stride *= shape[d]
+    return idx.reshape(tuple(b - a for a, b in box))
+
+
+def tensor_uniforms(key: Key, shape, stream: int, device, box: Optional[Box] = None
+                    ) -> torch.Tensor:
+    """Per-element uniforms for any rank, counter = flat global index (of
+    the elements of ``box`` in a ``shape`` tensor, when given)."""
+    w0, _ = threefry2x32(key[0], key[1], flat_indices(shape, box, device), stream)
     return uniform_from_bits(w0)
 
 
@@ -126,20 +146,21 @@ def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
     return tuple(threefry2x32(key[0], key[1], 0, i) for i in range(num))
 
 
-def bits(key: Key, shape, device) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (uint32 words, held in int64)."""
+def bits(key: Key, shape, device, box: Optional[Box] = None) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 words, held in int64); with
+    ``box``, only the words of its elements."""
     n = 1
     for d in shape:
         n *= int(d)
     if n >= 1 << 32:
         raise ValueError("bits(): more than 2^32 draws need the high counter word")
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    w0, w1 = threefry2x32(key[0], key[1], 0, i)
-    return (w0 ^ w1).reshape(tuple(shape))
+    w0, w1 = threefry2x32(key[0], key[1], 0, flat_indices(shape, box, device))
+    return w0 ^ w1
 
 
-def uniform(key: Key, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (fp32 in [0, 1)), bit for bit."""
-    b = bits(key, shape, device)
+def uniform(key: Key, shape, device, box: Optional[Box] = None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (fp32 in [0, 1)), bit for bit;
+    with ``box``, its elements of that draw."""
+    b = bits(key, shape, device, box)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(f, 0.0)

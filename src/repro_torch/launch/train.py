@@ -6,10 +6,18 @@ Port of ``repro/launch/train.py`` for one device:
         --optimizer production4bit --sr-seed 0 --steps 5
 
 runs on ``cuda`` (``--device cpu --reduced`` runs the same path at CPU
-scale). The flags are the reference's; ``--mesh`` is not ported yet and is
-refused. The modality-stub archs (whisper-large-v3, qwen2-vl-2b) are
-refused, as the reference's CLI refuses them: they train through the
-library (``train_loop.build_train_step``). ``--grad-comm {fp32,bf16,int8,int4}`` applies the gradient wire
+scale). The flags are the reference's. ``--mesh DxM`` trains on a (data=D,
+model=M) mesh of D*M local processes (``train_loop.build_train_step(mesh=)``):
+they meet through a ``FileStore`` in a fresh directory (``--run-dir``, else
+a new temporary one), never a fixed port. The backend is NCCL when each
+rank has a card of its own and gloo on the CPU or when the ranks share a
+card (the first line says which); under gloo the collectives copy CUDA
+tensors through host memory. Rank 0 prints the step lines and every rank's
+state, parameter and peak bytes. ``--mesh`` with ``--ckpt-dir`` is refused:
+multi-process checkpoints are ROADMAP queue A item 5. The modality-stub
+archs (whisper-large-v3, qwen2-vl-2b) are refused, as the reference's CLI
+refuses them: they train through the library
+(``train_loop.build_train_step``). ``--grad-comm {fp32,bf16,int8,int4}`` applies the gradient wire
 format on the one device (int8/int4: block-quantized transport with
 stochastic rounding keyed off the ``--sr-seed`` stream).
 
@@ -27,6 +35,11 @@ from __future__ import annotations
 
 import argparse
 import ast
+import json
+import os
+import shutil
+import sys
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -46,8 +59,8 @@ from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.io import CheckpointManager
 from repro_torch.kernels import sr
-from repro_torch.models import Transformer, init_model
-from repro_torch.train.train_loop import build_train_step, make_train_state
+from repro_torch.models import Transformer, init_model, param_axes
+from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
 
 __all__ = ["main", "parse_args", "abstract_train_state"]
 
@@ -79,7 +92,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--grad-comm", default="fp32", choices=list(GRAD_COMM_MODES),
                     help="gradient wire format; int8/int4 block-quantize the gradients")
-    ap.add_argument("--mesh", default=None, help="not ported yet")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="mesh of D*M local processes, e.g. 2x2 (data=2, model=2)")
+    ap.add_argument("--run-dir", default=None,
+                    help="--mesh: directory of the ranks' rendezvous "
+                         "(default: a new temporary one)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--keep-last", type=int, default=3,
@@ -88,7 +105,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="retention: also keep every K-th step")
     args = ap.parse_args(argv)
     if args.mesh is not None:
-        ap.error("--mesh: the port runs on one device; the mesh path is not ported yet")
+        d, x, m = args.mesh.partition("x")
+        if not (x and d.isdigit() and m.isdigit() and int(d) >= 1 and int(m) >= 1):
+            ap.error(f"--mesh {args.mesh!r}: expected DxM, e.g. 2x2")
+        if args.ckpt_dir is not None:
+            ap.error("--mesh with --ckpt-dir: multi-process checkpoints are ROADMAP queue A "
+                     "item 5; the mesh path trains without saving")
     if args.ckpt_every < 1:
         ap.error("--ckpt-every: must be at least 1")
     for kv in args.opt_arg:
@@ -118,12 +140,7 @@ def abstract_train_state(cfg, optimizer, key=None, device=None):
     return model, make_train_state(model, optimizer, key=key)
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
-    """Run the CLI; returns a summary (per-step loss, its ce and MoE aux
-    parts and ms, state bytes, the gradient wire report, peak device
-    memory, checkpoint times) for callers such as ``chip_smoke.py``."""
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+def _setup(args):
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if cfg.input_mode == "embeds" or cfg.family == "encdec":
         raise SystemExit(f"{args.arch}: modality-stub arch — use examples/ or the dry-run")
@@ -134,6 +151,124 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         **overrides,
     )
     sr_key = sr.PRNGKey(args.sr_seed) if args.sr_seed is not None else None
+    return cfg, opt, sr_key
+
+
+def _main_mesh(args, argv, device, cfg, opt) -> Dict:
+    """``--mesh DxM``: D*M processes, rank 0's summary returned."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import named_params
+    from repro_torch.train.mesh import check_state
+
+    d, _, m = args.mesh.partition("x")
+    shape = (int(d), int(m))
+    world = shape[0] * shape[1]
+    meta = named_params(init_model(cfg, device="meta"))
+    try:  # refuse before starting the ranks
+        check_state(opt.init(meta), {k: tuple(p.shape) for k, p in meta.items()})
+    except ValueError as e:
+        raise SystemExit(f"--mesh --optimizer {args.optimizer}: {e}")
+    own_card = device.type == "cuda" and torch.cuda.device_count() >= world
+    backend = "nccl" if own_card else "gloo"
+    where = ("one card per rank" if own_card else
+             f"ranks share {device}; collectives copy through host memory"
+             if device.type == "cuda" else "cpu")
+    print(f"mesh data={shape[0]} model={shape[1]}: {world} processes, backend={backend} ({where})",
+          flush=True)
+    run_dir = args.run_dir or tempfile.mkdtemp(prefix="repro_mesh_")
+    os.makedirs(run_dir, exist_ok=True)
+    store = os.path.join(run_dir, "rendezvous")
+    if os.path.exists(store):
+        os.remove(store)
+    try:
+        mp.spawn(_mesh_rank, args=(world, shape, argv, run_dir, backend), nprocs=world, join=True)
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            return json.load(f)
+    finally:
+        if args.run_dir is None:
+            shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.core.optimizers import state_nbytes
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    if backend == "nccl":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="file://" + os.path.join(run_dir, "rendezvous"),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(shape, ("data", "model"), "cuda" if backend == "nccl" else "cpu")
+        cfg, opt, sr_key = _setup(args)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        model = init_model(cfg, seed=0, device=device)
+        state = make_train_state(model, opt, key=sr_key)
+        whole = state_nbytes(state.opt_state)
+        n_params = sum(p.numel() for p in state.params.values())
+        axes = param_axes(cfg)
+        state = shard_train_state(state, mesh, axes)
+        comms = CommsConfig.parse(args.grad_comm)
+        if rank == 0:
+            print(f"arch={cfg.name} params={n_params:,} optimizer={opt.name} "
+                  f"state_bytes={whole:,} device={device}", flush=True)
+        step_fn = build_train_step(model, opt, mesh, axes, comms=comms)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
+        records = []
+        for t in range(args.steps):
+            batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(t).items()}
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            records.append({"step": t, "loss": loss, "ms": ms,
+                            "ce_loss": float(metrics["ce_loss"]),
+                            "aux_loss": float(metrics["aux_loss"]),
+                            "grad_norm": float(metrics["grad_norm"]), **step_fn.times})
+            if rank == 0 and t % 5 == 0:
+                print(f"step {t:4d} loss {loss:.4f} aux_loss {records[-1]['aux_loss']:.4f} "
+                      f"({ms:.0f} ms)", flush=True)
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        mine = torch.tensor([state_nbytes(state.opt_state),
+                             sum(p.numel() * p.element_size() for p in state.params.values()),
+                             peak], dtype=torch.int64)
+        every = [torch.zeros_like(mine) for _ in range(world)]
+        dist.all_gather(every, mine)
+        ranks = []
+        for r, row in enumerate(every):
+            st, pb, pk = (int(v) for v in row)
+            coord = step_fn.mesh_step.run.coords[r]
+            ranks.append({"rank": r, **coord, "state_bytes": st, "param_bytes": pb,
+                          "peak_bytes": pk})
+            if rank == 0:
+                print(f"rank {r} (data={coord['data']}, model={coord['model']}): "
+                      f"state_bytes={st:,} param_bytes={pb:,} peak_bytes={pk:,}", flush=True)
+        if rank == 0:
+            with open(os.path.join(run_dir, "summary.json"), "w") as f:
+                json.dump({"arch": cfg.name, "optimizer": opt.name, "state_bytes": whole,
+                           "n_params": n_params, "mesh": list(shape), "backend": backend,
+                           "steps": records, "ranks": ranks}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    """Run the CLI; returns a summary (per-step loss, its ce and MoE aux
+    parts and ms, state bytes, the gradient wire report, peak device
+    memory, checkpoint times) for callers such as ``chip_smoke.py``."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg, opt, sr_key = _setup(args)
+    if args.mesh is not None:
+        return _main_mesh(args, list(argv) if argv is not None else sys.argv[1:], device, cfg,
+                          opt)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 

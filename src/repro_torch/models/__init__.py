@@ -1,5 +1,6 @@
 """Models of the port (port of ``repro.models``)."""
 
+from repro_torch.models.axes import param_axes
 from repro_torch.models.blocks import LayerSpec
 from repro_torch.models.model import (
     ModelConfig,
@@ -32,4 +33,5 @@ __all__ = [
     "encode",
     "prefill",
     "prefill_with_cache",
+    "param_axes",
 ]

@@ -319,10 +319,18 @@ def forward_hidden(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
     """Causal LM loss (chunked CE, final-logit softcap) + 0.01 * the MoE
     load-balance aux. Returns (loss, metrics with ``ce_loss``, ``aux_loss``)."""
-    params = named_params(model)
-    x, aux = _forward(params, model.cfg, batch)
-    loss = chunked_cross_entropy(x, _head(params, model.cfg), batch["labels"],
-                                 logit_cap=model.cfg.final_softcap, chunk=model.cfg.ce_chunk)
+    return params_loss(named_params(model), model.cfg, batch)
+
+
+def params_loss(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor], unit_layers=None):
+    """``loss_fn`` over a ``{path: tensor}`` mapping; ``unit_layers(units,
+    root)`` gives the layer loop its per-layer parameters (by default
+    ``_unit_layers`` over ``params``; the mesh step passes its gather
+    hook)."""
+    x, aux = _forward(params, cfg, batch, unit_layers)
+    loss = chunked_cross_entropy(x, _head(params, cfg), batch["labels"],
+                                 logit_cap=cfg.final_softcap, chunk=cfg.ce_chunk)
     total = loss + 0.01 * aux
     return total, {"ce_loss": loss.detach(), "aux_loss": aux.detach()}
 
@@ -383,25 +391,28 @@ def _inputs(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
 
 
 def encode(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+           frames: torch.Tensor, unit_layers=None) -> torch.Tensor:
     """An encoder-decoder's encoder: frames (B, Se, D) in bf16 plus the bf16
     sinusoids, the encoder units, ``enc_norm`` -> ``enc_out`` (B, Se, D)
     bf16, what ``decode_step`` cross-attends to."""
     e = frames.to(COMPUTE_DTYPE)
     e = e + sinusoidal_positions(e.shape[1], cfg.d_model, e.device)[None].to(e.dtype)
     units = plan_scan_units(cfg.encoder_blocks)
-    e, _ = _run_units(cfg, units, _unit_layers(params, units, "encoder"), e, None)
+    layers = (unit_layers or (lambda u, root: _unit_layers(params, u, root)))(units, "encoder")
+    e, _ = _run_units(cfg, units, layers, e, None)
     return norm_apply(cfg, e, _norm_of(params, "enc_norm"))
 
 
 def _forward(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
-             batch: Dict[str, torch.Tensor]):
+             batch: Dict[str, torch.Tensor], unit_layers=None):
     """The reference's ``forward_hidden`` over a ``{path: tensor}`` mapping:
     (final hidden states (B, S, D) bf16, the fp32 MoE aux sum)."""
     x, positions = _inputs(params, cfg, batch)
-    enc_out = encode(params, cfg, batch["frames"]) if cfg.family == "encdec" else None
+    enc_out = (encode(params, cfg, batch["frames"], unit_layers) if cfg.family == "encdec"
+               else None)
     units = plan_scan_units(cfg.blocks)
-    x, aux = _run_units(cfg, units, _unit_layers(params, units), x, positions, enc_out=enc_out)
+    layers = (unit_layers or (lambda u, root: _unit_layers(params, u, root)))(units, "decoder")
+    x, aux = _run_units(cfg, units, layers, x, positions, enc_out=enc_out)
     return norm_apply(cfg, x, _norm_of(params, "final_norm")), aux
 
 

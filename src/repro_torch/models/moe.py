@@ -73,10 +73,20 @@ def moe_route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int)
 def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, group_size: int = 2048
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (output (B, S, D) in x's dtype, fp32 aux loss)."""
+    """x (B, S, D) -> (output (B, S, D) in x's dtype, fp32 aux loss).
+
+    On a mesh, ``x`` is one data shard of the global batch
+    (``sharding.context.batch_shards``): the groups are those of the global
+    batch, so the shard must hold whole groups, and the mean of the shards'
+    aux losses is the global one."""
+    from repro_torch.sharding.context import current_batch_shards
+
     B, S, D = x.shape
     E = p["router"].shape[-1]
-    T, C = moe_capacity(B * S, top_k, E, capacity_factor, group_size)
+    T, C = moe_capacity(B * S * current_batch_shards(), top_k, E, capacity_factor, group_size)
+    if (B * S) % T:
+        raise ValueError(f"moe: a data shard of {B * S} tokens does not hold whole groups of "
+                         f"{T} tokens (the global batch's); give each shard a multiple of {T}")
     G = B * S // T
     cd = COMPUTE_DTYPE
 

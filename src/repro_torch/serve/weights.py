@@ -4,8 +4,8 @@ byte accounting.
 Port of ``repro/serve/weights.py``. ``prepare_params`` rewrites the fp32
 master mapping ``{path: tensor}`` into the serving format:
 
-* ``bf16`` — eligible leaves (rank >= 2, more than ``THRESHOLD`` elements)
-  cast to bf16; the others stay fp32.
+* ``bf16`` — eligible leaves (rank >= 2, more than ``threshold`` elements,
+  ``DEFAULT_THRESHOLD`` by default) cast to bf16; the others stay fp32.
 * ``q4`` — the same eligible leaves stored as ``QuantizedTensor`` under
   B128/DE (blockwise-128 absmax scales, the signed dynamic-exponent map),
   quantized by the block-wise 4-bit kernel (``kernels.quant4``, launched on
@@ -46,7 +46,7 @@ from repro_torch.kernels import quant4
 __all__ = [
     "WEIGHT_Q4",
     "WEIGHT_MODES",
-    "THRESHOLD",
+    "DEFAULT_THRESHOLD",
     "kernel_view",
     "prepare_params",
     "materialize",
@@ -61,7 +61,7 @@ WEIGHT_MODES = ("bf16", "q4")
 
 # Same small-tensor cutoff the optimizer states use (App. D.1): leaves of at
 # most this many elements, or of rank < 2, stay fp32.
-THRESHOLD = 4096
+DEFAULT_THRESHOLD = 4096
 
 
 def _numel(shape) -> int:
@@ -71,8 +71,8 @@ def _numel(shape) -> int:
     return n
 
 
-def _eligible(shape) -> bool:
-    return len(shape) >= 2 and _numel(shape) > THRESHOLD
+def _eligible(shape, threshold: int) -> bool:
+    return len(shape) >= 2 and _numel(shape) > threshold
 
 
 def _view(shape: Tuple[int, ...]) -> Optional[Tuple[int, int]]:
@@ -123,14 +123,15 @@ def _dequantize_leaf(q: QuantizedTensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prepare_params(params: Mapping[str, torch.Tensor], mode: str) -> Dict[str, Any]:
+def prepare_params(params: Mapping[str, torch.Tensor], mode: str, *,
+                   threshold: int = DEFAULT_THRESHOLD) -> Dict[str, Any]:
     """fp32 masters ``{path: tensor}`` -> serving mapping (bf16 tensors or
     q4 ``QuantizedTensor``s for eligible leaves, fp32 for the rest)."""
     _check_mode(mode)
     out: Dict[str, Any] = {}
     for path, leaf in params.items():
         leaf = leaf.detach()
-        if not _eligible(leaf.shape):
+        if not _eligible(leaf.shape, threshold):
             out[path] = leaf.to(torch.float32)
         elif mode == "bf16":
             out[path] = leaf.to(torch.bfloat16)
@@ -147,15 +148,16 @@ def materialize(serving_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for path, x in serving_params.items()}
 
 
-def _leaf_bytes(shape, mode: str) -> int:
-    if not _eligible(shape):
+def _leaf_bytes(shape, mode: str, threshold: int) -> int:
+    if not _eligible(shape, threshold):
         return _numel(shape) * 4
     if mode == "bf16":
         return _numel(shape) * 2
     return quantized_nbytes(shape, WEIGHT_Q4)
 
 
-def weight_report(params: Mapping[str, Any], mode: str) -> Dict:
+def weight_report(params: Mapping[str, Any], mode: str, *,
+                  threshold: int = DEFAULT_THRESHOLD) -> Dict:
     """Per-leaf and total weight bytes under a serving mode, from shapes
     alone (``params`` maps paths to anything with ``.shape``, e.g. tensors
     on the ``meta`` device)."""
@@ -164,9 +166,9 @@ def weight_report(params: Mapping[str, Any], mode: str) -> Dict:
     total = total_bf16 = quantized_leaves = 0
     for path, leaf in tree_order(params).items():
         shape = tuple(int(d) for d in leaf.shape)
-        nbytes = _leaf_bytes(shape, mode)
-        bf16 = _leaf_bytes(shape, "bf16")
-        quantized = mode == "q4" and _eligible(shape)
+        nbytes = _leaf_bytes(shape, mode, threshold)
+        bf16 = _leaf_bytes(shape, "bf16", threshold)
+        quantized = mode == "q4" and _eligible(shape, threshold)
         quantized_leaves += int(quantized)
         rows.append({"path": path, "shape": shape, "bf16_bytes": bf16,
                      "serve_bytes": nbytes, "quantized": quantized})

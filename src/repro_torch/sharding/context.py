@@ -1,0 +1,160 @@
+"""The mesh context (counterpart of ``repro/sharding/context.py``): what a
+rank of a ``(data, model)`` mesh knows about its place, and the tile of the
+leaf that an update is working on.
+
+The reference keeps its layouts inside one jitted program (GSPMD); the
+port runs one process per rank, so each rank holds only its part of every
+tensor and the code that needs the whole leaf asks this module:
+
+* ``MeshRun``: the mesh, this rank's coordinate, and the process groups
+  (the world, and the data group of the ranks that share this rank's model
+  coordinate: gradients are summed over it);
+* ``use(run, tiles)`` makes a run and its ``{path: Tile}`` map current;
+  ``leaf(path)`` marks the leaf being updated, and ``current_tile()`` gives
+  its ``Tile`` (the whole leaf's shape and this rank's box) or ``None``
+  off the mesh, where every caller keeps its one-device path unchanged;
+* ``batch_shards(n)`` tells the model its batch is one of ``n`` data
+  shards (the MoE layer forms its token groups over the global batch).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import itertools
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.sharding.rules import dp_axes, mesh_axis_sizes
+
+__all__ = ["Tile", "MeshRun", "use", "leaf", "current_run", "current_tile", "tile_of", "box_of",
+           "rank_coord", "batch_shards", "current_batch_shards"]
+
+Box = Tuple[Tuple[int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """A rank's part of a leaf: the whole ``shape`` and the ``box``
+    (``(start, stop)`` per dim) it holds."""
+
+    shape: Tuple[int, ...]
+    box: Box
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(b - a for a, b in self.box)
+
+    @property
+    def whole(self) -> bool:
+        return all(a == 0 and b == n for (a, b), n in zip(self.box, self.shape))
+
+    def index(self) -> Tuple[slice, ...]:
+        return tuple(slice(a, b) for a, b in self.box)
+
+
+class MeshRun:
+    """This process's place on a mesh of ``torch.distributed`` ranks."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+
+        self.sizes = mesh_axis_sizes(mesh)
+        self.names = tuple(self.sizes)
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.coords = [dict(zip(self.names, c))
+                       for c in itertools.product(*(range(n) for n in self.sizes.values()))]
+        self.coord = self.coords[self.rank]
+        dps = set(dp_axes(self.sizes))
+        self.n_dp = 1
+        for a in dps:
+            self.n_dp *= self.sizes[a]
+        # one data group per model coordinate, every rank creating every group
+        self.data_group, self.data_ranks = None, None
+        for key in sorted({tuple(c[a] for a in self.names if a not in dps) for c in self.coords}):
+            ranks = [r for r, c in enumerate(self.coords)
+                     if tuple(c[a] for a in self.names if a not in dps) == key]
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                self.data_group, self.data_ranks = group, ranks
+
+
+_RUN: contextvars.ContextVar[Optional[MeshRun]] = contextvars.ContextVar("repro_mesh_run",
+                                                                         default=None)
+_TILES: contextvars.ContextVar[Optional[Mapping[str, Tile]]] = contextvars.ContextVar(
+    "repro_mesh_tiles", default=None)
+_LEAF: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar("repro_mesh_leaf",
+                                                                      default=None)
+_SHARDS: contextvars.ContextVar[int] = contextvars.ContextVar("repro_batch_shards", default=1)
+
+
+@contextlib.contextmanager
+def batch_shards(n: int) -> Iterator[None]:
+    """Within it, the batch the model sees is one of ``n`` equal data shards
+    of the global batch (the mesh step's forward)."""
+    token = _SHARDS.set(n)
+    try:
+        yield
+    finally:
+        _SHARDS.reset(token)
+
+
+def current_batch_shards() -> int:
+    """How many data shards the global batch is cut into (1 off the mesh)."""
+    return _SHARDS.get()
+
+
+@contextlib.contextmanager
+def use(run: MeshRun, tiles: Mapping[str, Tile]) -> Iterator[None]:
+    t1, t2 = _RUN.set(run), _TILES.set(tiles)
+    try:
+        yield
+    finally:
+        _RUN.reset(t1)
+        _TILES.reset(t2)
+
+
+@contextlib.contextmanager
+def leaf(path: str) -> Iterator[None]:
+    token = _LEAF.set(path)
+    try:
+        yield
+    finally:
+        _LEAF.reset(token)
+
+
+def current_run() -> Optional[MeshRun]:
+    return _RUN.get()
+
+
+def current_tile() -> Optional[Tile]:
+    """The current leaf's tile (``None`` off the mesh, or for a whole leaf)."""
+    tiles, path = _TILES.get(), _LEAF.get()
+    if tiles is None or path is None:
+        return None
+    tile = tiles.get(path)
+    return None if tile is None or tile.whole else tile
+
+
+def tile_of(path: str) -> Tile:
+    """The active map's tile of ``path`` (whole or not)."""
+    return _TILES.get()[path]
+
+
+def box_of(spec, shape, run: MeshRun) -> Box:
+    """This rank's box of a ``shape`` tensor under ``spec``."""
+    from repro_torch.sharding.specs import local_box
+
+    return local_box(spec, tuple(shape), run.coord, run.sizes)
+
+
+def rank_coord(mesh) -> Dict[str, int]:
+    """This process's coordinate on ``mesh`` (its ranks row-major)."""
+    import torch.distributed as dist
+
+    sizes = mesh_axis_sizes(mesh)
+    coords = list(itertools.product(*(range(n) for n in sizes.values())))
+    return dict(zip(sizes, coords[dist.get_rank()]))

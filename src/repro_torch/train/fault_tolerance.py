@@ -1,6 +1,13 @@
-"""Checkpoint/restart driving (port of ``checkpoint_hooks`` and
-``run_with_recovery`` from ``repro/train/fault_tolerance.py``).
+"""Fault tolerance (port of ``repro/train/fault_tolerance.py``): straggler
+detection, host liveness, elastic re-planning and checkpoint/restart
+driving.
 
+``StragglerDetector`` flags hosts slower than ``threshold`` x the median of
+the per-host rolling medians for ``patience`` consecutive checks.
+``HostMonitor`` is a heartbeat registry (heartbeats are injected; a missed
+deadline marks a host dead). ``plan_elastic`` turns the surviving hosts into
+an ``ElasticPlan``: the hosts re-derive their data slices from (step,
+host_index, num_hosts), because the pipeline is stateless.
 ``run_with_recovery`` drives a train loop with simulated failures: on
 failure it restores the latest complete checkpoint and continues.
 ``checkpoint_hooks`` wires its ``(save, restore_latest)`` callbacks onto a
@@ -10,12 +17,91 @@ back past incomplete (uncommitted) save dirs.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import time
 import warnings
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.io import format as ckfmt
 
-__all__ = ["run_with_recovery", "checkpoint_hooks"]
+__all__ = ["StragglerDetector", "HostMonitor", "ElasticPlan", "plan_elastic",
+           "run_with_recovery", "checkpoint_hooks"]
+
+
+class StragglerDetector:
+    """Flags hosts whose step time exceeds ``threshold`` x rolling median for
+    ``patience`` consecutive steps."""
+
+    def __init__(self, threshold: float = 1.5, window: int = 16, patience: int = 3):
+        self.threshold = threshold
+        self.window = window
+        self.patience = patience
+        self._times: Dict[int, collections.deque] = {}
+        self._strikes: Dict[int, int] = collections.defaultdict(int)
+
+    def record(self, host: int, step_time: float):
+        self._times.setdefault(host, collections.deque(maxlen=self.window)).append(step_time)
+
+    def medians(self) -> Dict[int, float]:
+        return {h: float(np.median(t)) for h, t in self._times.items() if t}
+
+    def stragglers(self) -> List[int]:
+        meds = self.medians()
+        if len(meds) < 2:
+            return []
+        global_median = float(np.median(list(meds.values())))
+        out = []
+        for h, m in meds.items():
+            self._strikes[h] = self._strikes[h] + 1 if m > self.threshold * global_median else 0
+            if self._strikes[h] >= self.patience:
+                out.append(h)
+        return out
+
+
+class HostMonitor:
+    """Heartbeat registry; heartbeats are injected through ``beat``."""
+
+    def __init__(self, hosts: Sequence[int], deadline_s: float = 60.0, clock=time.monotonic):
+        self.deadline_s = deadline_s
+        self.clock = clock
+        self.last_beat = {h: clock() for h in hosts}
+
+    def beat(self, host: int, at: Optional[float] = None):
+        self.last_beat[host] = self.clock() if at is None else at
+
+    def dead_hosts(self) -> List[int]:
+        now = self.clock()
+        return [h for h, t in self.last_beat.items() if now - t > self.deadline_s]
+
+    def alive(self) -> List[int]:
+        dead = set(self.dead_hosts())
+        return [h for h in self.last_beat if h not in dead]
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    """Resharding decision after a membership change."""
+
+    hosts: List[int]
+    restore_step: Optional[int]
+
+    @property
+    def num_hosts(self) -> int:
+        return len(self.hosts)
+
+    def host_index(self, host: int) -> int:
+        return self.hosts.index(host)
+
+
+def plan_elastic(alive_hosts: Sequence[int], latest_checkpoint: Optional[int],
+                 min_hosts: int = 1) -> ElasticPlan:
+    hosts = sorted(alive_hosts)
+    if len(hosts) < min_hosts:
+        raise RuntimeError(f"only {len(hosts)} hosts alive, below minimum {min_hosts}")
+    return ElasticPlan(hosts=hosts, restore_step=latest_checkpoint)
 
 
 def checkpoint_hooks(

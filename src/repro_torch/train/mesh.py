@@ -1,0 +1,402 @@
+"""The train step on a ``(data, model)`` mesh of processes: the mesh half of
+``repro/train/train_loop.py`` (``train_state_shardings`` and the layouts of
+``jit_train_step``) and the counterpart of ``repro/sharding/context.py``'s
+per-layer constraint.
+
+The reference partitions one jitted step with GSPMD. Here every rank is a
+process that holds only its part of each tensor, as the plans say
+(``sharding.specs``): its tile of every parameter (``spec_for`` + ZeRO),
+of every fp32 moment, of the packed codes, and its part of the scales.
+
+* Forward: the ranks of one model group (one data coordinate) compute the
+  same batch shard. Top-level leaves (embed, head, final norms) are
+  all-gathered before the forward; a stacked leaf is gathered one layer at
+  a time, when the layer loop reaches that layer (``unit_layers``, the
+  hook of ``models.model._run_units``). Compute gathers what the ``model``
+  axis shards: tensor-parallel compute is not part of this step.
+* Backward: each gathered tensor's gradient goes straight to its owners
+  (``all_to_all`` inside the data group: every rank receives the gradient
+  of its own tile from each data shard) and is summed in ascending data
+  rank order, then divided by the data size; no rank holds a whole-model
+  gradient.
+* Update: the optimizer runs on the tiles inside ``sharding.context``, so
+  the 4-bit statistics, the SR draws and the fused kernel's counters are
+  the whole leaf's (``core.quantizer``, ``kernels.ops``). Moments whose
+  plan cuts them differently from the parameter (the ZeRO dim of a raw
+  moment may be a dim the parameter's rules skip; packed codes may lose an
+  assignment) are moved to the parameter's tile first and back after;
+  scales are all-gathered whole and cut back to the plan's part after. A
+  leaf the fused kernel may take whose tiles cut its B128 blocks (the
+  kernel needs whole blocks per tile row) is updated on tiles of whole rows
+  instead: its parameter, gradient and moments move there and back.
+
+Optimizers whose rules need whole-leaf statistics outside these paths
+(factored moments, SM3's accumulators, Shampoo's factor stacks) are refused
+by ``MeshStep``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.comms.collectives import all_gather, all_to_all
+from repro_torch.core.optimizers.base import FactoredMoment
+from repro_torch.core.optimizers.transform import ChainState, PartitionState
+from repro_torch.core.quantizer import QuantizedTensor
+from repro_torch.sharding import context
+from repro_torch.sharding.context import MeshRun, Tile
+from repro_torch.sharding.rules import spec_for, with_zero
+from repro_torch.sharding.specs import (
+    batch_shardings,
+    box_index,
+    local_box,
+    local_slice,
+    map_plan,
+    opt_state_shardings,
+)
+
+__all__ = ["MeshStep", "STATS", "check_state"]
+
+Box = Tuple[Tuple[int, int], ...]
+
+# host seconds and bytes of the collectives since the last reset (read by the
+# CLI and the smoke's step-time split)
+STATS: Dict[str, float] = {"collective_s": 0.0, "bytes": 0}
+
+_LEAF_TYPES = (torch.Tensor, QuantizedTensor, FactoredMoment)
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    STATS["collective_s"] += time.perf_counter() - t0
+    STATS["bytes"] += out.numel() * out.element_size()
+    return out
+
+
+def _assemble(pieces: torch.Tensor, boxes: List[Box], shape) -> torch.Tensor:
+    full = torch.empty(tuple(shape), dtype=pieces.dtype, device=pieces.device)
+    for r, box in enumerate(boxes):
+        full[box_index(box)] = pieces[r]
+    return full
+
+
+def _whole(boxes: List[Box], shape) -> bool:
+    return all(a == 0 and b == n for box in boxes for (a, b), n in zip(box, shape))
+
+
+def gather(local: torch.Tensor, boxes: List[Box], shape) -> torch.Tensor:
+    """The whole tensor from every rank's box (``boxes`` in rank order)."""
+    if _whole(boxes, shape):
+        return local
+    return _assemble(_timed(all_gather, local), boxes, shape)
+
+
+def reshard(x: torch.Tensor, shape, src: List[Box], dst: List[Box], rank: int) -> torch.Tensor:
+    """This rank's ``dst`` box from the ranks' ``src`` boxes."""
+    if src == dst:
+        return x
+    inside = all(sa <= da and db <= sb
+                 for s, d in zip(src, dst) for (sa, sb), (da, db) in zip(s, d))
+    if inside:  # every rank cuts its part from what it holds
+        return x[tuple(slice(da - sa, db - sa) for (sa, _), (da, db) in zip(src[rank], dst[rank]))
+                 ].clone()
+    return gather(x, src, shape)[box_index(dst[rank])].clone()
+
+
+class _Gathered(torch.autograd.Function):
+    """Forward: ``gather()``; backward: the gradient goes to ``sink``, not
+    down the graph. ``anchor`` is a 0-d leaf that requires grad, so autograd
+    runs the backward."""
+
+    @staticmethod
+    def forward(ctx, anchor, gather_fn, sink):
+        ctx.sink = sink
+        return gather_fn().detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.sink(grad)
+        return None, None, None
+
+
+class _Stack:
+    """One stack's layers, each gathered when the layer loop asks for it."""
+
+    def __init__(self, step: "MeshStep", entries: List[Tuple[str, str]]):
+        self.step, self.entries = step, entries
+
+    def __getitem__(self, r: int) -> Dict[str, Any]:
+        tree: Dict[str, Any] = {}
+        for rel, path in self.entries:
+            *dirs, name = rel.split("/")
+            node = tree
+            for d in dirs:
+                node = node.setdefault(d, {})
+            node[name] = self.step._gathered(path, r)
+        return tree
+
+
+def _cuts_blocks(boxes: List[Box], shape, block: int = 128) -> bool:
+    """Whether a leaf the fused route may take (ndim >= 2, last dim % 256 ==
+    0) has tiles whose columns cut its B128 blocks."""
+    if len(shape) < 2 or shape[-1] % 256:
+        return False
+    return any(b[-1][0] % block or (b[-1][1] - b[-1][0]) % block for b in boxes)
+
+
+def _block_rows(boxes: List[Box], shape, world: int) -> List[Box]:
+    """Tiles of whole rows for such a leaf: the first dim, from the rows
+    back, that the world divides is cut; else every rank takes the whole
+    leaf."""
+    whole = tuple((0, int(n)) for n in shape)
+    for d in range(len(shape) - 2, -1, -1):
+        if shape[d] % world == 0:
+            step = shape[d] // world
+            return [whole[:d] + ((r * step, (r + 1) * step),) + whole[d + 1:]
+                    for r in range(world)]
+    return [whole] * world
+
+
+def _halve_last(box: Box) -> Box:
+    (a, b) = box[-1]
+    if a % 2 or b % 2:
+        raise ValueError(f"a tile {box} splits a packed byte of 4-bit codes")
+    return box[:-1] + ((a // 2, b // 2),)
+
+
+class MeshStep:
+    """Layouts and the step of one run: ``run`` (``sharding.context.MeshRun``),
+    the whole model's ``shapes`` and ``axes``, and the optimizer's whole
+    state on the ``meta`` device (``meta_state``) for its plan."""
+
+    def __init__(self, run: MeshRun, cfg, shapes: Mapping[str, Tuple[int, ...]],
+                 axes: Mapping[str, Tuple[str, ...]], meta_params, meta_state, zero: bool = True):
+        self.run, self.cfg = run, cfg
+        self.shapes = {k: tuple(int(d) for d in s) for k, s in shapes.items()}
+        sizes = run.sizes
+        self.param_plan = {}
+        for k, shape in self.shapes.items():
+            spec = spec_for(shape, axes[k], sizes)
+            self.param_plan[k] = with_zero(shape, spec, sizes, axes=axes[k]) if zero else spec
+        self.boxes = {k: [local_box(self.param_plan[k], s, c, sizes) for c in run.coords]
+                      for k, s in self.shapes.items()}
+        self.tiles = {k: Tile(s, self.boxes[k][run.rank]) for k, s in self.shapes.items()}
+        # the update's layout: the parameter's tile, unless that cuts the B128
+        # blocks of a leaf the fused kernel may take (it needs whole blocks
+        # per tile row); such a leaf is updated on row tiles instead
+        self.work = {k: _block_rows(b, s, run.world) if _cuts_blocks(b, s) else b
+                     for (k, b), s in zip(self.boxes.items(), self.shapes.values())}
+        self.work_tiles = {k: Tile(s, self.work[k][run.rank]) for k, s in self.shapes.items()}
+        check_state(meta_state, self.shapes)
+        self.state_plan = opt_state_shardings(meta_state, meta_params, axes, sizes, zero)
+        # (whole shape, partition) at every tensor of the state
+        self.state_shapes = map_plan(lambda t, p: (tuple(t.shape), p), meta_state,
+                                     self.state_plan)
+        self._grads: Dict[str, torch.Tensor] = {}
+        self._written: set = set()
+
+    # -- layouts ------------------------------------------------------------
+
+    def plan_boxes(self, shape, spec) -> List[Box]:
+        return [local_box(spec, shape, c, self.run.sizes) for c in self.run.coords]
+
+    def _convert(self, tree, sp, to_work: bool):
+        if (isinstance(tree, dict) and tree and all(k in self.shapes for k in tree)
+                and all(isinstance(v, _LEAF_TYPES) for v in tree.values())):
+            return {k: self._convert_leaf(k, v, sp[k], to_work) for k, v in tree.items()}
+        if isinstance(tree, ChainState):
+            return ChainState(self._convert(s, p, to_work) for s, p in zip(tree.states, sp.states))
+        if isinstance(tree, PartitionState):
+            return PartitionState({k: self._convert(tree.states[k], sp.states[k], to_work)
+                                   for k in tree.states}, tree.param_paths)
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(self._convert(s, p, to_work) for s, p in zip(tree, sp)))
+        if isinstance(tree, dict):
+            return {k: self._convert(v, sp[k], to_work) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(self._convert(s, p, to_work) for s, p in zip(tree, sp))
+        return tree  # step counters and other replicated leaves
+
+    def _convert_leaf(self, k: str, v, sp, to_work: bool):
+        rank, work = self.run.rank, self.work[k]
+        if isinstance(v, QuantizedTensor):
+            cshape, cspec = sp.codes
+            cwork = [_halve_last(b) for b in work] if v.config.bits == 4 else work
+            cplan = self.plan_boxes(cshape, cspec)
+            src, dst = (cplan, cwork) if to_work else (cwork, cplan)
+            codes = reshard(v.codes, cshape, src, dst, rank)
+            scales = []
+            for s, (sshape, sspec) in zip(v.scales, sp.scales):
+                boxes = self.plan_boxes(sshape, sspec)
+                scales.append(gather(s, boxes, sshape) if to_work
+                              else s[box_index(boxes[rank])].clone())
+            shape = self.work_tiles[k].local_shape if to_work else self.shapes[k]
+            return QuantizedTensor(codes, tuple(scales), shape, v.config)
+        shape, spec = sp
+        plan = self.plan_boxes(shape, spec)
+        return reshard(v, shape, plan, work, rank) if to_work else reshard(v, shape, work, plan,
+                                                                            rank)
+
+    def to_work(self, opt_state):
+        """Plan layout -> the update's working layout (every moment on the
+        update's tile of its parameter, whole scales)."""
+        return self._convert(opt_state, self.state_shapes, True)
+
+    def to_plan(self, opt_state):
+        return self._convert(opt_state, self.state_shapes, False)
+
+    def update(self, optimizer, grads, opt_state, params, key=None):
+        """The optimizer's update on this rank's tiles: ``params`` (tiles) are
+        updated in place; returns the new state in the plan layout."""
+        rank = self.run.rank
+        moved = [k for k in params if self.work[k] != self.boxes[k]]
+        to_rows = lambda k, x: reshard(x, self.shapes[k], self.boxes[k], self.work[k], rank)
+        wp = {k: to_rows(k, p) if k in moved else p for k, p in params.items()}
+        wg = {k: to_rows(k, g) if k in moved else g for k, g in grads.items()}
+        work = self.to_work(opt_state)
+        with context.use(self.run, self.work_tiles):
+            _, new_work = optimizer.update(wg, work, wp, key=key)
+        del work, wg
+        for k in moved:
+            params[k].copy_(reshard(wp[k], self.shapes[k], self.work[k], self.boxes[k], rank))
+        return self.to_plan(new_work)
+
+    def whole_params(self, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Every parameter whole, from the ranks' tiles (every rank)."""
+        return {k: gather(p, self.boxes[k], self.shapes[k]).clone() for k, p in params.items()}
+
+    def whole_state(self, opt_state):
+        """The optimizer state whole, from the ranks' parts (every rank)."""
+        return map_plan(lambda t, sp: gather(t, self.plan_boxes(*sp), sp[0]).clone(), opt_state,
+                        self.state_shapes)
+
+    # -- forward / backward ---------------------------------------------------
+
+    def _sink(self, path: str, r: Optional[int], boxes: List[Box]) -> Callable:
+        run = self.run
+
+        def sink(g: torch.Tensor) -> None:
+            pieces = torch.stack([g[box_index(boxes[j])] for j in run.data_ranks])
+            recv = _timed(all_to_all, pieces, run.data_group)
+            acc = recv[0].clone()
+            for d in range(1, recv.shape[0]):  # ascending data rank
+                acc += recv[d]
+            if run.n_dp > 1:
+                acc = acc / torch.full((), float(run.n_dp), dtype=acc.dtype, device=acc.device)
+            buf = self._grads[path] if r is None else self._grads[path][r]
+            key = (path, r)
+            if key in self._written:
+                buf += acc
+            else:
+                buf.copy_(acc)
+                self._written.add(key)
+
+        return sink
+
+    def _gathered(self, path: str, r: Optional[int] = None) -> torch.Tensor:
+        local = self._params[path] if r is None else self._params[path][r]
+        boxes = self.boxes[path] if r is None else [b[1:] for b in self.boxes[path]]
+        shape = self.shapes[path] if r is None else self.shapes[path][1:]
+        return _Gathered.apply(self._anchor, lambda: gather(local.detach(), boxes, shape),
+                               self._sink(path, r, boxes))
+
+    def unit_layers(self, units, root: str):
+        out = []
+        for ui, unit in enumerate(units):
+            subs = []
+            for si in range(len(unit.pattern)):
+                prefix = f"{root}/{ui}/sub{si}/"
+                entries = [(k[len(prefix):], k) for k in self.shapes if k.startswith(prefix)]
+                subs.append(_Stack(self, entries))
+            out.append(subs)
+        return out
+
+    def forward_backward(self, params: Mapping[str, torch.Tensor], batch, accum_steps: int):
+        """Loss and metrics of this rank's batch shard, averaged over the data
+        shards; leaves this rank's gradient tiles in ``self._grads``."""
+        from repro_torch.models.model import params_loss
+        from repro_torch.train.train_loop import _microbatch
+
+        run = self.run
+        plan = batch_shardings(batch, run.sizes)
+        local = {k: local_slice(v, plan[k], run.coord, run.sizes) for k, v in batch.items()}
+        shards = run.n_dp if any(any(e is not None for e in sp) for sp in plan.values()) else 1
+        self._params = params
+        self._grads = {k: torch.empty_like(p) for k, p in params.items()}
+        self._written = set()
+        losses, mets = [], []
+        for i in range(accum_steps):
+            micro = ({k: _microbatch(v, i, accum_steps) for k, v in local.items()}
+                     if accum_steps > 1 else local)
+            self._anchor = torch.zeros((), requires_grad=True)
+            top = {k: self._gathered(k) for k in self.shapes
+                   if not k.startswith(("decoder/", "encoder/"))}
+            with context.batch_shards(shards):
+                loss, m = params_loss(top, self.cfg, micro, self.unit_layers)
+            loss.backward()
+            del top
+            losses.append(loss.detach())
+            mets.append(m)
+        grads = self._grads
+        if accum_steps > 1:
+            n = torch.full((), float(accum_steps), dtype=torch.float32)
+            grads = {k: g / n.to(g.device) for k, g in grads.items()}
+        self._grads, self._params, self._anchor = {}, None, None
+        metrics = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
+        metrics["loss"] = torch.stack(losses).mean()
+        return grads, self._data_mean(metrics)
+
+    def _data_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each metric averaged over the data shards, in data rank order."""
+        names = sorted(metrics)
+        vec = torch.stack([metrics[k].to(torch.float32) for k in names])
+        allv = _timed(all_gather, vec)[self.run.data_ranks]
+        mean = allv.sum(dim=0) / len(self.run.data_ranks)
+        return {k: mean[i] for i, k in enumerate(names)}
+
+    def grad_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """sqrt of the sum of squares over every leaf, each distinct tile
+        counted once (the first rank holding it)."""
+        rank = self.run.rank
+        parts = []
+        for k, g in grads.items():
+            boxes = self.boxes[k]
+            first = boxes.index(boxes[rank]) == rank
+            sq = torch.sum(g.to(torch.float32) ** 2)
+            parts.append(sq if first else torch.zeros_like(sq))
+        allp = _timed(all_gather, torch.stack(parts))
+        return torch.sqrt(allp.sum(dim=0).sum())
+
+
+def check_state(meta_state, shapes: Mapping[str, Tuple[int, ...]]) -> None:
+    """Refuse a state whose rules need whole-leaf statistics the tile update
+    does not merge."""
+
+    def bad(what):
+        raise ValueError(f"mesh train step: {what}; the tile update covers raw moments and "
+                         "4-bit/8-bit blockwise, rank-1 and per-tensor quantized moments "
+                         "(ROADMAP queue A: the other optimizers' rules on a mesh)")
+
+    def walk(node):
+        if isinstance(node, dict) and node and all(k in shapes for k in node):
+            for k, v in node.items():
+                if isinstance(v, FactoredMoment):
+                    bad(f"{k} has a factored moment")
+                if not isinstance(v, _LEAF_TYPES) or tuple(v.shape) != shapes[k]:
+                    bad(f"{k} has a state leaf that is not shaped like the parameter")
+            return
+        if isinstance(node, ChainState):
+            node = node.states
+        elif isinstance(node, PartitionState):
+            node = list(node.states.values())
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+
+    walk(meta_state)

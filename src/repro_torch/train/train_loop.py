@@ -1,5 +1,4 @@
-"""Single-device training step (port of ``repro/train/train_loop.py``
-without the mesh).
+"""Training step (port of ``repro/train/train_loop.py``).
 
 ``build_train_step(model, optimizer, comms=)`` returns ``train_step(state,
 batch) -> (state, metrics)``: loss and gradients by autograd (with
@@ -9,11 +8,20 @@ of ``comms`` (``repro_torch.comms``; its stochastic rounding keyed by
 the stochastic-rounding key ``fold_in(state.key, state.step)``, so both key
 streams are pure functions of (base key, step) as in the reference. The
 params are the model's own tensors, updated in place.
+
+With ``mesh`` (a ``launch.mesh.make_mesh`` of ``torch.distributed``
+ranks) the step is the mesh step of ``train.mesh``: ``shard_train_state``
+first cuts a whole state to this rank's part of every tensor under
+``train_state_shardings`` (the plans of ``sharding.specs``, with ZeRO on
+the data axes by default), and the step gathers each layer's parameters
+when the layer loop reaches it, sends each gradient tile to its owner,
+and updates the tiles. The one-device path is unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -21,9 +29,11 @@ import torch
 from repro_torch.comms import CommsConfig, grad_comm_key, reduce_grads
 from repro_torch.core.optimizers.base import Optimizer
 from repro_torch.kernels import sr
-from repro_torch.models import Transformer, loss_fn, named_params
+from repro_torch.models import Transformer, init_model, loss_fn, named_params, param_axes
+from repro_torch.sharding.rules import P
 
-__all__ = ["TrainState", "make_train_state", "build_train_step"]
+__all__ = ["TrainState", "make_train_state", "build_train_step", "train_state_shardings",
+           "shard_train_state"]
 
 
 @dataclasses.dataclass
@@ -59,12 +69,48 @@ def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
     return x.narrow(bdim, i * (B // n), B // n)
 
 
-def build_train_step(model: Transformer, optimizer: Optimizer, *, accum_steps: int = 1,
+def train_state_shardings(state: TrainState, axes, mesh, zero: bool = True) -> TrainState:
+    """The plan of a whole train state: ``TrainState`` of partitions."""
+    from repro_torch.sharding.specs import opt_state_shardings, param_shardings
+
+    return TrainState(params=param_shardings(state.params, axes, mesh, zero=zero),
+                      opt_state=opt_state_shardings(state.opt_state, state.params, axes, mesh,
+                                                    zero=zero),
+                      step=P(), key=None if state.key is None else P())
+
+
+@torch.no_grad()
+def shard_train_state(state: TrainState, mesh, axes, zero: bool = True) -> TrainState:
+    """This rank's part of a whole ``state`` under ``train_state_shardings``,
+    as new tensors; the whole tensors are freed (the parameters' storage,
+    which the model shares, is released, and ``state`` is emptied)."""
+    from repro_torch.sharding.context import rank_coord
+    from repro_torch.sharding.specs import local_slice, map_plan
+
+    plan = train_state_shardings(state, axes, mesh, zero)
+    coord = rank_coord(mesh)
+    cut = lambda t, spec: local_slice(t, spec, coord, mesh).clone()
+    params = {k: cut(p.detach(), plan.params[k]) for k, p in state.params.items()}
+    opt = map_plan(cut, state.opt_state, plan.opt_state)
+    for p in state.params.values():
+        p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+    out = TrainState(params, opt, state.step, state.key)
+    state.params, state.opt_state = {}, None
+    return out
+
+
+def build_train_step(model: Transformer, optimizer: Optimizer, mesh=None, axes=None, *,
+                     zero: bool = True, accum_steps: int = 1,
                      comms: Optional[CommsConfig] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics are
     0-d tensors on the model's device (reading them waits for the step).
-    ``comms`` selects the gradient wire format (fp32 by default)."""
+    ``comms`` selects the gradient wire format (fp32 by default). With
+    ``mesh`` the step runs on this rank's part of a state made by
+    ``shard_train_state`` (``axes``: ``models.param_axes(cfg)`` by default)
+    and takes the whole global batch, of which it computes its data shard."""
     comms = comms if comms is not None else CommsConfig()
+    if mesh is not None:
+        return _build_mesh_step(model, optimizer, mesh, axes, zero, accum_steps, comms)
 
     def compute_grads(batch):
         loss, metrics = loss_fn(model, batch)
@@ -108,4 +154,46 @@ def build_train_step(model: Transformer, optimizer: Optimizer, *, accum_steps: i
         metrics["grad_norm"] = grad_norm
         return TrainState(params, new_opt, state.step + 1, state.key), metrics
 
+    return train_step
+
+
+def _build_mesh_step(model, optimizer, mesh, axes, zero, accum_steps, comms) -> Callable:
+    from repro_torch.sharding import context
+    from repro_torch.train.mesh import STATS, MeshStep
+
+    cfg = model.cfg
+    axes = dict(axes) if axes is not None else param_axes(cfg)
+    meta = named_params(init_model(cfg, device="meta"))
+    with torch.no_grad():
+        meta_state = optimizer.init(meta)
+    run = context.MeshRun(mesh)
+    ms = MeshStep(run, cfg, {k: tuple(p.shape) for k, p in meta.items()}, axes, meta,
+                  meta_state, zero=zero)
+    del meta_state
+    sync = lambda: torch.cuda.synchronize() if torch.cuda.is_available() else None
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        STATS["collective_s"], STATS["bytes"] = 0.0, 0
+        t0 = time.perf_counter()
+        grads, metrics = ms.forward_backward(state.params, batch, accum_steps)
+        sync()
+        t1, c1 = time.perf_counter(), STATS["collective_s"]
+        if comms.compresses:
+            ck = (grad_comm_key(state.key, state.step)
+                  if comms.quantized and comms.stochastic_rounding else None)
+            with context.use(run, ms.tiles):
+                grads = reduce_grads(grads, axes, mesh, comms, key=ck)
+        step_key = sr.fold_in(state.key, state.step) if state.key is not None else None
+        with torch.no_grad():
+            new_opt = ms.update(optimizer, grads, state.opt_state, state.params, key=step_key)
+            metrics["grad_norm"] = ms.grad_norm(grads)
+        sync()
+        t2 = time.perf_counter()
+        train_step.times = {"fwd_bwd_s": t1 - t0, "update_s": t2 - t1,
+                            "collective_fwd_bwd_s": c1,
+                            "collective_update_s": STATS["collective_s"] - c1,
+                            "collective_bytes": STATS["bytes"]}
+        return TrainState(state.params, new_opt, state.step + 1, state.key), metrics
+
+    train_step.mesh_step = ms
     return train_step

@@ -464,8 +464,11 @@ def test_abstract_train_state_allocates_nothing():
     assert all(id(p) in own and not p.is_meta for p in target.params.values())
 
 
-def test_cli_still_refuses_mesh():
+def test_cli_still_refuses_mesh(capsys):
+    """--mesh trains, but not with --ckpt-dir: multi-process checkpoints are
+    ROADMAP queue A item 5."""
     with pytest.raises(SystemExit):
-        train.main(CLI + ["--mesh", "2x4"])
+        train.main(CLI + ["--mesh", "2x1", "--ckpt-dir", "x"])
+    assert "queue A item 5" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         train.main(CLI + ["--ckpt-dir", "x", "--ckpt-every", "0"])

@@ -54,7 +54,7 @@ from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import load_params, params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer  # noqa: E402
 from repro_torch.core.optimizers.schedule import linear_warmup_linear_decay  # noqa: E402
-from repro_torch.core.quantizer import quantize  # noqa: E402
+from repro_torch.core.quantizer import dequantize, quantize  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -256,11 +256,28 @@ def test_transport_bit_equal_to_reference(mode, use_sr):
         np.testing.assert_array_equal(_bits(out[k]), _bits(jout[k]), err_msg=k)
 
 
-def test_mesh_path_not_ported():
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        reduce_grads(_grads(), {"w": ("embed", "mlp")}, object(), CommsConfig(mode="int4"))
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        quantized_all_reduce(torch.zeros(4), CommsConfig(mode="int4").quant_config(), "data")
+def test_quantized_all_reduce_one_rank_and_mesh_context(tmp_path):
+    """One gloo rank: the wire primitive is its own rank's transport
+    quantization (``fold_in(key, 0)`` on STREAM_GRAD); the mesh path of
+    ``reduce_grads`` needs the mesh context (the worlds of several ranks are
+    ``tests/test_torch_mesh_comms.py``)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        qcfg = CommsConfig(mode="int4").quant_config()
+        x = _grads()["w"]
+        key = sr.PRNGKey(3)
+        u = sr.tensor_uniforms(sr.fold_in(key, 0), tuple(x.shape), sr.STREAM_GRAD, "cpu")
+        want = dequantize(quantize(x, qcfg, uniforms=u))
+        assert torch.equal(quantized_all_reduce(x, qcfg, None, key=key), want)
+        assert torch.equal(quantized_all_reduce(x, qcfg), dequantize(quantize(x, qcfg)))
+        with pytest.raises(ValueError, match="no mesh context"):
+            reduce_grads(_grads(), {"w": ("embed", "mlp")}, {"data": 1, "model": 1},
+                         CommsConfig(mode="int4"))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

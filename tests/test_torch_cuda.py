@@ -140,6 +140,37 @@ def test_update_kernel_edges(cuda, shape, w_dtype, use_sr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_sr", [False, True])
+def test_update_kernel_on_a_tile(cuda, use_sr):
+    """A rank's tile (rows 3..40, columns 128..384 of slices 512 wide, C of
+    the tile 128-aligned but not 256): the kernel with the tile's offsets
+    equals the plain version with them, and both equal the whole leaf's
+    update at the tile."""
+    shape, (r0, r1), (c0, c1) = (3, 64, 512), (3, 40), (128, 384)
+    w, grad, m_q, v_q = _leaf(shape, 29, use_sr)
+    key = sr.PRNGKey(5) if use_sr else None
+    whole, _ = ops.leaf_operands(w.to(cuda), grad.to(cuda), _to(m_q, cuda), _to(v_q, cuda),
+                                 HP["b2"], key)
+    scal = dict(lr=LR, bc1=BC1, bc2=BC2, **HP)
+    w_out = adamw4bit.fused_adamw4(**whole, **scal)
+    cut = lambda x, last: x[:, r0:r1, c0 // last:c1 // last].contiguous()
+    tile = dict(whole, w=cut(whole["w"], 1), g=cut(whole["g"], 1),
+                m_packed=cut(whole["m_packed"], 2), v_packed=cut(whole["v_packed"], 2),
+                m_scale=cut(whole["m_scale"], 128), v_r=whole["v_r"][:, r0:r1].contiguous(),
+                v_r_new=whole["v_r_new"][:, r0:r1].contiguous(),
+                v_c=whole["v_c"][c0:c1].contiguous(), v_c_new=whole["v_c_new"][c0:c1].contiguous())
+    k_out = adamw4bit.fused_adamw4(**tile, **scal, tile=(r0, c0, shape[-1]))
+    p_out = adamw4bit.fused_adamw4_plain(**tile, **scal, tile=(r0, c0, shape[-1]))
+    torch.cuda.synchronize()
+    for a, b in zip(k_out, p_out):
+        assert torch.equal(a, b)
+    for a, b, last in zip(k_out, w_out, (1, 2, 128, 2)):
+        assert torch.equal(a, cut(b, last))
+    with pytest.raises(ValueError, match="does not place"):
+        adamw4bit.fused_adamw4(**tile, **scal, tile=(r0, 64, shape[-1]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("spike", [1e19, 0.0])
 def test_sr_update_kernel_exact_fallback(cuda, spike):
     """SR blocks whose operands leave the branch-free arithmetic's range (a
@@ -171,9 +202,9 @@ def test_stats_wrapper_rejects_bad_operands(cuda):
                                   .transpose(1, 2), table, HP["b2"], shape)
     with pytest.raises(TypeError):
         adamw4bit.rank1_new_stats(v_packed, v_r.double(), v_c, g, table, HP["b2"], shape)
-    with pytest.raises(ValueError, match="multiple of 256"):
-        adamw4bit.rank1_new_stats(v_packed.reshape(2, 128, 64), v_r, v_c, g.reshape(2, 128, 128),
-                                  table, HP["b2"], (2, 128, 128))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        adamw4bit.rank1_new_stats(v_packed.reshape(2, 256, 32), v_r, v_c, g.reshape(2, 256, 64),
+                                  table, HP["b2"], (2, 256, 64))
 
 
 # ---------------------------------------------------------------------------

@@ -126,8 +126,30 @@ def test_cli_cpu_reduced_run(capsys):
     assert len(out["steps"]) == 3
     assert all(np.isfinite(r["loss"]) for r in out["steps"])
     assert "state_bytes=" in capsys.readouterr().out
+
+
+def test_cli_mesh_runs_and_prints_rank_bytes(capfd, tmp_path):
+    """--mesh 2x1 on the CPU: two gloo processes meet in --run-dir, train,
+    and rank 0 prints each rank's state, parameter and peak bytes."""
+    from repro_torch.launch import train
+
+    out = train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "2",
+                      "--batch", "4", "--seq", "16", "--optimizer", "production4bit",
+                      "--sr-seed", "0", "--mesh", "2x1", "--run-dir", str(tmp_path)])
+    text = capfd.readouterr().out
+    assert "backend=gloo" in text.splitlines()[0]
+    assert len(out["steps"]) == 2 and all(np.isfinite(r["loss"]) for r in out["steps"])
+    assert [r["rank"] for r in out["ranks"]] == [0, 1]
+    for r in out["ranks"]:
+        assert f"rank {r['rank']} (data={r['data']}, model=0): state_bytes={r['state_bytes']:,}" \
+            in text
+        assert 0 < r["state_bytes"] < out["state_bytes"]
     with pytest.raises(SystemExit):
-        train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--mesh", "2x4"])
+        train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--mesh", "2by4"])
+    # rules that need whole-leaf statistics are refused before any rank starts
+    with pytest.raises(SystemExit, match="--optimizer sm3"):
+        train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--mesh", "2x1",
+                    "--optimizer", "sm3"])
 
 
 def test_cli_refuses_missing_gpu():
