@@ -257,14 +257,33 @@ Phases, each failing the run on error:
     leaves of internlm2-1.8b (and a norm): each rank's result bit-equal to
     the host oracle of ``tests/test_comms.py`` computed on the card, the
     two ranks' bits equal; timed.
+37. save and resume on the mesh, through the train CLI: internlm2-1.8b at
+    full width and depth, production4bit with SR seed 0, batch 8 x seq 128,
+    every run ``--steps 3 --ckpt-every 2`` (one learning-rate schedule) into
+    ``build/ckpt_mesh_smoke`` (free space checked, ``--keep-last 1``). Run A,
+    fresh on ``--mesh 2x1`` (two processes on ``cuda:0`` over gloo, as in
+    phase 35), trains steps 0-2 and saves at step 2: the step dir holds
+    ``num_hosts`` 2 and COMMIT, the two host files sum to
+    ``CKPT_BYTES_INTERNLM2``, the manifest's leaves and structure are a
+    one-process save's (phase 10's, and one from the state's shapes), 4
+    launches of each B1 pass a step on each rank, steps 0-1 within 1e-4 of
+    phase 6's. Run B, the same command, resumes from step 2 on ``2x1``: its
+    step-2 loss bit-equal to A's, each rank's final state equal to A's leaf
+    for leaf (sha256 digests from ``--digests``), each rank's peak at most
+    A's. Run C resumes the same save on ``--mesh 1x2``, run D in one
+    process: their step-2 losses within 1e-4 relative of A's, D's peak at
+    most phase 10's fresh run's (C's is printed beside A's: a 1x2 rank
+    computes all 8 rows, so its training peak is its own layout's, and a
+    fresh 1x2 run is not part of the phase). Prints every run's save stall,
+    seconds to COMMIT, restore seconds a rank, step ms and peaks.
 
 The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
-30 and 35 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0 just
-before it.
+30, 35 and 37 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0
+just before it (a spawned rank's counts start at 0 with its process).
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
-phases 34-36 alone (no result lines). Needs a CUDA card and the repository
+phases 34-37 alone (no result lines). Needs a CUDA card and the repository
 beside it; without either it
 exits non-zero and prints no result.
 """
@@ -524,6 +543,12 @@ TILE_MESHES = ((2, 1), (1, 2), (2, 2))
 MESH_SHAPE, MESH_STEPS = (2, 1), 3
 ALL_REDUCE_LEAVES = (("wq", (2048, 16, 128)), ("wo", (16, 128, 2048)), ("w1", (2048, 8192)),
                      ("w2", (8192, 2048)), ("norm1", (2048,)))
+# phase 37 (slice 12): the mesh checkpoint runs, all with the same --steps
+# (the CLI's schedule spans them) and the step saved
+MESH_CKPT_ARGS = ["--arch", "internlm2-1.8b", "--optimizer", "production4bit", "--sr-seed", "0",
+                  "--steps", "3", "--batch", "8", "--seq", "128", "--device", "cuda",
+                  "--ckpt-every", "2", "--keep-last", "1"]
+MESH_CKPT_STEP = 2
 
 
 def fail(msg: str) -> None:
@@ -862,22 +887,6 @@ def phase_main_path(counters):
     return counts, losses, peak, steps
 
 
-def _state_digests(state):
-    """Per-leaf digest of a port state, one leaf at a time on the host."""
-    import numpy as np
-    import torch
-
-    from repro_torch.io.format import sha_bytes
-    from repro_torch.io.tree import flatten_with_keys
-
-    out = {}
-    for key, leaf in flatten_with_keys(state):
-        host = leaf.detach().to("cpu").numpy() if isinstance(leaf, torch.Tensor) \
-            else np.asarray(leaf)
-        out[key] = sha_bytes(np.ascontiguousarray(host).reshape(-1).view(np.uint8))
-    return out
-
-
 def _check_losses(losses, expected, what):
     if len(losses) != len(expected) or any(abs(a - b) > 1e-4 for a, b in zip(losses, expected)):
         fail(f"{what}: losses {losses} differ from {list(expected)} beyond four decimals")
@@ -903,7 +912,7 @@ def phase_checkpoint(counters, main_steps):
         fail(f"the disk cannot hold one checkpoint: {free:,} B free, "
              f"{CKPT_BYTES_INTERNLM2:,} B needed")
     args = TRAIN_ARGS + ["--ckpt-dir", str(d), "--ckpt-every", str(CKPT_EVERY),
-                         "--keep-last", "1"]
+                         "--keep-last", "1", "--digests"]
 
     # run A: 5 steps, saving after step 3
     torch.cuda.reset_peak_memory_stats()
@@ -937,9 +946,7 @@ def phase_checkpoint(counters, main_steps):
           f"({bin_bytes / save['commit_s'] / 1e9:.2f} GB/s)")
     peak_a = a["peak_bytes"]
     step_ms_a = [r["ms"] for r in a["steps"]]
-    t0 = time.perf_counter()
-    digests_a = _state_digests(a["state"])
-    digest_s = time.perf_counter() - t0
+    digests_a = a["digests"]
     del a
     gc.collect()
     torch.cuda.empty_cache()
@@ -961,7 +968,7 @@ def phase_checkpoint(counters, main_steps):
             fail(f"run B: {name} launched {counts_b[name]} times, expected {resumed}")
     if counts_b["quantize_blockwise_4bit"] or counts_b["dequantize_blockwise_4bit"]:
         fail(f"run B launched the q4 kernels: {counts_b}")
-    digests_b = _state_digests(b["state"])
+    digests_b = b["digests"]
     differ = [k for k in digests_a if digests_b.get(k) != digests_a[k]]
     if differ or set(digests_b) != set(digests_a):
         fail(f"run B's final state differs from run A's in {len(differ)} leaves: {differ[:5]}")
@@ -980,8 +987,9 @@ def phase_checkpoint(counters, main_steps):
     torch.cuda.empty_cache()
     shutil.rmtree(d)
     return dict(free_bytes=free, bin_bytes=bin_bytes, leaves=len(manifest["leaves"]),
+                manifest={k: manifest[k] for k in ("leaves", "structure")},
                 save_stall_ms=save["stall_ms"], commit_s=save["commit_s"],
-                restore_s=ck["restore_s"], digest_s=digest_s, losses_a=losses_a,
+                restore_s=ck["restore_s"], losses_a=losses_a,
                 losses_b=losses_b, step_ms_a=step_ms_a, step_ms_b=step_ms_b,
                 peak_bytes_a=peak_a, peak_bytes_b=peak_b, launches_b=counts_b)
 
@@ -3084,6 +3092,202 @@ def phase_mesh():
     return {"launches": launches, "ranks": ranks, "seconds": wall}
 
 
+def _one_process_manifest():
+    """Leaves and structure of a one-process save of the phase-37 state,
+    from its shapes alone (meta tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.io import format as ckfmt
+    from repro_torch.io.tree import flatten_with_keys, structure_repr
+    from repro_torch.kernels import sr
+    from repro_torch.launch.train import abstract_train_state
+
+    _, state = abstract_train_state(get_config("internlm2-1.8b"),
+                                    make_optimizer("production4bit", 1e-3), key=sr.PRNGKey(0))
+    return {"leaves": [{"key": k, "shape": [int(d) for d in getattr(v, "shape", ())],
+                        "dtype": ckfmt.dtype_name(v)} for k, v in flatten_with_keys(state)],
+            "structure": structure_repr(state)}
+
+
+def _mesh_ckpt_run(name, args, counters=None):
+    """One phase-37 run of the train CLI; (summary, wall seconds)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if counters is not None:
+        _reset(counters)
+    t0 = time.perf_counter()
+    try:
+        out = train.main(args)
+    except (Exception, SystemExit) as e:  # a rank's failure, with its traceback
+        fail(f"mesh checkpoint run {name}: {e!r}")
+    wall = time.perf_counter() - t0
+    if counters is not None:  # the one-process run: its launches are this process's
+        out["launches"] = _read(counters)
+        out.pop("state")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, wall
+
+
+def phase_mesh_checkpoint(counters, one_process=None):
+    """Phase 37: save on a (data=2, model=1) mesh of two processes, resume on
+    2x1, 1x2 and in one process (``one_process``: phase 10's manifest and
+    fresh peak, when it ran)."""
+    import os
+
+    from repro_torch.io import format as ckfmt
+
+    d = ROOT / "build" / "ckpt_mesh_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free = shutil.disk_usage(d).free
+    print(f"mesh checkpoint: {free / 1e9:.2f} GB free under {d.relative_to(ROOT)}; one save "
+          f"takes {CKPT_BYTES_INTERNLM2:,} B")
+    if free < CKPT_BYTES_INTERNLM2:
+        fail(f"the disk cannot hold one checkpoint: {free:,} B free, "
+             f"{CKPT_BYTES_INTERNLM2:,} B needed")
+    args = MESH_CKPT_ARGS + ["--ckpt-dir", str(d)]
+    # A and B report their final states' digests, to compare them
+    mesh_args = lambda run, mesh: args + ["--mesh", mesh, "--run-dir",
+                                          str(d.parent / f"mesh_ckpt_{run}")] + (
+        ["--digests"] if run in ("A", "B") else [])
+    t_phase = time.perf_counter()
+    runs = {}
+
+    # run A: fresh on 2x1, steps 0-2, the save at step 2
+    a, runs["A"] = _mesh_ckpt_run("A", mesh_args("A", "2x1"))
+    steps = [r["step"] for r in a["steps"]]
+    if steps != [0, 1, 2]:
+        fail(f"run A ran steps {steps}")
+    losses_a = [r["loss"] for r in a["steps"]]
+    for x, e in zip(losses_a, EXPECTED_LOSSES[:MESH_CKPT_STEP]):  # the same first two lrs
+        if not (math.isfinite(x) and abs(x - e) <= 1e-4 * abs(e)):
+            fail(f"run A: losses {losses_a} not within 1e-4 relative of phase 6's "
+                 f"{EXPECTED_LOSSES[:MESH_CKPT_STEP]}")
+    if not all(math.isfinite(x) for x in losses_a):
+        fail(f"run A: non-finite loss {losses_a}")
+    step_d = ckfmt.step_dir(str(d), MESH_CKPT_STEP)
+    if ckfmt.latest_step(str(d)) != MESH_CKPT_STEP:
+        fail(f"run A: latest complete step {ckfmt.latest_step(str(d))}, "
+             f"expected {MESH_CKPT_STEP}")
+    manifest = ckfmt.read_manifest(step_d)
+    if manifest["num_hosts"] != 2 or not os.path.exists(os.path.join(step_d, ckfmt.COMMIT)):
+        fail(f"run A: num_hosts {manifest['num_hosts']} or no COMMIT in {step_d}")
+    host_bytes = [os.path.getsize(os.path.join(step_d, ckfmt.shard_file(p))) for p in (0, 1)]
+    if sum(host_bytes) != CKPT_BYTES_INTERNLM2:
+        fail(f"run A: host files {host_bytes} sum to {sum(host_bytes):,} B, expected "
+             f"{CKPT_BYTES_INTERNLM2:,} B")
+    mine = {k: manifest[k] for k in ("leaves", "structure")}
+    wants = [("the state's shapes", _one_process_manifest())]
+    if one_process is not None:
+        wants.append(("phase 10's save", one_process["manifest"]))
+    for what, want in wants:
+        if mine != want:
+            fail(f"run A: the manifest's leaves or structure differ from {what}")
+    for r in a["ranks"]:
+        for name in ("fused_adamw4", "rank1_new_stats"):
+            if r["launches"][name] != 4 * len(steps):
+                fail(f"run A rank {r['rank']}: {name} launched {r['launches'][name]} times, "
+                     f"expected {4 * len(steps)}")
+        if r["launches"]["quantize_blockwise_4bit"] or r["launches"]["dequantize_blockwise_4bit"]:
+            fail(f"run A rank {r['rank']} launched the q4 kernels: {r['launches']}")
+    print(f"mesh checkpoint run A (fresh, 2x1): losses {losses_a}; step {MESH_CKPT_STEP} saved "
+          f"by 2 processes, host files {host_bytes[0]:,} + {host_bytes[1]:,} = "
+          f"{sum(host_bytes):,} B, manifest ({len(manifest['leaves'])} leaves, structure) equal "
+          f"to a one-process save's ({', '.join(w for w, _ in wants)}); {runs['A']:.1f} s")
+
+    # run B: the same command resumes on 2x1
+    b, runs["B"] = _mesh_ckpt_run("B", mesh_args("B", "2x1"))
+    # run C: elastic, on 1x2
+    c, runs["C"] = _mesh_ckpt_run("C", mesh_args("C", "1x2"))
+    # run D: one process
+    dd, runs["D"] = _mesh_ckpt_run("D", args, counters)
+    for name, res, ranks in (("B", b, b["ranks"]), ("C", c, c["ranks"]),
+                             ("D", dd, [{"rank": 0, "checkpoint": dd["checkpoint"],
+                                         "launches": dd["launches"],
+                                         "peak_bytes": dd["peak_bytes"]}])):
+        if [r["step"] for r in res["steps"]] != [MESH_CKPT_STEP]:
+            fail(f"run {name} ran steps {[r['step'] for r in res['steps']]}")
+        for r in ranks:
+            if r["checkpoint"]["resumed_from"] != MESH_CKPT_STEP:
+                fail(f"run {name} rank {r['rank']}: resumed from "
+                     f"{r['checkpoint']['resumed_from']}")
+            for k in ("fused_adamw4", "rank1_new_stats"):
+                if r["launches"][k] != 4:
+                    fail(f"run {name} rank {r['rank']}: {k} launched {r['launches'][k]} times, "
+                         "expected 4")
+    loss_a = losses_a[MESH_CKPT_STEP]
+    if b["steps"][0]["loss"] != loss_a:
+        fail(f"run B: step-{MESH_CKPT_STEP} loss {b['steps'][0]['loss']!r} differs from run A's "
+             f"{loss_a!r}")
+    for ra, rb in zip(a["ranks"], b["ranks"]):
+        differ = [k for k in ra["digests"] if rb["digests"].get(k) != ra["digests"][k]]
+        if differ or set(ra["digests"]) != set(rb["digests"]):
+            fail(f"run B rank {rb['rank']}: final state differs from run A's in "
+                 f"{len(differ)} leaves: {differ[:5]}")
+        if rb["peak_bytes"] > ra["peak_bytes"]:
+            fail(f"run B rank {rb['rank']}: peak {rb['peak_bytes']:,} B above run A's "
+                 f"{ra['peak_bytes']:,} B")
+    for name, res in (("C", c), ("D", dd)):
+        x = res["steps"][0]["loss"]
+        if not (math.isfinite(x) and abs(x - loss_a) <= 1e-4 * abs(loss_a)):
+            fail(f"run {name}: step-{MESH_CKPT_STEP} loss {x} not within 1e-4 relative of "
+                 f"run A's {loss_a}")
+    if one_process is not None and dd["peak_bytes"] > one_process["peak_bytes_a"]:
+        fail(f"run D: peak {dd['peak_bytes']:,} B above phase 10's fresh run "
+             f"({one_process['peak_bytes_a']:,} B)")
+
+    report = {"host_bytes": host_bytes, "losses_a": losses_a, "wall_s": runs, "runs": {}}
+    for name, res in (("A", a), ("B", b), ("C", c)):
+        rows = []
+        for r in res["ranks"]:
+            ck = r["checkpoint"]
+            saves = ck["saves"]
+            rows.append({"rank": r["rank"], "data": r["data"], "model": r["model"],
+                         "resumed_from": ck["resumed_from"], "restore_s": ck["restore_s"],
+                         "saves": saves, "peak_bytes": r["peak_bytes"],
+                         "state_bytes": r["state_bytes"], "launches": r["launches"]})
+            save = (f"save() stalled {saves[0]['stall_ms']:.1f} ms, COMMIT after "
+                    f"{saves[0]['commit_s']:.2f} s" if saves else "no save")
+            restore = (f"restore {ck['restore_s']:.2f} s" if ck["restore_s"] is not None
+                       else "fresh")
+            fresh = a["ranks"][r["rank"]]["peak_bytes"]
+            print(f"mesh checkpoint run {name} rank {r['rank']} (data={r['data']}, "
+                  f"model={r['model']}): {restore}; {save}; peak {r['peak_bytes']:,} B "
+                  f"({r['peak_bytes'] / 1e9:.2f} GB; run A's rank {fresh / 1e9:.2f} GB); "
+                  f"state_bytes {r['state_bytes']:,}")
+        steps_ms = [(s["step"], s["loss"], s["ms"]) for s in res["steps"]]
+        report["runs"][name] = {"ranks": rows, "steps": steps_ms}
+        print(f"mesh checkpoint run {name}: steps (step, loss, ms) {steps_ms}; "
+              f"{runs[name]:.1f} s with the processes' start")
+    ck = dd["checkpoint"]
+    report["runs"]["D"] = {"restore_s": ck["restore_s"], "peak_bytes": dd["peak_bytes"],
+                           "steps": [(s["step"], s["loss"], s["ms"]) for s in dd["steps"]],
+                           "launches": dd["launches"]}
+    print(f"mesh checkpoint run D (one process): restore {ck['restore_s']:.2f} s "
+          f"({CKPT_BYTES_INTERNLM2 / ck['restore_s'] / 1e9:.2f} GB/s), step "
+          f"{MESH_CKPT_STEP} loss {dd['steps'][0]['loss']:.6f} (A {loss_a:.6f}) "
+          f"{dd['steps'][0]['ms']:.1f} ms, peak {dd['peak_bytes']:,} B "
+          f"({dd['peak_bytes'] / 1e9:.2f} GB); {runs['D']:.1f} s")
+    print(f"mesh checkpoint: B bit-equal to A (loss and {len(a['ranks'][0]['digests'])} leaves a "
+          f"rank), C {abs(c['steps'][0]['loss'] - loss_a) / loss_a:.2e} and D "
+          f"{abs(dd['steps'][0]['loss'] - loss_a) / loss_a:.2e} relative of A")
+    report["launches"] = {k: sum(r["launches"][k] for res in (a, b, c) for r in res["ranks"])
+                          + dd["launches"][k] for k in dd["launches"]}
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh checkpoint phase (37): {report['seconds']:.1f} s")
+    shutil.rmtree(d)
+    for run in ("A", "B", "C"):
+        shutil.rmtree(d.parent / f"mesh_ckpt_{run}", ignore_errors=True)
+    return report
+
+
 def main():
     sys.path.insert(0, str(ROOT / "src"))
     # the caching allocator maps memory in growable segments, so the MoE
@@ -3114,10 +3318,11 @@ def main():
 
     counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
     build_report = phase_build()
-    if sys.argv[1:] == ["--mesh-phases"]:  # phases 34-36 alone, for work on them
+    if sys.argv[1:] == ["--mesh-phases"]:  # phases 34-37 alone, for work on them
         phase_b1_tiles(dev)
         phase_mesh()
-        print(f"chip_smoke: phases 34-36 passed in {time.perf_counter() - t_start:.1f} s")
+        phase_mesh_checkpoint(counters)
+        print(f"chip_smoke: phases 34-37 passed in {time.perf_counter() - t_start:.1f} s")
         return
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.split()
@@ -3163,12 +3368,14 @@ def main():
     stub_oracle = phase_stub_oracle(dev)
     b1_tiles = phase_b1_tiles(dev)
     mesh = phase_mesh()
+    mesh_checkpoint = phase_mesh_checkpoint(counters, checkpoint)
     # launches: every path run of the slices, each counted from 0 just before
-    # it and read just after (phases 6, 15, 21, 25, 30 train; 8, 17, 23, 27,
-    # 32 serve)
+    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37 train; 8, 17,
+    # 23, 27, 32 serve)
     path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train,
                                                       stub_train)
-                              for r in t.values()] + [mesh["launches"]]
+                              for r in t.values()] + [mesh["launches"],
+                                                      mesh_checkpoint["launches"]]
     serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,
                                                                     rec_serve, stub_serve)
                                             for r in t.values()]
@@ -3263,6 +3470,7 @@ def main():
          "stub_train_split": {a: r["split"] for a, r in stub_train.items()},
          "stub_small": stub_small, "stub_q4_leaves": stub_q4_leaves, "stub_serve": stub_serve,
          "stub_oracle": stub_oracle, "b1_tiles": b1_tiles, "mesh": mesh,
+         "mesh_checkpoint": mesh_checkpoint,
          "path_launches": launches,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -15,10 +15,10 @@ reads what the other wrote. One step:
 ``manifest.json["format_version"]`` switches the reader; the legacy v1
 ``arrays.npz`` format stays readable (``legacy.py``). A leaf may have several
 shards, each with half-open ``[start, stop)`` ranges per dim of the whole
-array, as a checkpoint saved on a JAX mesh has; the port writes one shard per
-leaf, from one process. The process index and count are
-``torch.distributed``'s rank and world size when it is initialised, else 0
-and 1; the writer refuses a count above 1.
+array, as a checkpoint saved on a mesh has: each process writes its own bin
+and index (``host_<p>.bin``, ``index_host_<p>.json``) and process 0 the
+manifest and COMMIT. The process index and count are ``torch.distributed``'s
+rank and world size when it is initialised, else 0 and 1.
 
 bfloat16 leaves are stored as raw 16-bit words under the name
 ``bfloat16``, as the reference stores them; numpy has no such dtype, so
@@ -35,6 +35,7 @@ import os
 import re
 import shutil
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -220,8 +221,18 @@ def repair_interrupted_resaves(directory: str) -> None:
     Re-saving a committed step renames it to ``step_X.replaced`` until the
     replacement commits; a kill in between leaves a complete backup next to
     an incomplete ``step_X``. Restore the backup (and drop stale backups
-    whose replacement did land)."""
+    whose replacement did land). Process 0 repairs; every other process
+    waits until nothing repairable remains, so every process's step scan
+    that follows sees the same complete steps."""
     if not os.path.isdir(directory):
+        return
+    if process_index() != 0:
+        deadline = time.monotonic() + 600.0
+        while any(is_complete(b) for b, _ in _repairable(directory)):
+            if time.monotonic() > deadline:
+                raise TimeoutError("waiting for process 0 to repair interrupted re-saves in "
+                                   f"{directory}")
+            time.sleep(0.05)
         return
     with swap_lock:
         for bdir, ddir in _repairable(directory):

@@ -7,8 +7,10 @@ newest ``keep_last`` complete steps and (with ``keep_every``) the steps
 divisible by ``keep_every``. The newest complete step is never deleted;
 incomplete dirs older than it (crash leftovers), steps newer than the one
 just committed (an abandoned timeline after a rewind) and orphaned
-``.attempt_*`` stages are swept too. GC runs on the writer thread, after
-the commit that triggered it.
+``.attempt_*`` stages are swept too. GC runs on the writer thread of
+process 0 only, after the commit that triggered it. On a mesh, ``save`` and
+``restore`` take the state's plan and mesh (``shardings=``, ``mesh=``), as
+``io.writer`` and ``io.reader`` do.
 """
 
 from __future__ import annotations
@@ -38,11 +40,12 @@ class CheckpointManager:
         """``perf_counter()`` at each committed step's COMMIT."""
         return self._writer.commit_times
 
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, block: bool = False):
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, block: bool = False,
+             shardings: Any = None, mesh=None):
         """Blocks only on the device-to-host snapshot (and when two saves
         are already in flight); serialisation and COMMIT run in the
         background."""
-        self._writer.save(step, tree, extra, block=block)
+        self._writer.save(step, tree, extra, block=block, shardings=shardings, mesh=mesh)
 
     def wait(self):
         self._writer.wait()
@@ -53,11 +56,14 @@ class CheckpointManager:
         self.wait()
         return fmt.latest_step(self.directory)
 
-    def restore(self, target, step=None, device="cuda"):
+    def restore(self, target, step=None, device="cuda", shardings=None, mesh=None):
         self.wait()
-        return restore_checkpoint(self.directory, target, step, device=device)
+        return restore_checkpoint(self.directory, target, step, device=device,
+                                  shardings=shardings, mesh=mesh)
 
     def _gc(self, committed_step: Optional[int] = None):
+        if fmt.process_index() != 0:
+            return
         steps: Dict[int, bool] = {}
         attempt_dirs = []
         for name in os.listdir(self.directory):

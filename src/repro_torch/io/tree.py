@@ -21,7 +21,7 @@ reference takes from ``jax.tree_util``:
 ``flatten_with_keys`` gives ``[(key, leaf)]`` in the reference's order (the
 step and the key as numpy arrays), ``structure_repr`` the reference's
 structure string, ``unflatten`` a port state rebuilt from a target and new
-leaves. Node types, keys and aux data are rendered as JAX 0.9 renders them.
+leaves, ``plan_of`` the partition of each tensor under a mesh plan. Node types, keys and aux data are rendered as JAX 0.9 renders them.
 """
 
 from __future__ import annotations
@@ -34,9 +34,10 @@ import torch
 from repro_torch.core.optimizers.base import FactoredMoment
 from repro_torch.core.optimizers.transform import ChainState, PartitionState
 from repro_torch.core.quantizer import QuantizedTensor
+from repro_torch.sharding.specs import plan_leaves
 from repro_torch.train.train_loop import TrainState
 
-__all__ = ["flatten_with_keys", "structure_repr", "unflatten"]
+__all__ = ["flatten_with_keys", "structure_repr", "unflatten", "plan_of"]
 
 _MASKED = "CustomNode(namedtuple[MaskedNode], [])"
 _LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, int, float, bool)
@@ -181,3 +182,16 @@ def unflatten(target: Any, leaves: Sequence[Any]) -> Any:
         raise ValueError(f"unflatten: {len(leaves)} leaves for a target of {n}")
     it = iter(leaves)
     return _walk(target, "", lambda k, leaf: next(it), None)[0]
+
+
+def plan_of(tree: Any, shardings: Any) -> Dict[int, Any]:
+    """``id(tensor) -> its partition`` for every tensor of ``tree`` under
+    ``shardings``, a plan of the same containers with a ``P`` at every
+    tensor (``train_loop.train_state_shardings``). A ``TrainState``'s step
+    and key are host leaves: they have no entry."""
+    if isinstance(tree, TrainState):
+        pairs = [*plan_leaves(tree.params, shardings.params),
+                 *plan_leaves(tree.opt_state, shardings.opt_state)]
+    else:
+        pairs = plan_leaves(tree, shardings)
+    return {id(t): spec for t, spec in pairs}

@@ -1,27 +1,42 @@
 """Checkpoint writer: host snapshot + background serialisation (port of
 ``repro/io/writer.py``).
 
-``snapshot_tree`` is the blocking part of a save: every leaf is copied to the
-host through ``_device_to_host``, and the copies are finished when it
-returns, so the train step that follows (which updates the params in place)
-cannot change what is being saved. ``write_snapshot`` serialises host
-buffers only: it touches no CUDA, so it can run on the writer thread while
-the train loop keeps issuing steps (``hashlib`` and file writes release the
-GIL).
+``snapshot_tree`` is the blocking part of a save: every part this process
+writes is copied to the host through ``_device_to_host``, and the copies are
+finished when it returns, so the train step that follows (which updates the
+params in place) cannot change what is being saved. On a mesh
+(``shardings=``, ``mesh=``) every tensor of the state is the rank's part of
+a leaf under the plan: the manifest records the whole shape, the rank's
+index records its box as ranges of the whole leaf, and a box that several
+ranks hold (a leaf replicated over the mesh or over ``model``) is written
+once, by the lowest of them, as the reference writes only ``replica_id ==
+0``. ``write_snapshot`` serialises host buffers only: it touches no CUDA,
+so it can run on the writer thread while the train loop keeps issuing
+steps (``hashlib`` and file writes release the GIL).
 
 ``AsyncCheckpointWriter`` double-buffers: ``save()`` blocks on the snapshot,
 hands the buffers to a background thread for serialisation + fsync +
 COMMIT, and blocks only when a third save arrives while two are in flight.
 
-The commit protocol is the reference's, for one process (a save with
-``torch.distributed`` initialised over several processes is refused: the
-reference's rendezvous between processes is not ported yet):
-  1. make an attempt-unique staging dir (``step_X.attempt_<nonce>``);
-  2. write and fsync ``host_00000.bin`` into the stage, then publish
-     ``index_host_00000.json`` (temp + ``os.replace``: the index exists only
-     once its bin is durable) and ``manifest.json``;
-  3. write ``COMMIT`` in the stage, swap the stage into ``step_X`` (a
-     committed copy of the step is set aside until then) and update LATEST.
+The commit protocol is the reference's, for one process or several. The
+processes meet through the checkpoint directory only, never a
+``torch.distributed`` collective, which on the writer thread could
+interleave with the train step's and deadlock:
+  1. process 0 purges crashed attempts at the step, makes an
+     attempt-unique staging dir (``step_X.attempt_<nonce>``) and advertises
+     it through an atomically replaced pointer file; the others wait for
+     the pointer;
+  2. every process writes and fsyncs its ``host_<p>.bin`` into the stage,
+     then publishes ``index_host_<p>.json`` (temp + ``os.replace``: the
+     index exists only once its bin is durable); process 0 also writes
+     ``manifest.json`` (``num_hosts`` = the process count);
+  3. process 0 waits for every index, writes ``COMMIT`` in the stage,
+     swaps the stage into ``step_X`` (a committed copy of the step is set
+     aside until then) and updates LATEST; every other process returns once
+     its stage has been swapped in and COMMIT is visible.
+The ``_barrier`` seams name the phases for crash injection; the
+``ckpt_written`` seam lies between a process's fsynced bin and its index,
+so a process that dies there leaves the step without COMMIT.
 """
 
 from __future__ import annotations
@@ -42,7 +57,9 @@ import torch
 
 from repro_torch.io import format as fmt
 from repro_torch.io.legacy import save_checkpoint_npz
-from repro_torch.io.tree import flatten_with_keys, structure_repr
+from repro_torch.io.tree import flatten_with_keys, plan_of, structure_repr
+from repro_torch.sharding.rules import mesh_axis_sizes
+from repro_torch.sharding.specs import local_box, mesh_coords, whole_shape
 
 __all__ = ["Snapshot", "snapshot_tree", "write_snapshot", "save_checkpoint",
            "AsyncCheckpointWriter"]
@@ -52,10 +69,11 @@ _WORD_VIEW = {torch.bfloat16: torch.uint16}
 
 
 def _device_to_host(key: str, leaf) -> np.ndarray:
-    """Host copy of one leaf, in its storage dtype. Every device-to-host
-    byte the writer moves goes through here (the spy tests patch it). It is
-    always a copy (of a CPU tensor too, whose storage the next step updates
-    in place), and it has finished when this returns."""
+    """Host copy of one part this process writes, in its storage dtype.
+    Every device-to-host byte the writer moves goes through here (the spy
+    tests patch it). It is always a copy (of a CPU tensor too, whose storage
+    the next step updates in place), and it has finished when this
+    returns."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         t = t.view(_WORD_VIEW.get(t.dtype, t.dtype))
@@ -65,16 +83,22 @@ def _device_to_host(key: str, leaf) -> np.ndarray:
     return np.array(leaf, order="C")
 
 
+_RENDEZVOUS_TIMEOUT_S = 600.0
+
+
 def _barrier(name: str) -> None:
     """Commit-protocol phase boundary: a named seam so tests can inject
-    crashes at protocol points."""
+    crashes at protocol points. Deliberately no collective (see the module
+    doc)."""
 
 
-def _require_one_process() -> None:
-    if fmt.process_count() != 1:
-        raise NotImplementedError(
-            f"checkpoint save over {fmt.process_count()} processes: only a "
-            "single-process save is supported")
+def _await(predicate, what: str) -> None:
+    """Poll the checkpoint directory until ``predicate()`` holds."""
+    deadline = time.monotonic() + _RENDEZVOUS_TIMEOUT_S
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"checkpoint rendezvous timed out: {what}")
+        time.sleep(0.05)
 
 
 class _LeafSnapshot:
@@ -82,28 +106,47 @@ class _LeafSnapshot:
 
     def __init__(self, key, shape, dtype: str, shards):
         self.key = key
-        self.shape = tuple(int(d) for d in shape)
+        self.shape = tuple(int(d) for d in shape)  # the whole leaf's
         self.dtype = dtype  # manifest dtype name
         # [(index ranges, host array)]: the shards this process writes
         self.shards: List[Tuple[List[Tuple[int, int]], np.ndarray]] = shards
 
 
 class Snapshot:
-    """Host-side copy of the leaves this process writes, ready to serialise."""
+    """Host-side copy of the parts this process writes, ready to serialise."""
 
     def __init__(self, leaves: List[_LeafSnapshot], structure: str):
         self.leaves = leaves
         self.structure = structure
 
 
-def snapshot_tree(tree: Any) -> Snapshot:
-    """Blocking part of a save: host copies of every leaf, one shard per
-    leaf."""
-    _require_one_process()
+def snapshot_tree(tree: Any, shardings: Any = None, mesh=None) -> Snapshot:
+    """Blocking part of a save: host copies of the parts this process writes.
+
+    Without ``shardings`` every leaf is whole and process 0 writes it. With
+    a plan of ``tree`` (a ``P`` at every tensor, as
+    ``train_loop.train_state_shardings`` gives) and its ``mesh``, every
+    tensor is this rank's part of its leaf, written by the lowest rank that
+    holds the same box. A ``TrainState``'s step and key are whole, written
+    by process 0."""
+    rank = fmt.process_index()
+    parts = plan_of(tree, shardings) if shardings is not None else {}
+    if parts:
+        sizes = mesh_axis_sizes(mesh)
+        coords = mesh_coords(sizes)
+        if len(coords) != fmt.process_count():
+            raise ValueError(f"a plan over a mesh of {len(coords)} ranks, saved by "
+                             f"{fmt.process_count()} processes")
     leaves = []
     for key, leaf in flatten_with_keys(tree):
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
-        shards = [([(0, int(d)) for d in shape], _device_to_host(key, leaf))]
+        box, writer = tuple((0, int(d)) for d in shape), 0
+        spec = parts.get(id(leaf))
+        if spec is not None:
+            shape = whole_shape(shape, spec, sizes)
+            boxes = [local_box(spec, shape, c, sizes) for c in coords]
+            box, writer = boxes[rank], boxes.index(boxes[rank])
+        shards = [(list(box), _device_to_host(key, leaf))] if writer == rank else []
         leaves.append(_LeafSnapshot(key, shape, fmt.dtype_name(leaf), shards))
     return Snapshot(leaves, structure_repr(tree))
 
@@ -120,21 +163,48 @@ def _fsync_write_json(path: str, obj) -> None:
 
 def write_snapshot(directory: str, step: int, snap: Snapshot,
                    extra: Optional[Dict] = None) -> str:
-    """Serialise a snapshot: shard file, index and manifest, staged in
-    ``step_X.attempt_<nonce>`` and swapped into ``step_X`` once COMMIT is
-    inside. A committed copy of the step stays durable for the whole
-    serialisation; the one vulnerable instant, between the two final
-    renames, is what ``repair_interrupted_resaves`` covers."""
-    _require_one_process()
+    """Serialise a snapshot: this process's shard file and index, and from
+    process 0 the manifest and COMMIT, staged in ``step_X.attempt_<nonce>``
+    and swapped into ``step_X`` once COMMIT is inside. A committed copy of
+    the step stays durable for the whole serialisation; the one vulnerable
+    instant, between the two final renames, is what
+    ``repair_interrupted_resaves`` covers. A process acting on a stale
+    attempt pointer can only time out, never join another attempt's
+    commit."""
     os.makedirs(directory, exist_ok=True)
     final = fmt.step_dir(directory, step)
     backup = final + ".replaced"  # matches no step_* name: invisible to list_steps
-    p = fmt.process_index()
-    # purge crashed attempts at this step before staging a new one
-    for stale in glob.glob(glob.escape(final) + ".attempt_*"):
-        shutil.rmtree(stale, ignore_errors=True)
-    stage = final + f".attempt_{uuid.uuid4().hex[:8]}"
-    os.makedirs(stage)
+    p, nprocs = fmt.process_index(), fmt.process_count()
+    ptr = os.path.join(directory, f".attempt_step_{step:08d}")
+    if p == 0:
+        # purge crashed attempts at this step before advertising a new stage:
+        # a process that latched onto a stale one would starve the rendezvous
+        if os.path.exists(ptr):
+            os.remove(ptr)
+        for stale in glob.glob(glob.escape(final) + ".attempt_*"):
+            shutil.rmtree(stale, ignore_errors=True)
+        stage = final + f".attempt_{uuid.uuid4().hex[:8]}"
+        os.makedirs(stage)
+        if nprocs > 1:
+            tmp = ptr + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(os.path.basename(stage))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, ptr)
+    else:
+
+        def _resolve():
+            try:
+                with open(ptr) as f:
+                    name = f.read().strip()
+            except OSError:
+                return None
+            s = os.path.join(directory, name)
+            return s if name and os.path.isdir(s) else None
+
+        _await(lambda: _resolve() is not None, f"stage dir for step {step}")
+        stage = _resolve()
     _barrier(f"ckpt_prepare_{step}")
 
     offset = 0
@@ -148,23 +218,34 @@ def write_snapshot(directory: str, step: int, snap: Snapshot,
                 recs.append({"offset": offset, "nbytes": len(buf),
                              "index": [list(r) for r in ranges], "sha256": fmt.sha_bytes(buf)})
                 offset += len(buf)
-            index["shards"][leaf.key] = recs
+            if recs:
+                index["shards"][leaf.key] = recs
         f.flush()
         os.fsync(f.fileno())
+    _barrier(f"ckpt_written_{step}")
     # the index lands after its bin is fsynced: once visible, the bytes are durable
     _fsync_write_json(os.path.join(stage, fmt.index_file(p)), index)
+    if p != 0:
+        # success here must mean durability, as on process 0: wait until
+        # process 0 has swapped this stage into place (its name vanishes at
+        # the swap) and the committed step is visible
+        _await(lambda: not os.path.isdir(stage)
+               and os.path.exists(os.path.join(final, fmt.COMMIT)),
+               f"commit of step {step}")
+        return final
     manifest = {
         "format_version": fmt.FORMAT_VERSION,
         "step": step,
         "extra": extra or {},
         "structure": snap.structure,
-        "num_hosts": 1,
+        "num_hosts": nprocs,
         "leaves": [{"key": leaf.key, "shape": list(leaf.shape), "dtype": leaf.dtype}
                    for leaf in snap.leaves],
     }
     _fsync_write_json(os.path.join(stage, fmt.MANIFEST), manifest)
-
-    _barrier(f"ckpt_written_{step}")
+    if nprocs > 1:
+        _await(lambda: len(glob.glob(os.path.join(glob.escape(stage), "index_host_*.json")))
+               >= nprocs, f"all {nprocs} processes' index files for step {step}")
     with open(os.path.join(stage, fmt.COMMIT), "w") as f:
         f.write(f"step {step}\n")
         f.flush()
@@ -183,16 +264,22 @@ def write_snapshot(directory: str, step: int, snap: Snapshot,
         fmt.write_latest(directory, step)
         if os.path.exists(backup):
             shutil.rmtree(backup, ignore_errors=True)
+    if nprocs > 1:
+        try:
+            os.remove(ptr)
+        except OSError:
+            pass
     return final
 
 
 def save_checkpoint(directory: str, step: int, tree: Any, extra: Optional[Dict] = None, *,
-                    fmt_version: str = "sharded") -> str:
-    """Synchronous save: ``"sharded"`` (default) writes format v2, ``"npz"``
-    the legacy v1 single file (migration tooling and format tests)."""
+                    fmt_version: str = "sharded", shardings: Any = None, mesh=None) -> str:
+    """Synchronous save: ``"sharded"`` (default) writes format v2 (on a mesh:
+    ``shardings``, ``mesh`` as ``snapshot_tree`` takes them), ``"npz"`` the
+    legacy v1 single file (migration tooling and format tests)."""
     if fmt_version == "npz":
         return save_checkpoint_npz(directory, step, tree, extra)
-    return write_snapshot(directory, step, snapshot_tree(tree), extra)
+    return write_snapshot(directory, step, snapshot_tree(tree, shardings, mesh), extra)
 
 
 class AsyncCheckpointWriter:
@@ -245,12 +332,13 @@ class AsyncCheckpointWriter:
                 self._slots.release()
                 self._queue.task_done()
 
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, block: bool = False):
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None, block: bool = False,
+             shardings: Any = None, mesh=None):
         self._raise_pending()
         self._ensure_thread()
         self._slots.acquire()  # waits only if two saves are already in flight
         try:
-            snap = snapshot_tree(tree)  # the only device-blocking work
+            snap = snapshot_tree(tree, shardings, mesh)  # the only device-blocking work
         except BaseException:
             self._slots.release()  # a failed snapshot must not leak its buffer
             raise

@@ -13,8 +13,7 @@ a new temporary one), never a fixed port. The backend is NCCL when each
 rank has a card of its own and gloo on the CPU or when the ranks share a
 card (the first line says which); under gloo the collectives copy CUDA
 tensors through host memory. Rank 0 prints the step lines and every rank's
-state, parameter and peak bytes. ``--mesh`` with ``--ckpt-dir`` is refused:
-multi-process checkpoints are ROADMAP queue A item 5. The modality-stub
+state, parameter and peak bytes and checkpoint times. The modality-stub
 archs (whisper-large-v3, qwen2-vl-2b) are refused, as the reference's CLI
 refuses them: they train through the library
 (``train_loop.build_train_step``). ``--grad-comm {fp32,bf16,int8,int4}`` applies the gradient wire
@@ -28,7 +27,14 @@ and a rerun resumes from the newest complete save: it restores into the
 storage of a model and optimizer state allocated as a fresh run allocates
 them (``abstract_train_state(..., device=)``), one leaf at a time and
 straight into the model's own parameters, and continues bit for bit as the
-uninterrupted run would.
+uninterrupted run would. On a mesh every rank saves only its plan's part
+(``train_state_shardings``) and the ranks commit one checkpoint together;
+a rerun resumes from the newest complete step onto the current mesh,
+whatever layout, process count or single process saved it, each rank
+reading only its part into storage allocated as a fresh rank holds it
+(``abstract_train_state(..., mesh=)``); the one-process run likewise
+resumes a mesh's save. ``--digests`` adds each leaf's sha256 of the final
+state (each rank's part on a mesh) to the summary, to compare two runs.
 """
 
 from __future__ import annotations
@@ -60,7 +66,13 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.io import CheckpointManager
 from repro_torch.kernels import sr
 from repro_torch.models import Transformer, init_model, param_axes
-from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+from repro_torch.train.train_loop import (
+    TrainState,
+    build_train_step,
+    make_train_state,
+    shard_train_state,
+    train_state_shardings,
+)
 
 __all__ = ["main", "parse_args", "abstract_train_state"]
 
@@ -103,14 +115,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="retention: keep the newest N complete checkpoints")
     ap.add_argument("--keep-every", type=int, default=None,
                     help="retention: also keep every K-th step")
+    ap.add_argument("--digests", action="store_true",
+                    help="add each leaf's sha256 of the final state to the summary")
     args = ap.parse_args(argv)
     if args.mesh is not None:
         d, x, m = args.mesh.partition("x")
         if not (x and d.isdigit() and m.isdigit() and int(d) >= 1 and int(m) >= 1):
             ap.error(f"--mesh {args.mesh!r}: expected DxM, e.g. 2x2")
-        if args.ckpt_dir is not None:
-            ap.error("--mesh with --ckpt-dir: multi-process checkpoints are ROADMAP queue A "
-                     "item 5; the mesh path trains without saving")
     if args.ckpt_every < 1:
         ap.error("--ckpt-every: must be at least 1")
     for kv in args.opt_arg:
@@ -124,7 +135,7 @@ def _uses_stochastic_rounding(opt_state) -> bool:
                for leaf in _leaves(opt_state))
 
 
-def abstract_train_state(cfg, optimizer, key=None, device=None):
+def abstract_train_state(cfg, optimizer, key=None, device=None, mesh=None, axes=None):
     """(model, TrainState) to restore into, counterpart of the reference's
     ``abstract_train_state``. By default on ``meta``: no parameter or moment
     has storage (the optimizer's step counts are 4-byte host tensors, as in
@@ -132,12 +143,47 @@ def abstract_train_state(cfg, optimizer, key=None, device=None):
     state get uninitialised storage there, allocated as a fresh run
     allocates them (the model's parameters, then the optimizer's init), so
     a restore fills the model's own parameters in place and the resumed
-    run's device memory peaks where a fresh run's does."""
+    run's device memory peaks where a fresh run's does.
+
+    With ``mesh`` (and ``axes``, ``models.param_axes(cfg)`` by default) the
+    state is this rank's part under ``train_state_shardings``, as
+    ``shard_train_state`` leaves a fresh rank holding it: its parameter
+    tiles, then its part of the optimizer state, each allocated at its
+    part's shape (on ``device``; on ``meta`` without it), and a ``meta``
+    model. The whole model never has storage."""
+    if mesh is not None:
+        from repro_torch.sharding.context import rank_coord
+        from repro_torch.sharding.specs import local_box, map_plan
+
+        model = init_model(cfg, device="meta")
+        whole = make_train_state(model, optimizer, key=key)
+        plan = train_state_shardings(whole, axes if axes is not None else param_axes(cfg), mesh)
+        coord = rank_coord(mesh)
+        dev = resolve_device(device) if device is not None else torch.device("meta")
+
+        def part(t, spec):
+            shape = tuple(b - a for a, b in local_box(spec, tuple(t.shape), coord, mesh))
+            return torch.empty(shape, dtype=t.dtype, device=dev if t.is_meta else t.device)
+
+        params = {k: part(p, plan.params[k]) for k, p in whole.params.items()}
+        return model, TrainState(params, map_plan(part, whole.opt_state, plan.opt_state), 0,
+                                 key)
     if device is None:
         model = init_model(cfg, device="meta")
     else:
         model = Transformer(cfg, device=resolve_device(device))
     return model, make_train_state(model, optimizer, key=key)
+
+
+def _digests(state) -> Dict[str, str]:
+    """sha256 (16 hex digits) of each leaf of a state, one leaf at a time on
+    the host."""
+    from repro_torch.io.format import sha_bytes
+    from repro_torch.io.tree import flatten_with_keys
+    from repro_torch.io.writer import _device_to_host
+
+    return {k: sha_bytes(_device_to_host(k, leaf).reshape(-1).view("uint8"))
+            for k, leaf in flatten_with_keys(state)}
 
 
 def _setup(args):
@@ -176,7 +222,8 @@ def _main_mesh(args, argv, device, cfg, opt) -> Dict:
              if device.type == "cuda" else "cpu")
     print(f"mesh data={shape[0]} model={shape[1]}: {world} processes, backend={backend} ({where})",
           flush=True)
-    run_dir = args.run_dir or tempfile.mkdtemp(prefix="repro_mesh_")
+    # absolute: a relative path would read as the host of the file:// URL
+    run_dir = os.path.abspath(args.run_dir or tempfile.mkdtemp(prefix="repro_mesh_"))
     os.makedirs(run_dir, exist_ok=True)
     store = os.path.join(run_dir, "rendezvous")
     if os.path.exists(store):
@@ -193,8 +240,9 @@ def _main_mesh(args, argv, device, cfg, opt) -> Dict:
 def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -> None:
     import torch.distributed as dist
 
-    from repro_torch.core.optimizers import state_nbytes
+    from repro_torch.kernels import adamw4bit, quant4
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.fault_tolerance import plan_elastic
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     args = parse_args(argv)
@@ -207,22 +255,46 @@ def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -
     try:
         mesh = make_mesh(shape, ("data", "model"), "cuda" if backend == "nccl" else "cpu")
         cfg, opt, sr_key = _setup(args)
+        axes = param_axes(cfg)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        model = init_model(cfg, seed=0, device=device)
-        state = make_train_state(model, opt, key=sr_key)
-        whole = state_nbytes(state.opt_state)
-        n_params = sum(p.numel() for p in state.params.values())
-        axes = param_axes(cfg)
-        state = shard_train_state(state, mesh, axes)
+        _, whole = abstract_train_state(cfg, opt, key=sr_key)  # shapes only
+        n_params = sum(p.numel() for p in whole.params.values())
+        whole_bytes = state_nbytes(whole.opt_state)
+        plan = train_state_shardings(whole, axes, mesh)
+        del whole
+        mgr = (CheckpointManager(args.ckpt_dir, keep_last=args.keep_last,
+                                 keep_every=args.keep_every) if args.ckpt_dir else None)
+        # the newest complete step, whatever layout saved it; every rank must
+        # resume from the same one
+        start = plan_elastic(range(world), mgr.latest_step() if mgr else None).restore_step or 0
+        starts = [None] * world
+        dist.all_gather_object(starts, start)
+        if len(set(starts)) != 1:
+            raise RuntimeError(f"the ranks see different newest checkpoints: {starts}")
+        ckpt = {"resumed_from": start, "restore_s": None, "saves": []}
+        if start:
+            model, state = abstract_train_state(cfg, opt, key=sr_key, device=device, mesh=mesh,
+                                                axes=axes)
+            t0 = time.perf_counter()
+            state, _ = mgr.restore(state, device=device, shardings=plan, mesh=mesh)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ckpt["restore_s"] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"resumed from step {start} ({ckpt['restore_s']:.1f} s on rank 0)",
+                      flush=True)
+        else:
+            model = init_model(cfg, seed=0, device=device)
+            state = shard_train_state(make_train_state(model, opt, key=sr_key), mesh, axes)
         comms = CommsConfig.parse(args.grad_comm)
         if rank == 0:
             print(f"arch={cfg.name} params={n_params:,} optimizer={opt.name} "
-                  f"state_bytes={whole:,} device={device}", flush=True)
+                  f"state_bytes={whole_bytes:,} device={device}", flush=True)
         step_fn = build_train_step(model, opt, mesh, axes, comms=comms)
         data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
         records = []
-        for t in range(args.steps):
+        for t in range(start, args.steps):
             batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(t).items()}
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
@@ -232,29 +304,46 @@ def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -
                             "ce_loss": float(metrics["ce_loss"]),
                             "aux_loss": float(metrics["aux_loss"]),
                             "grad_norm": float(metrics["grad_norm"]), **step_fn.times})
+            if mgr and (t + 1) % args.ckpt_every == 0:
+                t0 = time.perf_counter()
+                mgr.save(t + 1, state, shardings=plan, mesh=mesh)
+                ckpt["saves"].append({"step": t + 1, "t0": t0,
+                                      "stall_ms": (time.perf_counter() - t0) * 1e3})
             if rank == 0 and t % 5 == 0:
                 print(f"step {t:4d} loss {loss:.4f} aux_loss {records[-1]['aux_loss']:.4f} "
                       f"({ms:.0f} ms)", flush=True)
-        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-        mine = torch.tensor([state_nbytes(state.opt_state),
-                             sum(p.numel() * p.element_size() for p in state.params.values()),
-                             peak], dtype=torch.int64)
-        every = [torch.zeros_like(mine) for _ in range(world)]
-        dist.all_gather(every, mine)
+        if mgr:
+            mgr.wait()
+            for rec in ckpt["saves"]:
+                rec["commit_s"] = mgr.commit_times[rec["step"]] - rec.pop("t0")
+        mine = {"state_bytes": state_nbytes(state.opt_state),
+                "param_bytes": sum(p.numel() * p.element_size() for p in state.params.values()),
+                "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else 0),
+                "checkpoint": ckpt if mgr else None,
+                "launches": {**adamw4bit.LAUNCHES, **quant4.LAUNCHES}}
+        if args.digests:
+            mine["digests"] = _digests(state)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
         ranks = []
         for r, row in enumerate(every):
-            st, pb, pk = (int(v) for v in row)
             coord = step_fn.mesh_step.run.coords[r]
-            ranks.append({"rank": r, **coord, "state_bytes": st, "param_bytes": pb,
-                          "peak_bytes": pk})
+            ranks.append({"rank": r, **coord, **row})
             if rank == 0:
                 print(f"rank {r} (data={coord['data']}, model={coord['model']}): "
-                      f"state_bytes={st:,} param_bytes={pb:,} peak_bytes={pk:,}", flush=True)
+                      f"state_bytes={row['state_bytes']:,} param_bytes={row['param_bytes']:,} "
+                      f"peak_bytes={row['peak_bytes']:,}", flush=True)
+                for rec in (row["checkpoint"] or {}).get("saves", []):
+                    print(f"rank {r} checkpoint step {rec['step']}: save() stalled "
+                          f"{rec['stall_ms']:.0f} ms, committed after {rec['commit_s']:.1f} s",
+                          flush=True)
         if rank == 0:
             with open(os.path.join(run_dir, "summary.json"), "w") as f:
-                json.dump({"arch": cfg.name, "optimizer": opt.name, "state_bytes": whole,
+                json.dump({"arch": cfg.name, "optimizer": opt.name, "state_bytes": whole_bytes,
                            "n_params": n_params, "mesh": list(shape), "backend": backend,
-                           "steps": records, "ranks": ranks}, f)
+                           "steps": records, "checkpoint": ckpt if mgr else None,
+                           "ranks": ranks}, f)
     finally:
         dist.destroy_process_group()
 
@@ -336,9 +425,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             print(f"checkpoint step {rec['step']}: save() stalled {rec['stall_ms']:.0f} ms, "
                   f"committed after {rec['commit_s']:.1f} s")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"arch": cfg.name, "optimizer": opt.name, "state_bytes": nbytes,
-            "n_params": n_params, "wire": wire, "steps": records, "peak_bytes": peak,
-            "state": state, "checkpoint": ckpt if mgr else None}
+    out = {"arch": cfg.name, "optimizer": opt.name, "state_bytes": nbytes,
+           "n_params": n_params, "wire": wire, "steps": records, "peak_bytes": peak,
+           "state": state, "checkpoint": ckpt if mgr else None}
+    if args.digests:
+        out["digests"] = _digests(state)
+    return out
 
 
 if __name__ == "__main__":

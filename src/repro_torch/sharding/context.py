@@ -155,6 +155,6 @@ def rank_coord(mesh) -> Dict[str, int]:
     """This process's coordinate on ``mesh`` (its ranks row-major)."""
     import torch.distributed as dist
 
-    sizes = mesh_axis_sizes(mesh)
-    coords = list(itertools.product(*(range(n) for n in sizes.values())))
-    return dict(zip(sizes, coords[dist.get_rank()]))
+    from repro_torch.sharding.specs import mesh_coords
+
+    return mesh_coords(mesh)[dist.get_rank()]

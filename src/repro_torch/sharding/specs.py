@@ -22,13 +22,15 @@ reference's rules:
 ``local_box`` gives, for a partition, a mesh coordinate and a shape, the
 ``(start, stop)`` range of every dim that the rank at that coordinate owns
 (a dim over several mesh axes is cut in the axes' order, the first one
-outermost); ``local_slice`` cuts a tensor to it and ``plan_nbytes`` sums a
-rank's bytes over a tree.
+outermost); ``mesh_coords`` lists every rank's coordinate, ``whole_shape``
+inverts a box's shape, ``local_slice`` cuts a tensor to its box and
+``plan_nbytes`` sums a rank's bytes over a tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
+import itertools
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
 
 import torch
 
@@ -44,6 +46,8 @@ __all__ = [
     "cache_shardings",
     "replicated",
     "local_box",
+    "mesh_coords",
+    "whole_shape",
     "local_slice",
     "plan_leaves",
     "map_plan",
@@ -221,6 +225,26 @@ def local_box(spec: P, shape: Tuple[int, ...], coord: Mapping[str, int], mesh) -
         step = int(n) // k
         box.append((i * step, (i + 1) * step))
     return tuple(box)
+
+
+def mesh_coords(mesh) -> List[Dict[str, int]]:
+    """Every rank's coordinate, in rank order (ranks row-major over the axes)."""
+    sizes = mesh_axis_sizes(mesh)
+    return [dict(zip(sizes, c)) for c in itertools.product(*(range(n) for n in sizes.values()))]
+
+
+def whole_shape(local: Tuple[int, ...], spec: P, mesh) -> Tuple[int, ...]:
+    """The whole shape of which a rank's part under ``spec`` is ``local``
+    (every cut dim is cut evenly, ``local_box``)."""
+    sizes = mesh_axis_sizes(mesh)
+    out = []
+    for d, n in enumerate(local):
+        e = spec[d] if d < len(spec) else None
+        k = 1
+        for a in (() if e is None else e if isinstance(e, tuple) else (e,)):
+            k *= sizes[a]
+        out.append(int(n) * k)
+    return tuple(out)
 
 
 def box_index(box: Box) -> Tuple[slice, ...]:

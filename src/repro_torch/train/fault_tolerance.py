@@ -12,7 +12,8 @@ host_index, num_hosts), because the pipeline is stateless.
 failure it restores the latest complete checkpoint and continues.
 ``checkpoint_hooks`` wires its ``(save, restore_latest)`` callbacks onto a
 ``repro_torch.io.CheckpointManager``: async saves, and a restore that falls
-back past incomplete (uncommitted) save dirs.
+back past incomplete (uncommitted) save dirs and, on a mesh, reads each
+rank's part under the current plan, whatever layout saved it.
 """
 
 from __future__ import annotations
@@ -110,6 +111,7 @@ def checkpoint_hooks(
     set_state: Callable[[object], None],
     make_target: Callable[[], object],
     device="cuda",
+    make_shardings: Optional[Callable[[], Tuple[object, object]]] = None,
 ) -> Tuple[Callable[[int], None], Callable[[], int]]:
     """(save, restore_latest) callbacks for ``run_with_recovery``.
 
@@ -118,11 +120,19 @@ def checkpoint_hooks(
     background). ``restore_latest()`` restores the newest complete step
     onto ``device`` (a save killed mid-shard-write is skipped), hands it to
     ``set_state`` and returns the step to resume from (0 when there is no
-    complete checkpoint). ``make_target`` builds the restore target.
+    complete checkpoint). ``make_target`` builds the restore target;
+    ``make_shardings`` (optional) gives ``(plan, mesh)`` of the current
+    layout, with which a mesh state is saved and restored: an elastic
+    restart reads each rank's part under the new plan. With the world
+    changed, ``plan_elastic`` names the step to restore.
     """
 
+    def layout():
+        return make_shardings() if make_shardings is not None else (None, None)
+
     def save(step: int) -> None:
-        manager.save(step, get_state())
+        shardings, mesh = layout()
+        manager.save(step, get_state(), shardings=shardings, mesh=mesh)
 
     def restore_latest() -> int:
         # manager.latest_step drains in-flight saves itself, so the step it
@@ -138,7 +148,9 @@ def checkpoint_hooks(
             step = ckfmt.latest_step(manager.directory)
         if step is None:
             return 0
-        state, _ = manager.restore(make_target(), step=step, device=device)
+        shardings, mesh = layout()
+        state, _ = manager.restore(make_target(), step=step, device=device,
+                                   shardings=shardings, mesh=mesh)
         set_state(state)
         return step
 

@@ -779,17 +779,3 @@ def test_restored_leaves_die_with_the_state(tmp_path):
         assert all(r() is None for r in refs)
     finally:
         gc.enable()
-
-
-def test_save_refuses_more_than_one_process(tmp_path, monkeypatch):
-    """The writer's commit protocol is single-process: a save under a
-    several-process ``torch.distributed`` group is refused before any file
-    is written, on the synchronous and the async path."""
-    tree = {"w": torch.arange(8, dtype=torch.float32)}
-    d = str(tmp_path / "c")
-    monkeypatch.setattr(ckfmt, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="2 processes"):
-        save_checkpoint(d, 1, tree)
-    with pytest.raises(NotImplementedError, match="2 processes"):
-        CheckpointManager(d).save(1, tree)
-    assert not os.path.exists(d)

@@ -4,12 +4,17 @@
 through a ``FileStore`` in ``tmp`` (never a fixed port), runs every task
 in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
-``kind`` (``allreduce``, ``reduce``, ``step``, ``losses``) and its inputs; each rank
-runs on one CPU thread (pytest runs several workers at once).
+``kind`` (``allreduce``, ``reduce``, ``step``, ``losses``, and the checkpoint
+kinds ``save``, ``restore``, ``resume``, ``protocol``) and its inputs; a task
+with ``after`` waits until that file exists (the caller writes its inputs
+meanwhile). Each rank runs on one CPU thread (pytest runs several workers
+at once).
 """
 
 import os
+import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -145,14 +150,190 @@ def _losses(task, rank):
     return out
 
 
-TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "losses": _losses}
+def _ckpt_setup(task):
+    """(cfg, optimizer, SR key, axes) of a checkpoint task."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.kernels import sr
+    from repro_torch.models import param_axes
+
+    cfg = reduced_config(task["arch"])
+    return (cfg, make_optimizer(task["optimizer"], task["lr"]), sr.PRNGKey(task["sr_seed"]),
+            param_axes(cfg))
+
+
+def _plan(cfg, opt, key, axes, mesh):
+    from repro_torch.launch.train import abstract_train_state
+    from repro_torch.train.train_loop import train_state_shardings
+
+    return train_state_shardings(abstract_train_state(cfg, opt, key=key)[1], axes, mesh)
+
+
+def _host_leaves(state):
+    from repro_torch.io.tree import flatten_with_keys
+
+    return [(k, v.detach().clone() if isinstance(v, torch.Tensor) else torch.from_numpy(v.copy()))
+            for k, v in flatten_with_keys(state)]
+
+
+def _save(task, rank):
+    """A whole state restored from a one-process save (``src``), cut to this
+    rank's part and saved on ``mesh`` into ``dst``; every device-to-host copy
+    recorded."""
+    from repro_torch.io import restore_checkpoint, save_checkpoint, writer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import abstract_train_state
+    from repro_torch.train.train_loop import shard_train_state
+
+    cfg, opt, key, axes = _ckpt_setup(task)
+    mesh = make_mesh(task["mesh"], ("data", "model"))
+    _, target = abstract_train_state(cfg, opt, key=key, device="cpu")
+    whole, _ = restore_checkpoint(task["src"], target, device="cpu")
+    state = shard_train_state(whole, mesh, axes)
+    copies = []
+    real = writer._device_to_host
+    writer._device_to_host = lambda k, leaf: copies.append((k, leaf.nbytes)) or real(k, leaf)
+    try:
+        save_checkpoint(task["dst"], int(state.step), state,
+                        shardings=_plan(cfg, opt, key, axes, mesh), mesh=mesh)
+    finally:
+        writer._device_to_host = real
+    return {"copies": copies}
+
+
+def _restore(task, rank):
+    """``src`` restored onto each of ``meshes``: this rank's leaves, and the
+    size of every region the reader allocated."""
+    from repro_torch.io import reader, restore_checkpoint
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import abstract_train_state
+
+    cfg, opt, key, axes = _ckpt_setup(task)
+    out = {}
+    for shape in task["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"))
+        _, target = abstract_train_state(cfg, opt, key=key, device="cpu", mesh=mesh, axes=axes)
+        regions = []
+        real = reader._alloc_region
+        reader._alloc_region = lambda k, s, dt: regions.append(
+            (k, int(np.prod(s, dtype=np.int64)) * np.dtype(dt).itemsize)) or real(k, s, dt)
+        try:
+            state, _ = restore_checkpoint(task["src"], target, device="cpu",
+                                          shardings=_plan(cfg, opt, key, axes, mesh), mesh=mesh)
+        finally:
+            reader._alloc_region = real
+        out[shape] = {"leaves": _host_leaves(state), "regions": regions}
+    return out
+
+
+def _resume(task, rank):
+    """The newest step of ``src`` restored onto ``mesh`` by
+    ``checkpoint_hooks``' ``restore_latest`` (elastic when it was saved on
+    another layout), then one mesh update fed the whole ``grads``; the whole
+    params and state gathered after."""
+    from repro_torch.io import CheckpointManager
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import abstract_train_state
+    from repro_torch.train.fault_tolerance import checkpoint_hooks
+    from repro_torch.train.train_loop import build_train_step
+
+    cfg, opt, key, axes = _ckpt_setup(task)
+    mesh = make_mesh(task["mesh"], ("data", "model"))
+    model, _ = abstract_train_state(cfg, opt, key=key, mesh=mesh, axes=axes)
+    held = {}
+    _, restore_latest = checkpoint_hooks(
+        CheckpointManager(task["src"]), get_state=lambda: held["state"],
+        set_state=lambda st: held.__setitem__("state", st),
+        make_target=lambda: abstract_train_state(cfg, opt, key=key, device="cpu", mesh=mesh,
+                                                 axes=axes)[1],
+        device="cpu", make_shardings=lambda: (_plan(cfg, opt, key, axes, mesh), mesh))
+    resumed = restore_latest()
+    state = held["state"]
+    ms = build_train_step(model, opt, mesh, axes).mesh_step
+    tiles = {k: torch.from_numpy(v)[ms.tiles[k].index()].clone()
+             for k, v in task["grads"].items()}
+    with torch.no_grad():
+        new = ms.update(opt, tiles, state.opt_state, state.params,
+                        key=sr.fold_in(key, int(state.step)))
+    return {"resumed": resumed, "step": int(state.step), "params": ms.whole_params(state.params),
+            "opt_state": ms.whole_state(new)}
+
+
+def _protocol(task, rank):
+    """The commit protocol in ``dir``: a save, then one whose rank 1 dies at
+    the ``ckpt_written`` seam (short rendezvous timeout), then a re-save
+    interrupted between its renames that process 0 repairs while the others
+    wait."""
+    import torch.distributed as dist
+
+    from repro_torch.io import CheckpointManager, restore_checkpoint, writer
+    from repro_torch.io import format as fmt
+    from repro_torch.sharding.rules import P
+
+    d, mesh = task["dir"], {"data": 2, "model": 2}
+    plan = {"w": P(("data", "model"))}
+    # this rank's part: element ``rank`` of a 4-element leaf
+    tree = lambda step: {"w": torch.full((1,), float(100 * step + rank))}
+    mgr = CheckpointManager(d, keep_last=3)
+    mgr.save(1, tree(1), shardings=plan, mesh=mesh, block=True)
+    out = {"committed_1": fmt.is_complete(fmt.step_dir(d, 1))}
+    writer._RENDEZVOUS_TIMEOUT_S = task["timeout"]
+    real = writer._barrier
+
+    def dying(name):
+        if rank == 1 and name.startswith("ckpt_written"):
+            raise RuntimeError("rank 1 killed between its shard write and its index")
+        return real(name)
+
+    writer._barrier = dying
+    try:
+        mgr.save(2, tree(2), shardings=plan, mesh=mesh)
+        try:
+            mgr.wait()
+            out["error"] = None
+        except Exception as e:  # every rank's save fails, each on its own
+            out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        writer._barrier = real
+    out["latest"] = mgr.latest_step()
+    out["commit_2"] = os.path.exists(os.path.join(fmt.step_dir(d, 2), fmt.COMMIT))
+    got, _ = restore_checkpoint(d, {"w": torch.empty(1, device="meta")}, device="cpu",
+                                shardings=plan, mesh=mesh)
+    out["restored"] = got["w"]
+    dist.barrier()
+    # a re-save of step 1 killed between its two renames: the committed copy
+    # set aside, an incomplete step_1 in its place
+    final = fmt.step_dir(d, 1)
+    if rank == 0:
+        os.rename(final, final + ".replaced")
+        os.makedirs(final)
+    dist.barrier()
+    if rank == 0:
+        time.sleep(task["repair_delay"])
+    out["scan_t"] = time.time()
+    out["repaired_latest"] = fmt.latest_step(d)
+    out["return_t"] = time.time()
+    return out
+
+
+TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "losses": _losses,
+         "save": _save, "restore": _restore, "resume": _resume, "protocol": _protocol}
 
 
 def _rank(rank, world, store, tasks, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
     try:
-        res = {name: TASKS[t["kind"]](t, rank) for name, t in tasks.items()}
+        res = {}
+        for name, t in tasks.items():
+            if t.get("after"):
+                deadline = time.monotonic() + 600
+                while not os.path.exists(t["after"]):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"task {name}: {t['after']} never appeared")
+                    time.sleep(0.05)
+            res[name] = TASKS[t["kind"]](t, rank)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
