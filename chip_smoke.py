@@ -276,6 +276,23 @@ Phases, each failing the run on error:
     computes all 8 rows, so its training peak is its own layout's, and a
     fresh 1x2 run is not part of the phase). Prints every run's save stall,
     seconds to COMMIT, restore seconds a rank, step ms and peaks.
+38. the roofline on the card: (a) ``launch.dryrun.run_all`` over
+    internlm2-1.8b's four shapes on both production plans, on the ``meta``
+    device: no cell in error (the counts of ok, skipped and refused printed;
+    the records in ``chiprun_out/dryrun.json``); (b) the roofline of
+    phase 6's step (internlm2-1.8b, 8 x 128, production4bit with SR, one
+    rank) with the constants of the card ``nvidia-smi`` names (a card
+    other than the H100 SXM fails the phase): the compute term (bf16
+    products at the tensor cores' rate, the fp32 attention at the fp32
+    rate), memory and collective terms, the bottleneck, ``model_flops``,
+    and both shares of phase 6's median step (the bound over the step,
+    ``model_flops`` over step x bf16 peak); (c) one real production4bit+SR
+    step of the full model on the card under the same counters: matmul
+    FLOPs equal to (b)'s, type by type, bytes (B1's byte model at its 4 + 4
+    launches included) within 2% of (b)'s;
+    not a path run, so its launches are not in the kernel table; (d) phase
+    35's collective bytes, reckoned from the plan with no world
+    (``MeshStep.reckon``), equal to the bytes each of its steps recorded.
 
 The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
 30, 35 and 37 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0
@@ -302,8 +319,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
-FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+# the card's memory rate and fp32 rate outside the tensor cores: main sets
+# them from repro_torch.roofline.analysis.H100 (the one place the H100's
+# constants are written)
+HBM_BYTES_PER_S = None
+FP32_FLOPS_PER_S = None
 INT_ALU_LANES_PER_SM = 64      # Hopper SM: 32-bit shift, funnel shift and logic ops per clock
 # Stochastic rounding draws word 0 of two Threefry-2x32-20 blocks per element
 # (m on stream 0, v on stream 1): 20 rounds of add, rotate, xor, of which the
@@ -312,7 +332,6 @@ INT_ALU_LANES_PER_SM = 64      # Hopper SM: 32-bit shift, funnel shift and logic
 # integer ALU pipe per element (the adds may go to the IMAD pipe); phase 1
 # checks the count against the SASS.
 SR_ALU_OPS_PER_ELEMENT = 2 * (19 + 19) - 1
-STATS_BYTES_PER_ELEMENT = 4 + 0.5  # fp32 grad + v codes, read once
 # The 5-step losses of the full-size run (chip runs of the two earlier
 # versions of B1, which gave the same codes and scales).
 EXPECTED_LOSSES = (11.8285, 11.6147, 11.5683, 11.3304, 11.3129)
@@ -549,6 +568,14 @@ MESH_CKPT_ARGS = ["--arch", "internlm2-1.8b", "--optimizer", "production4bit", "
                   "--steps", "3", "--batch", "8", "--seq", "128", "--device", "cuda",
                   "--ckpt-every", "2", "--keep-last", "1"]
 MESH_CKPT_STEP = 2
+# phase 38 (slice 13): the dry run's cells (internlm2-1.8b's four shapes on
+# both production plans: the single-pod sweep of every arch took about 100 s
+# on an H100 machine's host, over the phase's budget; the whole 80-cell sweep
+# is run by hand, PERF.md section 6), the roofline of phase 6's step on one
+# rank, and the 2% bar on its bytes against the counted real step
+DRYRUN_ARCHS = ("internlm2-1.8b",)
+ROOFLINE_ARGS = ("internlm2-1.8b", 8, 128, "production4bit")
+ROOFLINE_BYTES_RTOL = 0.02
 
 
 def fail(msg: str) -> None:
@@ -710,11 +737,12 @@ def _leaf_dims(shape):
 def _bound(shape):
     """Least time for one update-pass launch on a leaf of ``shape`` (the
     kernel sees (L, R, C), leading dims folded into L): each input read
-    once, each output written once, against fp32 operations."""
+    once, each output written once (``roofline.measured.b1_update_bytes``),
+    against fp32 operations."""
+    from repro_torch.roofline.measured import b1_update_bytes
+
     n, L, R, C = _leaf_dims(shape)
-    read = n * (4 + 4 + 0.5 + 0.5) + n / 128 * 4 + (2 * L * R + 2 * C) * 4 + L * 2 * 4
-    write = n * (4 + 0.5 + 0.5) + n / 128 * 4
-    nbytes = read + write
+    nbytes = b1_update_bytes(L, R, C)
     flops = 30.0 * n  # dequant, Eq. 1, absmax, two normalisations
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
@@ -730,9 +758,12 @@ def _sr_int_ms(shape, card):
 def _stats_bound(shape):
     """Least time for one stats-pass launch: g and the v codes read once,
     the old stats read and the new ones written once; 10 fp32 operations
-    per element (dequant, guard, b2*v + (omb2*g)*g, two maxima)."""
+    per element (dequant, guard, b2*v + (omb2*g)*g, two maxima); the bytes
+    are ``roofline.measured.b1_stats_bytes``."""
+    from repro_torch.roofline.measured import b1_stats_bytes
+
     n, L, R, C = _leaf_dims(shape)
-    nbytes = n * STATS_BYTES_PER_ELEMENT + 2 * (L * R + C) * 4
+    nbytes = b1_stats_bytes(L, R, C)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10.0 * n / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
@@ -3288,7 +3319,126 @@ def phase_mesh_checkpoint(counters, one_process=None):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 38 (slice 13): the roofline on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_roofline(card, main_steps, mesh):
+    """Phase 38: the dry run's single-pod sweep; the roofline of phase 6's
+    step on one rank with the card's constants, against phase 6's median
+    step; that count held to one real step on the card under the same
+    counters; and phase 35's collective bytes reckoned without a world."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import adamw4bit, sr
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_model
+    from repro_torch.roofline.analysis import hw_for_card
+    from repro_torch.roofline.measured import Counter, _optimizer, measure
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    t_start = time.perf_counter()
+    name = card.split(",")[0].strip()
+    try:
+        hw = hw_for_card(name)
+    except ValueError as e:
+        fail(f"roofline: {e}")
+    # (a) the dry run's cells of DRYRUN_ARCHS on both production plans
+    out = OUT_DIR / "dryrun.json"
+    OUT_DIR.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        records = dryrun.run_all(str(out), archs=DRYRUN_ARCHS)
+    sweep_s = time.perf_counter() - t0
+    status = {}
+    for r in records:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in records if r["status"] == "error"]
+    if bad:
+        fail(f"dry run: {len(bad)} cells in error: {bad}")
+    print(f"dry run of {', '.join(DRYRUN_ARCHS)} on both production plans: {len(records)} "
+          f"records {status} in {sweep_s:.1f} s")
+    # (b) the roofline of phase 6's step: one rank, production4bit with SR
+    arch, batch, seq, opt_name = ROOFLINE_ARGS
+    cfg = get_config(arch)
+    shape = ShapeSpec(f"train_{batch}x{seq}", seq, batch, "train")
+    rec = measure(cfg, shape, {"data": 1, "model": 1}, hw, opt_name)
+    rf = rec["roofline"]
+    step_ms = _median([r["ms"] for r in main_steps[1:]])
+    bound_s = max(rf["compute_s"], rf["memory_s"], rf["collective_s"])
+    bound_share = bound_s * 1e3 / step_ms
+    mfu = rf["model_flops_total"] / (step_ms * 1e-3 * hw.peak_flops)
+    by_dtype = ", ".join(f"{f:,} {d}" for d, f in rec["flops_by_dtype"].items())
+    print(f"roofline of phase 6's step ({arch}, {batch} x {seq}, {opt_name}+SR, one rank) on "
+          f"{card}: compute {rf['compute_s'] * 1e3:.4f} ms ({rf['flops']:.6e} matmul FLOPs: "
+          f"{by_dtype}), "
+          f"memory {rf['memory_s'] * 1e3:.4f} ms ({rf['bytes_accessed']:.6e} B), collective "
+          f"{rf['collective_s'] * 1e3:.4f} ms; bottleneck {rf['bottleneck']}; model_flops "
+          f"{rf['model_flops_total']:.6e}")
+    print(f"roofline shares against phase 6's median step {step_ms:.1f} ms (steps 1-4): the "
+          f"bound {bound_s * 1e3:.4f} ms is {bound_share:.2%} of it; model_flops / (step x "
+          f"peak) = {mfu:.3%}")
+    # (c) one real step on the card under the same counters (not a path run)
+    dev = torch.device("cuda", 0)
+    model = init_model(cfg, seed=0, device=dev)
+    opt = _optimizer(opt_name)
+    state = make_train_state(model, opt, key=sr.PRNGKey(0))
+    step = build_train_step(model, opt)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
+    real_batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(0).items()}
+    torch.cuda.synchronize()
+    before = dict(adamw4bit.LAUNCHES)
+    with Counter() as c:
+        state, metrics = step(state, real_batch)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    launched = {k: adamw4bit.LAUNCHES[k] - before[k] for k in before}
+    del model, state, step, metrics, real_batch
+    torch.cuda.empty_cache()
+    rel = abs(c.bytes - rf["bytes_accessed"]) / rf["bytes_accessed"]
+    print(f"counted real step on the card: loss {loss:.4f}, {c.flops:,} matmul FLOPs "
+          f"{c.flops_by_dtype} (roofline {int(rf['flops']):,} {rec['flops_by_dtype']}), "
+          f"{c.bytes:.6e} B (roofline {rf['bytes_accessed']:.6e}, {rel:.3%} apart), B1 passes "
+          f"{c.b1}, launches {launched}")
+    if c.flops != int(rf["flops"]) or c.flops_by_dtype != rec["flops_by_dtype"]:
+        fail(f"roofline: the real step's matmul FLOPs {c.flops_by_dtype} != the count's "
+             f"{rec['flops_by_dtype']}")
+    if rel > ROOFLINE_BYTES_RTOL:
+        fail(f"roofline: the real step's bytes {c.bytes:.6e} are {rel:.2%} from the count's "
+             f"{rf['bytes_accessed']:.6e} (bar {ROOFLINE_BYTES_RTOL:.0%})")
+    if c.b1 != launched or launched != {"fused_adamw4": 4, "rank1_new_stats": 4}:
+        fail(f"roofline: the real step heard B1 passes {c.b1}, launched {launched}, not 4 + 4")
+    if not math.isfinite(loss):
+        fail(f"roofline: the counted step's loss is {loss}")
+    # (d) phase 35's collectives, reckoned from the plan with no world
+    cell = measure(cfg, shape, dict(zip(("data", "model"), MESH_SHAPE)), hw, opt_name)
+    reckoned = cell["collectives"]["result_bytes"]
+    recorded = [s["collective_bytes"] for r in mesh["ranks"] for s in r["train"]["steps"]]
+    if any(b != reckoned for b in recorded):
+        fail(f"roofline: phase 35 moved {recorded} B a step, the reckoning {reckoned} B")
+    print(f"phase 35's collectives reckoned without a world: {reckoned:,} B a step a rank, "
+          f"equal to each of its {len(recorded)} recorded steps; link bytes "
+          f"{cell['collectives']['total']:.6e} ({cell['collectives']['ops']:.0f} calls)")
+    seconds = time.perf_counter() - t_start
+    print(f"roofline phase (38): {seconds:.1f} s")
+    return {"card": card, "dryrun": {"records": len(records), "status": status,
+                                     "seconds": sweep_s, "file": str(out.relative_to(ROOT))},
+            "roofline": {"record": rec, "step_ms": step_ms, "bound_share": bound_share,
+                         "model_flops_share": mfu, "real_step": {
+                             "flops": c.flops, "flops_by_dtype": c.flops_by_dtype,
+                             "bytes": c.bytes, "bytes_rel_diff": rel,
+                             "b1_passes": c.b1, "launches": launched, "loss": loss}},
+            "mesh_collectives": {"reckoned": reckoned, "recorded": recorded,
+                                 "link": cell["collectives"]},
+            "seconds": seconds}
+
+
 def main():
+    global HBM_BYTES_PER_S, FP32_FLOPS_PER_S
     sys.path.insert(0, str(ROOT / "src"))
     # the caching allocator maps memory in growable segments, so the MoE
     # phases' 7-9 GB gradient stacks do not strand freed blocks (set before
@@ -3302,8 +3452,10 @@ def main():
         fail("no CUDA device: this script measures the port on a GPU")
     try:
         from repro_torch.kernels import adamw4bit, quant4
+        from repro_torch.roofline.analysis import H100
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
+    HBM_BYTES_PER_S, FP32_FLOPS_PER_S = H100.hbm_bw, H100.fp32_flops
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -3369,6 +3521,7 @@ def main():
     b1_tiles = phase_b1_tiles(dev)
     mesh = phase_mesh()
     mesh_checkpoint = phase_mesh_checkpoint(counters, checkpoint)
+    roofline = phase_roofline(card, main_steps, mesh)
     # launches: every path run of the slices, each counted from 0 just before
     # it and read just after (phases 6, 15, 21, 25, 30, 35, 37 train; 8, 17,
     # 23, 27, 32 serve)
@@ -3470,7 +3623,9 @@ def main():
          "stub_train_split": {a: r["split"] for a, r in stub_train.items()},
          "stub_small": stub_small, "stub_q4_leaves": stub_q4_leaves, "stub_serve": stub_serve,
          "stub_oracle": stub_oracle, "b1_tiles": b1_tiles, "mesh": mesh,
-         "mesh_checkpoint": mesh_checkpoint,
+         "mesh_checkpoint": mesh_checkpoint, "roofline": roofline["roofline"],
+         "dryrun": roofline["dryrun"], "roofline_mesh_collectives":
+             roofline["mesh_collectives"], "roofline_seconds": roofline["seconds"],
          "path_launches": launches,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -15,7 +15,13 @@ C)`` leaf (or ``(R, C)``, L == 1) and runs ONE launch over every slice. A
 CUDA tensor launches the kernel and adds one to ``LAUNCHES[<name>]``; a CPU
 tensor takes the plain version (``rank1_new_stats_plain``, the reference's
 prepass in torch ops; ``fused_adamw4_plain``, the oracles of ``ref.py``);
-anything else raises. There is no fallback from a kernel.
+while a count listens (``LISTENERS`` is not empty: the roofline counts a
+step on ``meta``), a ``meta`` tensor gets outputs of the right shapes and
+no values; anything else raises. There is no fallback from a kernel. Each
+pass that launches, or stands in for a launch on ``meta``, tells every
+callable in ``LISTENERS`` its name and ``(L, R, C)``: a dispatch mode
+cannot see a kernel's memory traffic, so ``roofline.measured`` adds its
+byte model there.
 
 Unlike the functional reference, the param is updated in place when
 ``out`` is the param itself (the optimizer does this to save a copy of
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ __all__ = [
     "rank1_new_stats_plain",
     "hyper_scalars",
     "LAUNCHES",
+    "LISTENERS",
     "SOURCE",
 ]
 
@@ -48,6 +55,19 @@ SOURCE = build.CSRC / "fused_adamw4.cu"
 
 # Kernel launches by wrapper name; only a real CUDA launch counts.
 LAUNCHES: Dict[str, int] = {"fused_adamw4": 0, "rank1_new_stats": 0}
+# told (pass name, (L, R, C)) at each pass on the card or on ``meta``
+LISTENERS: List[Callable[[str, Tuple[int, int, int]], None]] = []
+
+
+def _heard(name: str, dims: Tuple[int, int, int]) -> None:
+    for listener in LISTENERS:
+        listener(name, dims)
+
+
+def _runs_on(dev: torch.device) -> bool:
+    """Whether a pass runs on ``dev``: the card, or ``meta`` while a count
+    listens."""
+    return dev.type == "cuda" or (dev.type == "meta" and bool(LISTENERS))
 
 _lib = None
 
@@ -149,7 +169,7 @@ def rank1_new_stats(
     dev = g.device
     if dev.type == "cpu":
         return rank1_new_stats_plain(v_packed, v_r, v_c, g, v_table, b2, shape)
-    if dev.type != "cuda":
+    if not _runs_on(dev):
         raise ValueError(f"rank1_new_stats: unsupported device {dev}")
     if C % _BLOCK:
         raise ValueError(f"rank1_new_stats: C={C} must be a multiple of {_BLOCK}")
@@ -161,17 +181,19 @@ def rank1_new_stats(
     check("g", g, torch.float32, (L, R, C))
     row = torch.empty((L, R), dtype=torch.float32, device=dev)
     col = torch.zeros((C,), dtype=torch.int32, device=dev)  # float bits, merged by atomicMax
-    vt, _, vp = build.host_table(v_table)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = _library().rank1_stats_launch(
-        ptr(v_packed), ptr(v_r), ptr(v_c), ptr(g), ptr(row), ptr(col), L, R, C,
-        vt.ctypes.data_as(ctypes.c_void_p), vp,
-        float(np.float32(b2)), float(np.float32(1.0 - b2)),  # as the plain version rounds them
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"rank1_new_stats: kernel launch failed (cudaError {err})")
-    LAUNCHES["rank1_new_stats"] += 1
+    if dev.type == "cuda":
+        vt, _, vp = build.host_table(v_table)
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+        err = _library().rank1_stats_launch(
+            ptr(v_packed), ptr(v_r), ptr(v_c), ptr(g), ptr(row), ptr(col), L, R, C,
+            vt.ctypes.data_as(ctypes.c_void_p), vp,
+            float(np.float32(b2)), float(np.float32(1.0 - b2)),  # as the plain version rounds them
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
+        if err != 0:
+            raise RuntimeError(f"rank1_new_stats: kernel launch failed (cudaError {err})")
+        LAUNCHES["rank1_new_stats"] += 1
+    _heard("rank1_new_stats", (L, R, C))
     return _dim_stats(row, col.view(torch.float32), tuple(shape))
 
 
@@ -267,7 +289,7 @@ def fused_adamw4(
             out.reshape(L, R, C).copy_(w_new)
             w_new = out
         res = (w_new.reshape(L, R, C),) + tuple(res[1:])
-    elif dev.type == "cuda":
+    elif _runs_on(dev):
         res = _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
                       L, R, C, b1, b2, eps, weight_decay, use_sr, out, shapes, tile)
     else:
@@ -300,11 +322,16 @@ def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
         s = sr_seed.reshape(L, 2).to(torch.int64)
         s = torch.where(s >= 2**31, s - 2**32, s).to(torch.int32).contiguous()
         # host seed rows go up through pinned memory: no stream synchronisation
-        seeds = s.pin_memory().to(dev, non_blocking=True) if s.device.type == "cpu" else s
+        host = s.device.type == "cpu"
+        seeds = (s.to(dev) if dev.type == "meta" else s.pin_memory().to(dev, non_blocking=True)
+                 ) if host else s
     m_out = torch.empty((L, R, C // 2), dtype=torch.uint8, device=dev)
     ms_out = torch.empty((L, R, C // _BLOCK), dtype=torch.float32, device=dev)
     v_out = torch.empty((L, R, C // 2), dtype=torch.uint8, device=dev)
 
+    if dev.type == "meta":  # shapes only: no values, no launch
+        _heard("fused_adamw4", (L, R, C))
+        return w_out, m_out, ms_out, v_out
     mt, mmid, mp = build.host_table(m_table)
     vt, vmid, vp = build.host_table(v_table)
     hs = hyper_scalars(b1, b2, eps, weight_decay)
@@ -325,4 +352,5 @@ def _launch(w3, ops, v_c, v_c_new, m_table, v_table, lr, bc1, bc2, sr_seed,
     if err != 0:
         raise RuntimeError(f"fused_adamw4: kernel launch failed (cudaError {err})")
     LAUNCHES["fused_adamw4"] += 1
+    _heard("fused_adamw4", (L, R, C))
     return w_out, m_out, ms_out, v_out

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import COMPUTE_DTYPE
 
-__all__ = ["moe_capacity", "moe_slots", "moe_route", "moe_apply"]
+__all__ = ["moe_capacity", "moe_shard_groups", "moe_slots", "moe_route", "moe_apply"]
 
 
 def moe_capacity(n_tokens: int, top_k: int, n_experts: int, capacity_factor: float = 1.25,
@@ -44,6 +44,18 @@ def moe_capacity(n_tokens: int, top_k: int, n_experts: int, capacity_factor: flo
         raise ValueError(f"moe: {n_tokens} tokens do not split into groups of {T}")
     C = max(4, int(T * top_k * capacity_factor / n_experts))
     return T, min(C, T)
+
+
+def moe_shard_groups(n_tokens: int, shards: int, top_k: int, n_experts: int,
+                     capacity_factor: float = 1.25, group_size: int = 2048) -> Tuple[int, int]:
+    """(group size T, expert capacity C) of a data shard of ``n_tokens``
+    tokens, one of ``shards``: the groups are the global batch's, so the
+    shard must hold whole groups."""
+    T, C = moe_capacity(n_tokens * shards, top_k, n_experts, capacity_factor, group_size)
+    if n_tokens % T:
+        raise ValueError(f"moe: a data shard of {n_tokens} tokens does not hold whole groups of "
+                         f"{T} tokens (the global batch's); give each shard a multiple of {T}")
+    return T, C
 
 
 def moe_slots(top_idx: torch.Tensor, n_experts: int, capacity: int) -> torch.Tensor:
@@ -83,10 +95,8 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
 
     B, S, D = x.shape
     E = p["router"].shape[-1]
-    T, C = moe_capacity(B * S * current_batch_shards(), top_k, E, capacity_factor, group_size)
-    if (B * S) % T:
-        raise ValueError(f"moe: a data shard of {B * S} tokens does not hold whole groups of "
-                         f"{T} tokens (the global batch's); give each shard a multiple of {T}")
+    T, C = moe_shard_groups(B * S, current_batch_shards(), top_k, E, capacity_factor,
+                            group_size)
     G = B * S // T
     cd = COMPUTE_DTYPE
 

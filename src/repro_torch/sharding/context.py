@@ -56,17 +56,23 @@ class Tile:
 
 
 class MeshRun:
-    """This process's place on a mesh of ``torch.distributed`` ranks."""
+    """This process's place on a mesh of ``torch.distributed`` ranks. With
+    ``rank`` given, the place of that rank of a mesh ``{axis: size}`` with
+    no world: its groups are ``comms.collectives.Ranks`` (the layout
+    reckoning runs the collectives ``without_world``)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, rank: Optional[int] = None):
         import torch.distributed as dist
+
+        from repro_torch.comms.collectives import Ranks
 
         self.sizes = mesh_axis_sizes(mesh)
         self.names = tuple(self.sizes)
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
         self.coords = [dict(zip(self.names, c))
                        for c in itertools.product(*(range(n) for n in self.sizes.values()))]
+        live = rank is None
+        self.rank = dist.get_rank() if live else int(rank)
+        self.world = dist.get_world_size() if live else len(self.coords)
         self.coord = self.coords[self.rank]
         dps = set(dp_axes(self.sizes))
         self.n_dp = 1
@@ -77,7 +83,7 @@ class MeshRun:
         for key in sorted({tuple(c[a] for a in self.names if a not in dps) for c in self.coords}):
             ranks = [r for r, c in enumerate(self.coords)
                      if tuple(c[a] for a in self.names if a not in dps) == key]
-            group = dist.new_group(ranks)
+            group = dist.new_group(ranks) if live else Ranks(ranks)
             if self.rank in ranks:
                 self.data_group, self.data_ranks = group, ranks
 

@@ -27,25 +27,37 @@ of every fp32 moment, of the packed codes, and its part of the scales.
   assignment) are moved to the parameter's tile first and back after;
   scales are all-gathered whole and cut back to the plan's part after. A
   leaf the fused kernel may take whose tiles cut its B128 blocks (the
-  kernel needs whole blocks per tile row) is updated on tiles of whole rows
-  instead: its parameter, gradient and moments move there and back.
+  kernel needs whole blocks per tile row), or a leaf with 4-bit moments
+  whose tiles cut a packed byte of codes (two columns a byte), is updated
+  on tiles of whole rows instead: its parameter, gradient and moments move
+  there and back.
 
 Optimizers whose rules need whole-leaf statistics outside these paths
 (factored moments, SM3's accumulators, Shampoo's factor stacks) are refused
 by ``MeshStep``.
+
+``MeshStep.reckon`` walks the same code with no world (a ``MeshRun`` made
+for one rank of an ``{axis: size}`` mesh, ``meta`` parts, the collectives
+``without_world``): it gives one step's collective bytes as ``STATS``
+counts them and the calls the roofline prices, for any mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.comms.collectives import all_gather, all_to_all
+from repro_torch.comms import CommsConfig, grad_comm_key, reduce_grads
+from repro_torch.comms.collectives import all_gather, all_to_all, recording, without_world
 from repro_torch.core.optimizers.base import FactoredMoment
 from repro_torch.core.optimizers.transform import ChainState, PartitionState
 from repro_torch.core.quantizer import QuantizedTensor
+from repro_torch.kernels import sr
 from repro_torch.sharding import context
 from repro_torch.sharding.context import MeshRun, Tile
 from repro_torch.sharding.rules import spec_for, with_zero
@@ -67,6 +79,9 @@ Box = Tuple[Tuple[int, int], ...]
 STATS: Dict[str, float] = {"collective_s": 0.0, "bytes": 0}
 
 _LEAF_TYPES = (torch.Tensor, QuantizedTensor, FactoredMoment)
+# the metrics forward_backward averages over the data shards (params_loss's
+# two and the loss)
+_METRICS = ("aux_loss", "ce_loss", "loss")
 
 
 def _timed(fn, *args):
@@ -77,11 +92,35 @@ def _timed(fn, *args):
     return out
 
 
-def _assemble(pieces: torch.Tensor, boxes: List[Box], shape) -> torch.Tensor:
-    full = torch.empty(tuple(shape), dtype=pieces.dtype, device=pieces.device)
+@functools.lru_cache(maxsize=4096)
+def _grid(boxes: Tuple[Box, ...], shape) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(the first rank holding each cell, cells per dim): the boxes of a
+    plan cut every dim into equal cells that together cover the tensor
+    (ranks that replicate a cell hold equal pieces); cells in row-major
+    order."""
+    steps = [b - a for a, b in boxes[0]]
+    cell = [st or 1 for st in steps]  # an empty dim is one cell
+    counts = [int(n) // c if st else 1 for st, c, n in zip(steps, cell, shape)]
+    first: Dict[Tuple[int, ...], int] = {}
     for r, box in enumerate(boxes):
-        full[box_index(box)] = pieces[r]
-    return full
+        if any(b - a != st or a % c for (a, b), st, c in zip(box, steps, cell)):
+            raise ValueError(f"boxes {boxes} do not cut {tuple(shape)} into equal cells")
+        first.setdefault(tuple(a // c for (a, _), c in zip(box, cell)), r)
+    if len(first) != math.prod(counts) or any(c * st != n for c, st, n in
+                                              zip(counts, steps, shape)):
+        raise ValueError(f"boxes {boxes} do not cover {tuple(shape)}")
+    return tuple(first[c] for c in sorted(first)), tuple(counts)
+
+
+def _assemble(pieces: torch.Tensor, boxes: List[Box], shape) -> torch.Tensor:
+    """The whole tensor from the ranks' pieces: one gather of the cells in
+    row-major order and one copy into place."""
+    order, counts = _grid(tuple(boxes), tuple(shape))
+    if order != tuple(range(pieces.shape[0])):
+        pieces = pieces.index_select(0, torch.tensor(order, device=pieces.device))
+    nd = len(counts)
+    cells = pieces.reshape(*counts, *pieces.shape[1:])
+    return cells.permute([i for d in range(nd) for i in (d, nd + d)]).reshape(tuple(shape))
 
 
 def _whole(boxes: List[Box], shape) -> bool:
@@ -161,11 +200,18 @@ def _block_rows(boxes: List[Box], shape, world: int) -> List[Box]:
     return [whole] * world
 
 
-def _halve_last(box: Box) -> Box:
+def _splits_bytes(boxes: List[Box], shape) -> bool:
+    """Whether some tile cuts the last dim inside a packed byte of 4-bit
+    codes (two columns a byte; an odd last dim's final byte holds one)."""
+    return any(b[-1][0] % 2 or (b[-1][1] % 2 and b[-1][1] != shape[-1]) for b in boxes)
+
+
+def _halve_last(box: Box, last: int) -> Box:
+    """The packed codes' box of a tile of a leaf whose last dim is ``last``."""
     (a, b) = box[-1]
-    if a % 2 or b % 2:
+    if a % 2 or (b % 2 and b != last):
         raise ValueError(f"a tile {box} splits a packed byte of 4-bit codes")
-    return box[:-1] + ((a // 2, b // 2),)
+    return box[:-1] + ((a // 2, (b + 1) // 2),)
 
 
 class MeshStep:
@@ -175,7 +221,7 @@ class MeshStep:
 
     def __init__(self, run: MeshRun, cfg, shapes: Mapping[str, Tuple[int, ...]],
                  axes: Mapping[str, Tuple[str, ...]], meta_params, meta_state, zero: bool = True):
-        self.run, self.cfg = run, cfg
+        self.run, self.cfg, self.axes = run, cfg, dict(axes)
         self.shapes = {k: tuple(int(d) for d in s) for k, s in shapes.items()}
         sizes = run.sizes
         self.param_plan = {}
@@ -187,8 +233,12 @@ class MeshStep:
         self.tiles = {k: Tile(s, self.boxes[k][run.rank]) for k, s in self.shapes.items()}
         # the update's layout: the parameter's tile, unless that cuts the B128
         # blocks of a leaf the fused kernel may take (it needs whole blocks
-        # per tile row); such a leaf is updated on row tiles instead
-        self.work = {k: _block_rows(b, s, run.world) if _cuts_blocks(b, s) else b
+        # per tile row), or a packed byte of a 4-bit moment's codes; such a
+        # leaf is updated on row tiles instead
+        packed = {k for k, v in _mirror_leaves(meta_state, self.shapes)
+                  if isinstance(v, QuantizedTensor) and v.config.bits == 4}
+        self.work = {k: _block_rows(b, s, run.world)
+                     if _cuts_blocks(b, s) or (k in packed and _splits_bytes(b, s)) else b
                      for (k, b), s in zip(self.boxes.items(), self.shapes.values())}
         self.work_tiles = {k: Tile(s, self.work[k][run.rank]) for k, s in self.shapes.items()}
         check_state(meta_state, self.shapes)
@@ -225,7 +275,8 @@ class MeshStep:
         rank, work = self.run.rank, self.work[k]
         if isinstance(v, QuantizedTensor):
             cshape, cspec = sp.codes
-            cwork = [_halve_last(b) for b in work] if v.config.bits == 4 else work
+            cwork = ([_halve_last(b, self.shapes[k][-1]) for b in work] if v.config.bits == 4
+                     else work)
             cplan = self.plan_boxes(cshape, cspec)
             src, dst = (cplan, cwork) if to_work else (cwork, cplan)
             codes = reshard(v.codes, cshape, src, dst, rank)
@@ -297,10 +348,16 @@ class MeshStep:
 
         return sink
 
-    def _gathered(self, path: str, r: Optional[int] = None) -> torch.Tensor:
+    def _layout(self, path: str, r: Optional[int]):
+        """(this rank's part, every rank's box, the whole shape) of a
+        top-level leaf (``r`` None) or of layer ``r`` of a stacked one."""
         local = self._params[path] if r is None else self._params[path][r]
         boxes = self.boxes[path] if r is None else [b[1:] for b in self.boxes[path]]
         shape = self.shapes[path] if r is None else self.shapes[path][1:]
+        return local, boxes, shape
+
+    def _gathered(self, path: str, r: Optional[int] = None) -> torch.Tensor:
+        local, boxes, shape = self._layout(path, r)
         return _Gathered.apply(self._anchor, lambda: gather(local.detach(), boxes, shape),
                                self._sink(path, r, boxes))
 
@@ -350,6 +407,61 @@ class MeshStep:
         metrics["loss"] = torch.stack(losses).mean()
         return grads, self._data_mean(metrics)
 
+    @torch.no_grad()
+    def reckon(self, params: Mapping[str, torch.Tensor], opt_state, optimizer, key=None,
+               accum_steps: int = 1, comms=None,
+               around_update=None) -> Tuple[int, List[Tuple[str, int, int]]]:
+        """One train step's collectives on this rank, walked with no world:
+        ``params`` and ``opt_state`` are the rank's parts (``meta`` is
+        enough), the run one made with ``MeshRun(mesh, rank=)``. Every
+        gather and gradient exchange of ``forward_backward`` (each gathered
+        tensor's gradient an empty tensor of its shape) and the metrics'
+        gather run as the step runs them; then ``finish`` at step 0 with
+        ``optimizer``, ``key`` and the wire format ``comms`` (fp32 if None),
+        inside ``around_update`` (a context manager) if given. On ``meta`` it
+        runs inside a ``roofline.measured.Counter``, which stands in for B1's
+        passes and for masks that depend on values. Returns (the bytes
+        ``STATS["bytes"]`` counts, the calls ``collectives.recording``
+        records); ``STATS`` is left as it was."""
+        saved = dict(STATS)
+        STATS["collective_s"], STATS["bytes"] = 0.0, 0
+        try:
+            with without_world(self.run.world), recording() as calls:
+                self._params, self._written = params, set()
+                self._grads = {k: torch.empty_like(p) for k, p in params.items()}
+                for _ in range(accum_steps):
+                    for k, shape in self.shapes.items():
+                        stacked = k.startswith(("decoder/", "encoder/"))
+                        for r in range(shape[0]) if stacked else (None,):
+                            local, boxes, whole = self._layout(k, r)
+                            full = gather(local, boxes, whole)
+                            self._sink(k, r, boxes)(torch.empty_like(full))
+                grads, self._grads, self._params = self._grads, {}, None
+                dev = next(iter(params.values())).device
+                self._data_mean({k: torch.zeros((), device=dev) for k in _METRICS})
+                with around_update or contextlib.nullcontext():
+                    self.finish(optimizer, grads, opt_state, dict(params), key, 0,
+                                comms or CommsConfig())
+            return int(STATS["bytes"]), list(calls)
+        finally:
+            STATS.update(saved)
+
+    @torch.no_grad()
+    def finish(self, optimizer, grads, opt_state, params, key, step: int, comms: CommsConfig):
+        """The step after the backward: the wire format ``comms`` on this
+        rank's wire tiles (SR keyed ``grad_comm_key(key, step)``), the
+        optimizer's update (keyed ``fold_in(key, step)``; ``params`` updated
+        in place) and the gradient norm -> (the new state in the plan
+        layout, the norm)."""
+        if comms.compresses:
+            ck = (grad_comm_key(key, step)
+                  if comms.quantized and comms.stochastic_rounding else None)
+            with context.use(self.run, self.tiles):
+                grads = reduce_grads(grads, self.axes, self.run.sizes, comms, key=ck)
+        step_key = sr.fold_in(key, step) if key is not None else None
+        new_opt = self.update(optimizer, grads, opt_state, params, key=step_key)
+        return new_opt, self.grad_norm(grads)
+
     def _data_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Each metric averaged over the data shards, in data rank order."""
         names = sorted(metrics)
@@ -372,6 +484,23 @@ class MeshStep:
         return torch.sqrt(allp.sum(dim=0).sum())
 
 
+def _mirror_leaves(node, shapes: Mapping[str, Tuple[int, ...]]):
+    """``(path, leaf)`` of every subtree of a state that mirrors the params
+    (a ``{path: leaf}`` mapping over parameter paths)."""
+    if isinstance(node, dict) and node and all(k in shapes for k in node):
+        yield from node.items()
+        return
+    if isinstance(node, ChainState):
+        node = node.states
+    elif isinstance(node, PartitionState):
+        node = list(node.states.values())
+    if isinstance(node, dict):
+        node = list(node.values())
+    if isinstance(node, (tuple, list)):
+        for v in node:
+            yield from _mirror_leaves(v, shapes)
+
+
 def check_state(meta_state, shapes: Mapping[str, Tuple[int, ...]]) -> None:
     """Refuse a state whose rules need whole-leaf statistics the tile update
     does not merge."""
@@ -381,22 +510,8 @@ def check_state(meta_state, shapes: Mapping[str, Tuple[int, ...]]) -> None:
                          "4-bit/8-bit blockwise, rank-1 and per-tensor quantized moments "
                          "(ROADMAP queue A: the other optimizers' rules on a mesh)")
 
-    def walk(node):
-        if isinstance(node, dict) and node and all(k in shapes for k in node):
-            for k, v in node.items():
-                if isinstance(v, FactoredMoment):
-                    bad(f"{k} has a factored moment")
-                if not isinstance(v, _LEAF_TYPES) or tuple(v.shape) != shapes[k]:
-                    bad(f"{k} has a state leaf that is not shaped like the parameter")
-            return
-        if isinstance(node, ChainState):
-            node = node.states
-        elif isinstance(node, PartitionState):
-            node = list(node.states.values())
-        if isinstance(node, dict):
-            node = list(node.values())
-        if isinstance(node, (tuple, list)):
-            for v in node:
-                walk(v)
-
-    walk(meta_state)
+    for k, v in _mirror_leaves(meta_state, shapes):
+        if isinstance(v, FactoredMoment):
+            bad(f"{k} has a factored moment")
+        if not isinstance(v, _LEAF_TYPES) or tuple(v.shape) != shapes[k]:
+            bad(f"{k} has a state leaf that is not shaped like the parameter")

@@ -178,15 +178,8 @@ def _build_mesh_step(model, optimizer, mesh, axes, zero, accum_steps, comms) -> 
         grads, metrics = ms.forward_backward(state.params, batch, accum_steps)
         sync()
         t1, c1 = time.perf_counter(), STATS["collective_s"]
-        if comms.compresses:
-            ck = (grad_comm_key(state.key, state.step)
-                  if comms.quantized and comms.stochastic_rounding else None)
-            with context.use(run, ms.tiles):
-                grads = reduce_grads(grads, axes, mesh, comms, key=ck)
-        step_key = sr.fold_in(state.key, state.step) if state.key is not None else None
-        with torch.no_grad():
-            new_opt = ms.update(optimizer, grads, state.opt_state, state.params, key=step_key)
-            metrics["grad_norm"] = ms.grad_norm(grads)
+        new_opt, metrics["grad_norm"] = ms.finish(optimizer, grads, state.opt_state,
+                                                  state.params, state.key, state.step, comms)
         sync()
         t2 = time.perf_counter()
         train_step.times = {"fwd_bwd_s": t1 - t0, "update_s": t2 - t1,

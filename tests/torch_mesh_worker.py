@@ -4,7 +4,7 @@
 through a ``FileStore`` in ``tmp`` (never a fixed port), runs every task
 in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
-``kind`` (``allreduce``, ``reduce``, ``step``, ``losses``, and the checkpoint
+``kind`` (``allreduce``, ``reduce``, ``step``, ``losses``, ``collectives``, and the checkpoint
 kinds ``save``, ``restore``, ``resume``, ``protocol``) and its inputs; a task
 with ``after`` waits until that file exists (the caller writes its inputs
 meanwhile). Each rank runs on one CPU thread (pytest runs several workers
@@ -123,7 +123,42 @@ def _step(task, rank):
 
 
 def _losses(task, rank):
-    """End-to-end losses of the mesh step from ``init_model(seed=0)``."""
+    """End-to-end losses of the mesh step from ``init_model(seed=0)`` (the
+    reduced config with the task's ``overrides``, if any)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, param_axes
+    from repro_torch.train.train_loop import (
+        build_train_step,
+        make_train_state,
+        shard_train_state,
+    )
+
+    cfg = dataclasses.replace(reduced_config(task["arch"]), **task.get("overrides", {}))
+    mesh = make_mesh(task["mesh"], ("data", "model"))
+    axes = param_axes(cfg)
+    model = init_model(cfg, seed=0, device="cpu")
+    opt = make_optimizer(task["optimizer"], task["lr"])
+    state = shard_train_state(make_train_state(model, opt, key=sr.PRNGKey(task["sr_seed"])),
+                              mesh, axes)
+    fn = build_train_step(model, opt, mesh, axes)
+    out = []
+    for batch in task["batches"]:
+        state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        out.append((float(metrics["loss"]), float(metrics["aux_loss"])))
+    return out
+
+
+def _collectives(task, rank):
+    """Per run (grad-comm mode, accumulation steps): the collective bytes
+    ``STATS`` counts in one mesh train step, and the calls that
+    ``collectives.recording`` records around it."""
+    from repro_torch.comms import CommsConfig
+    from repro_torch.comms.collectives import recording
     from repro_torch.configs import reduced_config
     from repro_torch.core.optimizers import make_optimizer
     from repro_torch.kernels import sr
@@ -138,15 +173,18 @@ def _losses(task, rank):
     cfg = reduced_config(task["arch"])
     mesh = make_mesh(task["mesh"], ("data", "model"))
     axes = param_axes(cfg)
-    model = init_model(cfg, seed=0, device="cpu")
-    opt = make_optimizer(task["optimizer"], task["lr"])
-    state = shard_train_state(make_train_state(model, opt, key=sr.PRNGKey(task["sr_seed"])),
-                              mesh, axes)
-    fn = build_train_step(model, opt, mesh, axes)
+    batch = {k: torch.from_numpy(v) for k, v in task["batch"].items()}
     out = []
-    for batch in task["batches"]:
-        state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
-        out.append((float(metrics["loss"]), float(metrics["aux_loss"])))
+    for mode, accum in task["runs"]:
+        model = init_model(cfg, seed=0, device="cpu")
+        opt = make_optimizer(task["optimizer"], task["lr"])
+        state = shard_train_state(make_train_state(model, opt, key=sr.PRNGKey(task["sr_seed"])),
+                                  mesh, axes)
+        fn = build_train_step(model, opt, mesh, axes, accum_steps=accum,
+                              comms=CommsConfig(mode=mode))
+        with recording() as rec:
+            state, _ = fn(state, batch)
+        out.append({"stats_bytes": fn.times["collective_bytes"], "recorded": list(rec)})
     return out
 
 
@@ -318,6 +356,7 @@ def _protocol(task, rank):
 
 
 TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "losses": _losses,
+         "collectives": _collectives,
          "save": _save, "restore": _restore, "resume": _resume, "protocol": _protocol}
 
 
