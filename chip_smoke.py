@@ -63,29 +63,38 @@ Phases, each failing the run on error:
    and in the vocabulary; report prefill and decode device ms (CUDA
    events), tok/s and peak memory;
 9. list the top device kernels of one decode chunk (``torch.profiler``);
-10. checkpoint and resume at full size: with phase 6's arguments plus
-    ``--ckpt-dir build/ckpt_smoke --ckpt-every 3 --keep-last 1``, run A
-    trains the 5 steps and saves after step 3 (format v2); then run B, the
-    same command, resumes from step 3 and trains steps 3 and 4 only. Check
-    run A's losses against phase 6's (the save perturbs nothing), the
-    committed step, the manifest's version and the shard file's exact size
-    (12,147,018,628 B, the sum of the manifest's leaves: fp32 params,
-    optimizer state, step, key); run B's losses, 8 launches of each B1 pass
-    and none of B2/B3, every leaf of its final state equal to run A's by
-    digest, and its peak device memory (restore included) no higher than
-    run A's. Report the save's stall, the seconds to its COMMIT and the
-    restore's seconds, with GB/s. Fails, with the space it found, when the
-    disk cannot hold the checkpoint;
+10. checkpoint and resume in one process, on phase 37's configuration
+    (internlm2-1.8b at full width and 2 of its 24 layers, production4bit
+    with SR seed 0, batch 8 x seq 128, ``--steps 3 --ckpt-every 2
+    --keep-last 1`` into ``build/ckpt_smoke``): run A trains steps 0-2 and
+    saves at step 2 (format v2); then run B, the same command, resumes from
+    step 2 and trains it alone. Check run A's losses against this
+    configuration's earlier runs on the card (``CKPT_LOSSES``, four
+    decimals: the codes and scales are bit-equal run to run), 4 launches of
+    each B1 pass a step, the committed step, the manifest's version, its
+    leaves and structure against the state's shapes and the shard file's
+    exact size (the sum of the manifest's leaves: fp32 params, optimizer
+    state, step, key); run B's loss bit-equal to run A's at step 2, 4
+    launches of each B1 pass and none of B2/B3, every leaf of its final
+    state equal to run A's by digest, and its peak device memory (restore
+    included) no higher than run A's. Report the save's stall, the seconds
+    to its COMMIT and the restore's seconds, with GB/s. Fails, with the
+    space it found, when the disk cannot hold the checkpoint. Phase 6's
+    full depth is not saved: its 12 GB moved through host files twice here
+    and five times in phase 37;
 11. drive the optimizers that have no kernel route through the CLI at full
-    width, 4 steps of batch 8 x seq 128 each, with every launch count set
-    to 0 just before each run: sm3, adafactor and factor4bit at full depth,
-    shampoo4bit on the first of the 24 layers (its first step runs one
-    ``torch.linalg.eigh`` per 128 x 128 Kronecker block), each at the
-    learning rate ``NEW_OPTIMIZERS`` gives it and says why; check state bytes
-    against the reference's counts, no kernel launched, losses finite and
-    the last below the first; report step ms split into model and optimizer
-    (CUDA events), peak memory, shampoo4bit's recompute step against a
-    stale one, the host time of its eigh calls and of one eigh alone;
+    width, 3 steps of batch 8 x seq 128 each (phase 39's: the schedule spans
+    the run, so two updates at a nonzero rate), with every launch count set
+    to 0 just before each run: sm3, adafactor, factor4bit and shampoo4bit
+    on the first of the 24 layers (phase 39's depth; shampoo4bit's first
+    step decomposes every 128 x 128 Kronecker block, on the host's threads:
+    ``transform.host_eigh``), each at the learning rate ``NEW_OPTIMIZERS``
+    gives it and says why; check state bytes against the reference's
+    counts, no kernel launched, losses finite and the last below the first;
+    report step ms split into model and optimizer (CUDA events), peak
+    memory, shampoo4bit's recompute step against a stale one, the host time
+    of its inverse roots, and one batch decomposed alone by cuSOLVER's eigh
+    and by ``host_eigh``;
 12. card against CPU on the reduced config, three steps from the same
     weights: the five new optimizers and production4bit with ``--grad-comm``
     bf16, int8 and int4 (SR seed 0); losses within 3e-4 relative (shampoo32
@@ -247,7 +256,7 @@ Phases, each failing the run on error:
     refuses two ranks on one card; gloo moves CUDA tensors through host
     memory), mesh (data=2, model=1). Fed one seeded gradient tree, the
     update's params and state bit-equal to the one-process update on the
-    card; then 3 steps of the smoke's batch with every launch count set to 0
+    card; then 2 steps of the smoke's batch with every launch count set to 0
     just before and read just after: losses within 1e-4 relative of phase
     6's, each rank's state bytes equal to its plan's to the byte, 4
     launches of each B1 pass a step on each rank's tiles and none of B2/B3;
@@ -258,24 +267,25 @@ Phases, each failing the run on error:
     the host oracle of ``tests/test_comms.py`` computed on the card, the
     two ranks' bits equal; timed.
 37. save and resume on the mesh, through the train CLI: internlm2-1.8b at
-    full width and depth, production4bit with SR seed 0, batch 8 x seq 128,
+    full width and 2 of its 24 layers (``MESH_CKPT_LAYERS``, phase 10's
+    configuration), production4bit with SR seed 0, batch 8 x seq 128,
     every run ``--steps 3 --ckpt-every 2`` (one learning-rate schedule) into
-    ``build/ckpt_mesh_smoke`` (free space checked, ``--keep-last 1``). Run A,
-    fresh on ``--mesh 2x1`` (two processes on ``cuda:0`` over gloo, as in
+    ``build/ckpt_mesh_smoke`` (free space checked, ``--keep-last 1``). Run
+    A, fresh on ``--mesh 2x1`` (two processes on ``cuda:0`` over gloo, as in
     phase 35), trains steps 0-2 and saves at step 2: the step dir holds
-    ``num_hosts`` 2 and COMMIT, the two host files sum to
-    ``CKPT_BYTES_INTERNLM2``, the manifest's leaves and structure are a
-    one-process save's (phase 10's, and one from the state's shapes), 4
-    launches of each B1 pass a step on each rank, steps 0-1 within 1e-4 of
-    phase 6's. Run B, the same command, resumes from step 2 on ``2x1``: its
-    step-2 loss bit-equal to A's, each rank's final state equal to A's leaf
-    for leaf (sha256 digests from ``--digests``), each rank's peak at most
-    A's. Run C resumes the same save on ``--mesh 1x2``, run D in one
-    process: their step-2 losses within 1e-4 relative of A's, D's peak at
-    most phase 10's fresh run's (C's is printed beside A's: a 1x2 rank
-    computes all 8 rows, so its training peak is its own layout's, and a
-    fresh 1x2 run is not part of the phase). Prints every run's save stall,
-    seconds to COMMIT, restore seconds a rank, step ms and peaks.
+    ``num_hosts`` 2 and COMMIT, the two host files sum to the bytes of the
+    state's leaves, the manifest's leaves and structure are a one-process
+    save's (phase 10's, and one from the state's shapes), 4 launches of
+    each B1 pass a step on each rank, its losses within 1e-4 of phase 10's.
+    Run B, the same command, resumes from step 2 on ``2x1``: its step-2
+    loss bit-equal to A's, each rank's final state equal to A's leaf for
+    leaf (sha256 digests from ``--digests``), each rank's peak at most A's.
+    Run C resumes the same save on ``--mesh 1x2``, run D in one process:
+    their step-2 losses within 1e-4 relative of A's, D's peak at most phase
+    10's fresh run's (C's is printed beside A's: a 1x2 rank computes all 8
+    rows, so its training peak is its own layout's, and a fresh 1x2 run is
+    not part of the phase). Prints every run's save stall, seconds to
+    COMMIT, restore seconds a rank, step ms and peaks.
 38. the roofline on the card: (a) ``launch.dryrun.run_all`` over
     internlm2-1.8b's four shapes on both production plans, on the ``meta``
     device: no cell in error (the counts of ok, skipped and refused printed;
@@ -293,14 +303,30 @@ Phases, each failing the run on error:
     not a path run, so its launches are not in the kernel table; (d) phase
     35's collective bytes, reckoned from the plan with no world
     (``MeshStep.reckon``), equal to the bytes each of its steps recorded.
+39. the rules that need whole-leaf statistics on the mesh, through the train
+    CLI: ``--mesh 2x1`` (two processes on ``cuda:0`` over gloo, as in phase
+    35), internlm2-1.8b at full width on phase 11's depth (1 of the 24
+    layers), phase 11's learning rates and steps, batch 8 x seq 128, for
+    sm3, adafactor, factor4bit and shampoo4bit: each rank's state bytes
+    equal to its plan's (``MESH_OPTIM_RANK_BYTES``, predicted from the plan
+    on ``meta``), all three losses within 1e-4 relative of phase 11's (the
+    third after the second update, Shampoo's on its stale roots), no
+    launch on either rank (none of these rules has a kernel route); prints
+    each step's split into compute, collective and update, and each rank's
+    eigh matrices and seconds on Shampoo's recompute step.
+
+Each phase's seconds are printed as it ends (``phase clock:``) and kept in
+``chiprun_out/chip_smoke.json``.
 
 The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
 30, 35 and 37 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0
-just before it (a spawned rank's counts start at 0 with its process).
+just before it (a spawned rank's counts start at 0 with its process); phase
+39's runs count none.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
-phases 34-37 alone (no result lines). Needs a CUDA card and the repository
+phases 10 and 34-37 alone (no result lines); ``--mesh-optim-phases`` runs phases 11
+and 39 alone. Needs a CUDA card and the repository
 beside it; without either it
 exits non-zero and prints no result.
 """
@@ -339,10 +365,6 @@ STATE_BYTES_INTERNLM2 = 4_590_578_552
 STEPS = 5
 TRAIN_ARGS = ["--arch", "internlm2-1.8b", "--optimizer", "production4bit", "--sr-seed", "0",
               "--steps", str(STEPS), "--batch", "8", "--seq", "128", "--device", "cuda"]
-# phase 10's checkpoint of that run: fp32 params (1,889,110,016 of them,
-# 7,556,440,064 B) + the optimizer state + .step (4 B) + .key (8 B)
-CKPT_BYTES_INTERNLM2 = 7_556_440_064 + STATE_BYTES_INTERNLM2 + 4 + 8
-CKPT_EVERY = 3
 # the fused leaves of internlm2-1.8b: (names, shape, leaves of that shape)
 LEAF_SHAPES = (("wo", (24, 16, 128, 2048), 1), ("w1,w3", (24, 2048, 8192), 2),
                ("w2", (24, 8192, 2048), 1))
@@ -361,7 +383,7 @@ WEIGHT_BYTES_Q4 = 1_003_596_800
 VOCAB = 92544
 SERVE_ATOL = 2e-2
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_DRAIN = 8, 64, 8
-# phase 11: the optimizers without a kernel route at full width, 4 steps,
+# phase 11: the optimizers without a kernel route at full width, 3 steps,
 # with their learning rates. At the CLI's 1e-3 the loss of adafactor (11.83
 # -> 12.94 on an H100 80GB HBM3 at 700 W) and of factor4bit rose over the 4
 # steps: full-strength steps on every leaf of a random 24-layer model, so
@@ -371,18 +393,25 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_DRAIN = 8, 64, 8
 # direction that damped AdamW step's norm; it takes 1e-1
 NEW_OPTIMIZERS = (("sm3", 1e-3), ("adafactor", 1e-4), ("factor4bit", 1e-4),
                   ("shampoo4bit", 1e-1))
-NEW_ARGS = ["--arch", "internlm2-1.8b", "--steps", "4", "--batch", "8", "--seq", "128",
-            "--device", "cuda"]
-# shampoo4bit's first step decomposes every 128 x 128 Kronecker block with
-# one cuSOLVER call each (torch.linalg.eigh): 54,016 matrices in ~54 s at 1
-# layer on an H100 80GB HBM3 at 700 W. Embed and head alone are 46,272 of
-# them at any depth, and the full 24 layers ~230,000 (~4 min), so its run
-# keeps 1 of the 24 layers
+# phases 11 and 39 take the same steps: the schedule spans --steps, so
+# their updates run at the same rates only then
+NEW_STEPS = 3
+NEW_ARGS = ["--arch", "internlm2-1.8b", "--steps", str(NEW_STEPS), "--batch", "8", "--seq",
+            "128", "--device", "cuda"]
+# shampoo4bit's first step decomposes every 128 x 128 Kronecker block: 54,016
+# matrices at 1 layer, ~54 s as one cuSOLVER call each on an H100 80GB HBM3
+# at 700 W (the port now takes them on the host's threads; phase 11 still
+# times cuSOLVER's eigh alone). Embed and head alone are 46,272 of them at
+# any depth, and the full 24 layers ~230,000, so its run keeps 1 of the 24
+# layers; the other three take the same depth, phase 39's
+# (their full-depth runs gave the smoke's clock to phase 39; the full-depth
+# state bytes, 7,557,380,132 / 7,645,301,960 / 1,092,458,700, are held to
+# the reference's in tests/test_torch_optim.py)
 SHAMPOO_LAYERS = 1
-# the reference's eval_shape counts (full depth; shampoo4bit at 1 layer,
-# tests/test_torch_optimizers.py)
-NEW_STATE_BYTES = {"sm3": 7_557_380_132, "adafactor": 7_645_301_960,
-                   "factor4bit": 1_092_458_700, "shampoo4bit": 1_400_141_288}
+# the reference's eval_shape counts at 1 layer (shampoo4bit:
+# tests/test_torch_optimizers.py; the others from the same count)
+NEW_STATE_BYTES = {"sm3": 1_768_862_952, "adafactor": 1_772_375_056,
+                   "factor4bit": 239_275_020, "shampoo4bit": 1_400_141_288}
 EIGH_PROBE = 1024
 # phase 12: (optimizer, lr, grad-comm, SR seed, loss tolerance card vs CPU).
 # shampoo4bit's 4-bit zero-excluding v damps its first steps, so it needs lr
@@ -559,14 +588,21 @@ MESH_LEAVES = (("wo", (24, 16, 128, 2048), ("layers", "heads", "head_dim", "embe
                ("w2", (24, 8192, 2048), ("layers", "mlp", "embed")),
                ("w3", (24, 2048, 8192), ("layers", "embed", "mlp")))
 TILE_MESHES = ((2, 1), (1, 2), (2, 2))
-MESH_SHAPE, MESH_STEPS = (2, 1), 3
+MESH_SHAPE, MESH_STEPS = (2, 1), 2
 ALL_REDUCE_LEAVES = (("wq", (2048, 16, 128)), ("wo", (16, 128, 2048)), ("w1", (2048, 8192)),
                      ("w2", (8192, 2048)), ("norm1", (2048,)))
-# phase 37 (slice 12): the mesh checkpoint runs, all with the same --steps
-# (the CLI's schedule spans them) and the step saved
+# phases 10 and 37 (slices 5 and 12): the checkpoint runs, all with the same
+# --steps (the CLI's schedule spans them) and the step saved, at 2 of the 24
+# layers: an even depth, so the stacked leaves' layer dim splits over data=2
+# as at full depth. At full depth their 12 GB saves and restores through
+# host files took 97 s (phase 10) and 159-196 s (phase 37) of the smoke's
+# clock on an H100 80GB HBM3 at 700 W. Run A's losses at this depth, as the
+# card gave them there (to six decimals; held to four)
+MESH_CKPT_LAYERS = 2
+CKPT_LOSSES = (11.700937, 11.104362, 11.074847)
 MESH_CKPT_ARGS = ["--arch", "internlm2-1.8b", "--optimizer", "production4bit", "--sr-seed", "0",
                   "--steps", "3", "--batch", "8", "--seq", "128", "--device", "cuda",
-                  "--ckpt-every", "2", "--keep-last", "1"]
+                  "--layers", str(MESH_CKPT_LAYERS), "--ckpt-every", "2", "--keep-last", "1"]
 MESH_CKPT_STEP = 2
 # phase 38 (slice 13): the dry run's cells (internlm2-1.8b's four shapes on
 # both production plans: the single-pod sweep of every arch took about 100 s
@@ -576,6 +612,24 @@ MESH_CKPT_STEP = 2
 DRYRUN_ARCHS = ("internlm2-1.8b",)
 ROOFLINE_ARGS = ("internlm2-1.8b", 8, 128, "production4bit")
 ROOFLINE_BYTES_RTOL = 0.02
+# phase 39 (slice 14): the rules that need whole-leaf statistics on the mesh
+# at phase 11's depth; each rank's state bytes under the (data=2, model=1)
+# plan at 1 layer (sharding.specs.plan_nbytes on meta, PERF.md section 6)
+MESH_OPTIM_RANK_BYTES = {"sm3": 884_913_384, "adafactor": 888_425_488,
+                         "factor4bit": 122_072_076, "shampoo4bit": 701_165_416}
+
+
+# each phase's seconds, as main's laps record them
+PHASE_SECONDS = {}
+_LAP = [0.0]
+
+
+def _lap(label):
+    """Records and prints the seconds since the previous lap."""
+    now = time.perf_counter()
+    PHASE_SECONDS[label] = now - _LAP[0]
+    print(f"phase clock: {label} {PHASE_SECONDS[label]:.1f} s")
+    _LAP[0] = now
 
 
 def fail(msg: str) -> None:
@@ -923,11 +977,10 @@ def _check_losses(losses, expected, what):
         fail(f"{what}: losses {losses} differ from {list(expected)} beyond four decimals")
 
 
-def phase_checkpoint(counters, main_steps):
+def phase_checkpoint(counters):
     import gc
     import os
 
-    import numpy as np
     import torch
 
     from repro_torch.io import format as ckfmt
@@ -936,43 +989,41 @@ def phase_checkpoint(counters, main_steps):
     d = ROOT / "build" / "ckpt_smoke"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
+    shapes, ckpt_bytes = _one_process_manifest()
     free = shutil.disk_usage(d).free
-    print(f"checkpoint: {free / 1e9:.2f} GB free under {d.relative_to(ROOT)}; "
-          f"one save takes {CKPT_BYTES_INTERNLM2:,} B")
-    if free < CKPT_BYTES_INTERNLM2:
-        fail(f"the disk cannot hold one checkpoint: {free:,} B free, "
-             f"{CKPT_BYTES_INTERNLM2:,} B needed")
-    args = TRAIN_ARGS + ["--ckpt-dir", str(d), "--ckpt-every", str(CKPT_EVERY),
-                         "--keep-last", "1", "--digests"]
+    print(f"checkpoint ({MESH_CKPT_LAYERS} of 24 layers): {free / 1e9:.2f} GB free under "
+          f"{d.relative_to(ROOT)}; one save takes {ckpt_bytes:,} B")
+    if free < ckpt_bytes:
+        fail(f"the disk cannot hold one checkpoint: {free:,} B free, {ckpt_bytes:,} B needed")
+    args = MESH_CKPT_ARGS + ["--ckpt-dir", str(d), "--digests"]
 
-    # run A: 5 steps, saving after step 3
+    # run A: steps 0-2, the save at step 2
     torch.cuda.reset_peak_memory_stats()
     _reset(counters)
     a = train.main(args)
     counts_a = _read(counters)
     losses_a = [r["loss"] for r in a["steps"]]
-    _check_losses(losses_a, EXPECTED_LOSSES, "run A")
+    _check_losses(losses_a, CKPT_LOSSES, "run A")
     for name in ("fused_adamw4", "rank1_new_stats"):
-        if counts_a[name] != 4 * STEPS:
-            fail(f"run A: {name} launched {counts_a[name]} times, expected {4 * STEPS}")
-    if ckfmt.latest_step(str(d)) != CKPT_EVERY:
-        fail(f"run A: latest complete step {ckfmt.latest_step(str(d))}, expected {CKPT_EVERY}")
-    step_d = ckfmt.step_dir(str(d), CKPT_EVERY)
+        if counts_a[name] != 4 * len(losses_a):
+            fail(f"run A: {name} launched {counts_a[name]} times, expected {4 * len(losses_a)}")
+    if ckfmt.latest_step(str(d)) != MESH_CKPT_STEP:
+        fail(f"run A: latest complete step {ckfmt.latest_step(str(d))}, "
+             f"expected {MESH_CKPT_STEP}")
+    step_d = ckfmt.step_dir(str(d), MESH_CKPT_STEP)
     manifest = ckfmt.read_manifest(step_d)
     if manifest["format_version"] != 2 or not os.path.exists(os.path.join(step_d, ckfmt.COMMIT)):
         fail(f"run A: manifest version {manifest['format_version']} or no COMMIT in {step_d}")
+    if {k: manifest[k] for k in ("leaves", "structure")} != shapes:
+        fail("run A: the manifest's leaves or structure differ from the state's shapes")
     bin_bytes = os.path.getsize(os.path.join(step_d, ckfmt.shard_file(0)))
-    leaf_bytes = sum(int(np.prod(m["shape"], dtype=np.int64))
-                     * ckfmt.dtype_from_str(m["dtype"]).itemsize for m in manifest["leaves"])
-    if not bin_bytes == leaf_bytes == CKPT_BYTES_INTERNLM2:
-        fail(f"run A: shard file {bin_bytes:,} B, manifest leaves {leaf_bytes:,} B, "
-             f"expected {CKPT_BYTES_INTERNLM2:,} B")
+    if bin_bytes != ckpt_bytes:
+        fail(f"run A: shard file {bin_bytes:,} B, the manifest's leaves {ckpt_bytes:,} B")
     save = a["checkpoint"]["saves"][0]
     for r in a["steps"]:
-        print(f"run A step {r['step']}: loss {r['loss']:.4f}  {r['ms']:.1f} ms "
-              f"(phase 6: {main_steps[r['step']]['ms']:.1f} ms)")
-    print(f"run A: saved step {CKPT_EVERY}, {len(manifest['leaves'])} leaves, {bin_bytes:,} B; "
-          f"save() stalled {save['stall_ms']:.1f} ms ({bin_bytes / save['stall_ms'] / 1e6:.2f} "
+        print(f"run A step {r['step']}: loss {r['loss']:.6f}  {r['ms']:.1f} ms")
+    print(f"run A: saved step {MESH_CKPT_STEP}, {len(manifest['leaves'])} leaves, {bin_bytes:,} "
+          f"B; save() stalled {save['stall_ms']:.1f} ms ({bin_bytes / save['stall_ms'] / 1e6:.2f} "
           f"GB/s device to host), COMMIT after {save['commit_s']:.2f} s "
           f"({bin_bytes / save['commit_s'] / 1e9:.2f} GB/s)")
     peak_a = a["peak_bytes"]
@@ -982,21 +1033,21 @@ def phase_checkpoint(counters, main_steps):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # run B: the same command resumes from step 3
+    # run B: the same command resumes from step 2
     torch.cuda.reset_peak_memory_stats()
     _reset(counters)
     b = train.main(args)
     counts_b = _read(counters)
     ck = b["checkpoint"]
     steps_b = [r["step"] for r in b["steps"]]
-    if ck["resumed_from"] != CKPT_EVERY or steps_b != list(range(CKPT_EVERY, STEPS)):
+    if ck["resumed_from"] != MESH_CKPT_STEP or steps_b != [MESH_CKPT_STEP]:
         fail(f"run B: resumed from {ck['resumed_from']}, ran steps {steps_b}")
     losses_b = [r["loss"] for r in b["steps"]]
-    _check_losses(losses_b, EXPECTED_LOSSES[CKPT_EVERY:], "run B")
-    resumed = 4 * (STEPS - CKPT_EVERY)
+    if losses_b != losses_a[MESH_CKPT_STEP:]:
+        fail(f"run B: losses {losses_b} differ from run A's {losses_a[MESH_CKPT_STEP:]}")
     for name in ("fused_adamw4", "rank1_new_stats"):
-        if counts_b[name] != resumed:
-            fail(f"run B: {name} launched {counts_b[name]} times, expected {resumed}")
+        if counts_b[name] != 4:
+            fail(f"run B: {name} launched {counts_b[name]} times, expected 4")
     if counts_b["quantize_blockwise_4bit"] or counts_b["dequantize_blockwise_4bit"]:
         fail(f"run B launched the q4 kernels: {counts_b}")
     digests_b = b["digests"]
@@ -1005,10 +1056,10 @@ def phase_checkpoint(counters, main_steps):
         fail(f"run B's final state differs from run A's in {len(differ)} leaves: {differ[:5]}")
     peak_b = b["peak_bytes"]
     for r in b["steps"]:
-        print(f"run B step {r['step']}: loss {r['loss']:.4f}  {r['ms']:.1f} ms")
+        print(f"run B step {r['step']}: loss {r['loss']:.6f}  {r['ms']:.1f} ms")
     print(f"run B: resumed from step {ck['resumed_from']}, restore {ck['restore_s']:.2f} s "
-          f"({bin_bytes / ck['restore_s'] / 1e9:.2f} GB/s); all {len(digests_b)} final leaves "
-          f"equal to run A's; peak device memory {peak_b / 1e9:.2f} GB (run A "
+          f"({bin_bytes / ck['restore_s'] / 1e9:.2f} GB/s); loss and all {len(digests_b)} final "
+          f"leaves equal to run A's; peak device memory {peak_b / 1e9:.2f} GB (run A "
           f"{peak_a / 1e9:.2f} GB); launches {counts_b}")
     if peak_b > peak_a:
         fail(f"run B's peak device memory {peak_b:,} B exceeds run A's {peak_a:,} B")
@@ -1017,7 +1068,8 @@ def phase_checkpoint(counters, main_steps):
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(d)
-    return dict(free_bytes=free, bin_bytes=bin_bytes, leaves=len(manifest["leaves"]),
+    return dict(layers=MESH_CKPT_LAYERS, free_bytes=free, bin_bytes=bin_bytes,
+                leaves=len(manifest["leaves"]),
                 manifest={k: manifest[k] for k in ("leaves", "structure")},
                 save_stall_ms=save["stall_ms"], commit_s=save["commit_s"],
                 restore_s=ck["restore_s"], losses_a=losses_a,
@@ -1367,20 +1419,22 @@ class _StepSplit:
     """CUDA events around the parts of every train step of the CLI runs
     made inside it: the model (from the loss to the gradient wire format or
     the optimizer), the wire format (``reduce_grads``) and the optimizer
-    update; and the host time of every ``torch.linalg.eigh`` call
-    (synchronised before and after). It wraps the train loop's own names
+    update; and the host time of every batch of Shampoo's inverse roots
+    (``transform._inv_quarter_root``: the eigh and the root products,
+    synchronised before and after). It wraps the train loop's own names
     for the duration and restores them on exit."""
 
     def __enter__(self):
         import torch
 
+        from repro_torch.core.optimizers import transform
         from repro_torch.launch import train
         from repro_torch.train import train_loop
 
         self.steps, self.eigh = [], []
         self._saved = (train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads,
-                       torch.linalg.eigh)
-        make, loss, reduce, eigh = self._saved
+                       transform._inv_quarter_root)
+        make, loss, reduce, roots = self._saved
 
         def ev():
             e = torch.cuda.Event(enable_timing=True)
@@ -1408,27 +1462,26 @@ class _StepSplit:
 
             return opt._replace(update=update)
 
-        def timed_eigh(*a, **k):
+        def timed_roots(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = eigh(*a, **k)
+            out = roots(*a, **k)
             torch.cuda.synchronize()
             self.eigh.append((len(self.steps) - 1, a[0].shape[0], time.perf_counter() - t0))
             return out
 
         train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads = (
             timed_make, timed_loss, timed_reduce)
-        torch.linalg.eigh = timed_eigh
+        transform._inv_quarter_root = timed_roots
         return self
 
     def __exit__(self, *exc):
-        import torch
-
+        from repro_torch.core.optimizers import transform
         from repro_torch.launch import train
         from repro_torch.train import train_loop
 
-        train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads, torch.linalg.eigh = (
-            self._saved)
+        (train.make_optimizer, train_loop.loss_fn, train_loop.reduce_grads,
+         transform._inv_quarter_root) = self._saved
         return False
 
     def split(self):
@@ -1446,30 +1499,26 @@ class _StepSplit:
 
 
 class _Depth:
-    """The CLIs' ``--arch`` config (not ``--reduced``) cut to its first
-    ``layers`` layers, its width kept, while inside; ``None`` leaves it
-    whole."""
+    """The serve CLI's ``--arch`` config (not ``--reduced``) cut to its
+    first ``layers`` layers, its width kept, while inside (the serve CLI
+    has no ``--layers``); ``None`` leaves it whole."""
 
     def __init__(self, layers):
         self.layers = layers
 
     def __enter__(self):
-        import dataclasses
+        from repro_torch.configs import cut_depth, get_config
+        from repro_torch.launch import serve
 
-        from repro_torch.configs import get_config
-        from repro_torch.launch import serve, train
-
-        self._saved = (train.get_config, serve.get_config)
+        self._saved = serve.get_config
         if self.layers is not None:
-            n = self.layers
-            train.get_config = serve.get_config = lambda name: dataclasses.replace(
-                get_config(name), num_layers=n, blocks=get_config(name).blocks[:n])
+            serve.get_config = lambda name: cut_depth(get_config(name), self.layers)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.launch import serve, train
+        from repro_torch.launch import serve
 
-        train.get_config, serve.get_config = self._saved
+        serve.get_config = self._saved
         return False
 
 
@@ -1487,8 +1536,8 @@ def _cli_run(counters, args, layers=None):
     from repro_torch.launch import train
 
     _reset(counters)
-    with _StepSplit() as timer, _Depth(layers):
-        out = train.main(args)
+    with _StepSplit() as timer:
+        out = train.main(args + ([] if layers is None else ["--layers", str(layers)]))
     counts = _read(counters)
     split = timer.split()
     res = dict(optimizer=out["optimizer"], state_bytes=out["state_bytes"],
@@ -1520,7 +1569,7 @@ def _print_run(res, what):
               + (f" (ce {res['ce_losses'][i]:.4f}, aux {aux:.4f})" if aux else "")
               + f"  {ms:.1f} ms (model {s['model_ms']:.1f}, "
               f"comms {s['comms_ms']:.1f}, optimizer {s['optimizer_ms']:.1f} ms"
-              + (f"; {s['eigh_calls']} eigh matrices in {s['eigh_s']:.2f} s"
+              + (f"; inverse roots of {s['eigh_calls']} matrices in {s['eigh_s']:.2f} s"
                  if s["eigh_calls"] else "") + ")")
     print(f"{what}: params {res['n_params']:,}, state_bytes {res['state_bytes']:,}, peak device "
           f"memory {res['peak_bytes']:,} B ({res['peak_bytes'] / 1e9:.2f} GB), launches "
@@ -1528,9 +1577,12 @@ def _print_run(res, what):
 
 
 def _eigh_alone(dev, n=EIGH_PROBE):
-    """One torch.linalg.eigh of an (n, 128, 128) fp32 batch of SPD matrices
-    (host clock, synchronised): seconds."""
+    """One (n, 128, 128) fp32 batch of SPD matrices decomposed by cuSOLVER
+    (``torch.linalg.eigh`` on the card) and by the port's ``host_eigh``
+    (copies both ways included), host clock, synchronised: seconds each."""
     import torch
+
+    from repro_torch.core.optimizers.transform import host_eigh
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(n, 128, 128, generator=g, device=dev)
@@ -1540,17 +1592,21 @@ def _eigh_alone(dev, n=EIGH_PROBE):
     t0 = time.perf_counter()
     torch.linalg.eigh(a)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    t1 = time.perf_counter()
+    w, u = (y.to(dev) for y in host_eigh(a.cpu()))
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1
 
 
 def phase_new_optimizers(counters, dev):
-    """sm3, adafactor, factor4bit (full depth) and shampoo4bit (its first
-    SHAMPOO_LAYERS layers) at full width through the CLI, 4 steps each."""
+    """sm3, adafactor, factor4bit and shampoo4bit on their first
+    SHAMPOO_LAYERS layers at full width through the CLI, NEW_STEPS steps
+    each."""
     import torch
 
     runs = {}
     for name, lr in NEW_OPTIMIZERS:
-        layers = SHAMPOO_LAYERS if name == "shampoo4bit" else None
+        layers = SHAMPOO_LAYERS
         res = _cli_run(counters, NEW_ARGS + ["--optimizer", name, "--lr", str(lr)], layers)
         res["lr"] = lr
         what = f"{name} lr {lr:g}" + (f" ({layers} of 24 layers)" if layers else "")
@@ -1562,18 +1618,21 @@ def phase_new_optimizers(counters, dev):
         _check_trains(res, what)
         runs[name] = res
     sh = runs["shampoo4bit"]
-    probe_s = _eigh_alone(dev)
+    probe_s, host_s = _eigh_alone(dev)
     per_matrix_ms = probe_s * 1e3 / EIGH_PROBE
     recompute, stale = sh["step_ms"][0], _median(sh["step_ms"][1:])
     s0 = sh["split"][0]
     sh.update(recompute_ms=recompute, stale_ms=stale, eigh_probe_s=probe_s,
-              eigh_per_matrix_ms=per_matrix_ms, torch=torch.__version__,
+              eigh_per_matrix_ms=per_matrix_ms, host_eigh_probe_s=host_s,
+              host_threads=torch.get_num_threads(), torch=torch.__version__,
               cuda=torch.version.cuda)
     print(f"shampoo4bit: recompute step {recompute:.1f} ms against a stale step {stale:.1f} ms "
-          f"(median of steps 1-3); step 0 ran {s0['eigh_calls']} eigh matrices of at most "
-          f"128 x 128 in {s0['eigh_s']:.2f} s; alone, eigh of ({EIGH_PROBE}, 128, 128) fp32 took "
-          f"{probe_s:.3f} s ({per_matrix_ms:.3f} ms a matrix; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda})")
+          f"(median of steps 1-{NEW_STEPS - 1}); step 0 took the inverse roots of "
+          f"{s0['eigh_calls']} matrices of at most 128 x 128 in {s0['eigh_s']:.2f} s; alone, "
+          f"({EIGH_PROBE}, 128, 128) fp32 took {probe_s:.3f} s in cuSOLVER's eigh "
+          f"({per_matrix_ms:.3f} ms a matrix; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}) and {host_s:.3f} s in host_eigh on "
+          f"{torch.get_num_threads()} host threads ({host_s * 1e3 / EIGH_PROBE:.3f} ms a matrix)")
     return runs
 
 
@@ -2977,7 +3036,7 @@ def _mesh_train(rank, dev, counters):
         del model, st, one, mine
     del whole_p, whole_s
     torch.cuda.empty_cache()
-    # three steps end to end, counts from 0 just before and read just after
+    # the steps end to end, counts from 0 just before and read just after
     model, state, fn = fresh()
     data = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8))
     torch.cuda.synchronize()
@@ -3049,6 +3108,9 @@ def _mesh_child(rank, world, run_dir):
     dist.init_process_group("gloo", init_method="file://" + os.path.join(run_dir, "rendezvous"),
                             rank=rank, world_size=world)
     try:
+        from repro_torch.comms.collectives import open_host_slots
+
+        open_host_slots()
         res = {"train": _mesh_train(rank, dev, (adamw4bit.LAUNCHES, quant4.LAUNCHES)),
                "all_reduce": _mesh_all_reduce(rank, dev)}
         with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
@@ -3125,19 +3187,23 @@ def phase_mesh():
 
 def _one_process_manifest():
     """Leaves and structure of a one-process save of the phase-37 state,
-    from its shapes alone (meta tensors)."""
-    from repro_torch.configs import get_config
+    from its shapes alone (meta tensors), and the bytes of its leaves."""
+    import numpy as np
+
+    from repro_torch.configs import cut_depth, get_config
     from repro_torch.core.optimizers import make_optimizer
     from repro_torch.io import format as ckfmt
     from repro_torch.io.tree import flatten_with_keys, structure_repr
     from repro_torch.kernels import sr
     from repro_torch.launch.train import abstract_train_state
 
-    _, state = abstract_train_state(get_config("internlm2-1.8b"),
+    _, state = abstract_train_state(cut_depth(get_config("internlm2-1.8b"), MESH_CKPT_LAYERS),
                                     make_optimizer("production4bit", 1e-3), key=sr.PRNGKey(0))
-    return {"leaves": [{"key": k, "shape": [int(d) for d in getattr(v, "shape", ())],
-                        "dtype": ckfmt.dtype_name(v)} for k, v in flatten_with_keys(state)],
-            "structure": structure_repr(state)}
+    leaves = [{"key": k, "shape": [int(d) for d in getattr(v, "shape", ())],
+               "dtype": ckfmt.dtype_name(v)} for k, v in flatten_with_keys(state)]
+    nbytes = sum(int(np.prod(m["shape"], dtype=np.int64))
+                 * ckfmt.dtype_from_str(m["dtype"]).itemsize for m in leaves)
+    return {"leaves": leaves, "structure": structure_repr(state)}, nbytes
 
 
 def _mesh_ckpt_run(name, args, counters=None):
@@ -3166,10 +3232,10 @@ def _mesh_ckpt_run(name, args, counters=None):
     return out, wall
 
 
-def phase_mesh_checkpoint(counters, one_process=None):
+def phase_mesh_checkpoint(counters, one_process):
     """Phase 37: save on a (data=2, model=1) mesh of two processes, resume on
-    2x1, 1x2 and in one process (``one_process``: phase 10's manifest and
-    fresh peak, when it ran)."""
+    2x1, 1x2 and in one process, against phase 10's fresh one-process run
+    at the same depth (``one_process``)."""
     import os
 
     from repro_torch.io import format as ckfmt
@@ -3177,12 +3243,12 @@ def phase_mesh_checkpoint(counters, one_process=None):
     d = ROOT / "build" / "ckpt_mesh_smoke"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
+    shapes, ckpt_bytes = _one_process_manifest()
     free = shutil.disk_usage(d).free
-    print(f"mesh checkpoint: {free / 1e9:.2f} GB free under {d.relative_to(ROOT)}; one save "
-          f"takes {CKPT_BYTES_INTERNLM2:,} B")
-    if free < CKPT_BYTES_INTERNLM2:
-        fail(f"the disk cannot hold one checkpoint: {free:,} B free, "
-             f"{CKPT_BYTES_INTERNLM2:,} B needed")
+    print(f"mesh checkpoint ({MESH_CKPT_LAYERS} of 24 layers): {free / 1e9:.2f} GB free under "
+          f"{d.relative_to(ROOT)}; one save takes {ckpt_bytes:,} B")
+    if free < ckpt_bytes:
+        fail(f"the disk cannot hold one checkpoint: {free:,} B free, {ckpt_bytes:,} B needed")
     args = MESH_CKPT_ARGS + ["--ckpt-dir", str(d)]
     # A and B report their final states' digests, to compare them
     mesh_args = lambda run, mesh: args + ["--mesh", mesh, "--run-dir",
@@ -3190,6 +3256,7 @@ def phase_mesh_checkpoint(counters, one_process=None):
         ["--digests"] if run in ("A", "B") else [])
     t_phase = time.perf_counter()
     runs = {}
+    losses_one = one_process["losses_a"]
 
     # run A: fresh on 2x1, steps 0-2, the save at step 2
     a, runs["A"] = _mesh_ckpt_run("A", mesh_args("A", "2x1"))
@@ -3197,12 +3264,9 @@ def phase_mesh_checkpoint(counters, one_process=None):
     if steps != [0, 1, 2]:
         fail(f"run A ran steps {steps}")
     losses_a = [r["loss"] for r in a["steps"]]
-    for x, e in zip(losses_a, EXPECTED_LOSSES[:MESH_CKPT_STEP]):  # the same first two lrs
-        if not (math.isfinite(x) and abs(x - e) <= 1e-4 * abs(e)):
-            fail(f"run A: losses {losses_a} not within 1e-4 relative of phase 6's "
-                 f"{EXPECTED_LOSSES[:MESH_CKPT_STEP]}")
-    if not all(math.isfinite(x) for x in losses_a):
-        fail(f"run A: non-finite loss {losses_a}")
+    for x, want in zip(losses_a, losses_one):
+        if not (math.isfinite(x) and abs(x - want) <= 1e-4 * abs(want)):
+            fail(f"run A: losses {losses_a} not within 1e-4 relative of phase 10's {losses_one}")
     step_d = ckfmt.step_dir(str(d), MESH_CKPT_STEP)
     if ckfmt.latest_step(str(d)) != MESH_CKPT_STEP:
         fail(f"run A: latest complete step {ckfmt.latest_step(str(d))}, "
@@ -3211,13 +3275,11 @@ def phase_mesh_checkpoint(counters, one_process=None):
     if manifest["num_hosts"] != 2 or not os.path.exists(os.path.join(step_d, ckfmt.COMMIT)):
         fail(f"run A: num_hosts {manifest['num_hosts']} or no COMMIT in {step_d}")
     host_bytes = [os.path.getsize(os.path.join(step_d, ckfmt.shard_file(p))) for p in (0, 1)]
-    if sum(host_bytes) != CKPT_BYTES_INTERNLM2:
+    if sum(host_bytes) != ckpt_bytes:
         fail(f"run A: host files {host_bytes} sum to {sum(host_bytes):,} B, expected "
-             f"{CKPT_BYTES_INTERNLM2:,} B")
+             f"{ckpt_bytes:,} B")
     mine = {k: manifest[k] for k in ("leaves", "structure")}
-    wants = [("the state's shapes", _one_process_manifest())]
-    if one_process is not None:
-        wants.append(("phase 10's save", one_process["manifest"]))
+    wants = [("the state's shapes", shapes), ("phase 10's save", one_process["manifest"])]
     for what, want in wants:
         if mine != want:
             fail(f"run A: the manifest's leaves or structure differ from {what}")
@@ -3270,11 +3332,12 @@ def phase_mesh_checkpoint(counters, one_process=None):
         if not (math.isfinite(x) and abs(x - loss_a) <= 1e-4 * abs(loss_a)):
             fail(f"run {name}: step-{MESH_CKPT_STEP} loss {x} not within 1e-4 relative of "
                  f"run A's {loss_a}")
-    if one_process is not None and dd["peak_bytes"] > one_process["peak_bytes_a"]:
+    if dd["peak_bytes"] > one_process["peak_bytes_a"]:
         fail(f"run D: peak {dd['peak_bytes']:,} B above phase 10's fresh run "
              f"({one_process['peak_bytes_a']:,} B)")
 
-    report = {"host_bytes": host_bytes, "losses_a": losses_a, "wall_s": runs, "runs": {}}
+    report = {"layers": MESH_CKPT_LAYERS, "ckpt_bytes": ckpt_bytes, "host_bytes": host_bytes,
+              "losses_a": losses_a, "wall_s": runs, "runs": {}}
     for name, res in (("A", a), ("B", b), ("C", c)):
         rows = []
         for r in res["ranks"]:
@@ -3302,7 +3365,7 @@ def phase_mesh_checkpoint(counters, one_process=None):
                            "steps": [(s["step"], s["loss"], s["ms"]) for s in dd["steps"]],
                            "launches": dd["launches"]}
     print(f"mesh checkpoint run D (one process): restore {ck['restore_s']:.2f} s "
-          f"({CKPT_BYTES_INTERNLM2 / ck['restore_s'] / 1e9:.2f} GB/s), step "
+          f"({ckpt_bytes / ck['restore_s'] / 1e9:.2f} GB/s), step "
           f"{MESH_CKPT_STEP} loss {dd['steps'][0]['loss']:.6f} (A {loss_a:.6f}) "
           f"{dd['steps'][0]['ms']:.1f} ms, peak {dd['peak_bytes']:,} B "
           f"({dd['peak_bytes'] / 1e9:.2f} GB); {runs['D']:.1f} s")
@@ -3437,6 +3500,84 @@ def phase_roofline(card, main_steps, mesh):
             "seconds": seconds}
 
 
+def _plan_rank_bytes(name, layers):
+    """Each rank's state bytes of ``name`` under the (data=2, model=1) plan
+    at internlm2-1.8b's first ``layers`` layers, from shapes alone."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.sharding.specs import mesh_coords, opt_state_shardings, plan_nbytes
+
+    cfg = cut_depth(get_config("internlm2-1.8b"), layers)
+    meta = {k: p.detach() for k, p in named_params(init_model(cfg, device="meta")).items()}
+    mesh = {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]}
+    state = make_optimizer(name, 1e-3).init(meta)
+    plan = opt_state_shardings(state, meta, param_axes(cfg), mesh)
+    return [plan_nbytes(state, plan, c, mesh) for c in mesh_coords(mesh)]
+
+
+def phase_mesh_optimizers(new_optimizers):
+    """Phase 39: sm3, adafactor, factor4bit and shampoo4bit on ``--mesh
+    2x1`` through the CLI, at phase 11's depth and learning rates."""
+    import torch
+
+    from repro_torch.launch import train
+
+    run_dir = ROOT / "build" / "mesh_optim_smoke"
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, lr in NEW_OPTIMIZERS:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        args = NEW_ARGS + ["--optimizer", name, "--lr", str(lr), "--layers",
+                           str(SHAMPOO_LAYERS), "--mesh", "2x1", "--run-dir", str(run_dir)]
+        t0 = time.perf_counter()
+        try:
+            out = train.main(args)
+        except (Exception, SystemExit) as e:  # a rank's failure, with its traceback
+            fail(f"mesh {name}: {e!r}")
+        wall = time.perf_counter() - t0
+        what = f"mesh 2x1 {name} lr {lr:g} ({SHAMPOO_LAYERS} of 24 layers)"
+        plan = _plan_rank_bytes(name, SHAMPOO_LAYERS)
+        if plan != [MESH_OPTIM_RANK_BYTES[name]] * len(plan):
+            fail(f"{what}: the plan gives {plan} B a rank, the prediction "
+                 f"{MESH_OPTIM_RANK_BYTES[name]:,}")
+        losses = [r["loss"] for r in out["steps"]]
+        want = new_optimizers[name]["losses"]
+        if len(losses) != NEW_STEPS or len(want) != NEW_STEPS or not all(
+                math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses, want)):
+            fail(f"{what}: losses {losses} not within 1e-4 relative of phase 11's {want}")
+        for r in out["ranks"]:
+            if r["state_bytes"] != plan[r["rank"]]:
+                fail(f"{what}: rank {r['rank']} holds {r['state_bytes']:,} B of state, its "
+                     f"plan {plan[r['rank']]:,}")
+            if any(r["launches"].values()):
+                fail(f"{what}: rank {r['rank']} launched a kernel no route of it has: "
+                     f"{r['launches']}")
+        for s in out["steps"]:
+            coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
+            print(f"{what} step {s['step']}: loss {s['loss']:.4f} (phase 11: "
+                  f"{want[s['step']]:.4f})  {s['ms']:.1f} ms (compute "
+                  f"{1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, collective "
+                  f"{1e3 * coll:.1f}, update {1e3 * (s['update_s'] - s['collective_update_s']):.1f}"
+                  f" ms; {s['collective_bytes'] / 1e9:.2f} GB through the collectives)")
+        for r in out["ranks"]:
+            e0 = r["eigh"][0]
+            print(f"{what} rank {r['rank']}: state_bytes {r['state_bytes']:,} (the plan's), "
+                  f"peak {r['peak_bytes']:,} B ({r['peak_bytes'] / 1e9:.2f} GB)"
+                  + (f"; recompute step: {e0['blocks']:,} eigh matrices in {e0['s']:.2f} s "
+                     f"({e0['calls']} batched calls)" if e0["blocks"] else ""))
+        print(f"{what}: {wall:.1f} s with both processes' start")
+        runs[name] = {"lr": lr, "losses": losses, "phase11_losses": want, "wall_s": wall,
+                      "steps": out["steps"], "ranks": [
+                          {k: r[k] for k in ("rank", "state_bytes", "peak_bytes", "eigh")}
+                          for r in out["ranks"]]}
+    shutil.rmtree(run_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"mesh optimizers (phase 39): {seconds:.1f} s")
+    return {"runs": runs, "seconds": seconds}
+
+
 def main():
     global HBM_BYTES_PER_S, FP32_FLOPS_PER_S
     sys.path.insert(0, str(ROOT / "src"))
@@ -3466,15 +3607,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
+    t_start = _LAP[0] = time.perf_counter()
 
     counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
     build_report = phase_build()
-    if sys.argv[1:] == ["--mesh-phases"]:  # phases 34-37 alone, for work on them
+    _lap("1 build")
+    if sys.argv[1:] == ["--mesh-phases"]:  # phases 10 and 34-37 alone, for work on them
+        checkpoint = phase_checkpoint(counters)
         phase_b1_tiles(dev)
         phase_mesh()
-        phase_mesh_checkpoint(counters)
-        print(f"chip_smoke: phases 34-37 passed in {time.perf_counter() - t_start:.1f} s")
+        phase_mesh_checkpoint(counters, checkpoint)
+        print(f"chip_smoke: phases 10 and 34-37 passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return
+    if sys.argv[1:] == ["--mesh-optim-phases"]:  # phases 11 and 39 alone
+        phase_mesh_optimizers(phase_new_optimizers(counters, dev))
+        print(f"chip_smoke: phases 11 and 39 passed in {time.perf_counter() - t_start:.1f} s")
         return
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.split()
@@ -3483,45 +3631,83 @@ def main():
     print(f"card: {card_info['sms']} SMs, SM clock up to {card_info['max_sm_mhz']:g} MHz, "
           f"now {_sm_clock()}")
     max_err, leaves, per_step = phase_leaves(dev, card_info)
+    _lap("2 B1 leaves")
     q4_err, q4_leaves, q4_tree = phase_quant_leaves(dev, card_info, build_report)
+    _lap("3 B2/B3 leaves")
     small = phase_small_reference(dev)
+    _lap("4 small reference")
     small_serving = phase_small_serving(dev)
+    _lap("5 small serving")
     counts, losses, train_peak, main_steps = phase_main_path(counters)
+    _lap("6 main path")
     model_ms, opt_ms = phase_profile(dev)
+    _lap("7 step profile")
     serving, eng = phase_serve(counters)
+    _lap("8 serve path")
     decode_top = phase_serve_profile(eng)
     del eng
     torch.cuda.empty_cache()
-    checkpoint = phase_checkpoint(counters, main_steps)
+    _lap("9 decode profile")
+    checkpoint = phase_checkpoint(counters)
+    _lap("10 checkpoint")
     new_optimizers = phase_new_optimizers(counters, dev)
+    _lap("11 new optimizers")
     small_new = phase_small_new(dev)
+    _lap("12 small new optimizers")
     comms = phase_comms(counters, main_steps, train_peak)
+    _lap("13 int4 comms")
     arch_leaves, arch_b1 = phase_arch_leaves(dev, card_info)
+    _lap("14 arch leaves")
     arch_train = phase_arch_train(counters)
+    _lap("15 arch train")
     arch_small = phase_arch_small(dev)
+    _lap("16 arch small")
     arch_serve = phase_arch_serve(counters)
+    _lap("17 arch serve")
     long_window = phase_long_window(counters, dev)
+    _lap("18 long window")
     moe_leaves, moe_b1 = phase_arch_leaves(dev, card_info, MOE_LEAF_SHAPES)
+    _lap("19 MoE leaves")
     q4_big = phase_q4_big(dev)
+    _lap("20 q4 big leaf")
     moe_train = phase_arch_train(counters, MOE_TRAIN)
+    _lap("21 MoE train")
     moe_small = phase_arch_small(dev, tuple(MOE_TRAIN))
+    _lap("22 MoE small")
     moe_serve = phase_arch_serve(counters, MOE_SERVE)
+    _lap("23 MoE serve")
     rec_leaves, rec_b1 = phase_arch_leaves(dev, card_info, XLSTM_LEAF_SHAPES)
+    _lap("24 recurrent leaves")
     rec_train = phase_arch_train(counters, RECURRENT_TRAIN)
+    _lap("25 recurrent train")
     rec_small = phase_arch_small(dev, tuple(RECURRENT_TRAIN))
+    _lap("26 recurrent small")
     rec_q4_leaves = phase_q4_arch_leaves(dev)
     rec_serve = phase_arch_serve(counters, RECURRENT_SERVE)
+    _lap("27 recurrent q4 leaves and serve")
     rec_oracle = phase_prefill_oracle(dev)
+    _lap("28 prefill oracle")
     stub_leaves, stub_b1 = phase_arch_leaves(dev, card_info, STUB_LEAF_SHAPES)
+    _lap("29 stub leaves")
     stub_train = phase_stub_train(counters, dev)
+    _lap("30 stub train")
     stub_small = phase_arch_small(dev, tuple(STUB_TRAIN))
+    _lap("31 stub small")
     stub_q4_leaves = phase_q4_arch_leaves(dev, STUB_SERVE)
     stub_serve = phase_stub_serve(counters, dev)
+    _lap("32 stub q4 leaves and serve")
     stub_oracle = phase_stub_oracle(dev)
+    _lap("33 stub oracle")
     b1_tiles = phase_b1_tiles(dev)
+    _lap("34 B1 tiles")
     mesh = phase_mesh()
+    _lap("35-36 mesh")
     mesh_checkpoint = phase_mesh_checkpoint(counters, checkpoint)
+    _lap("37 mesh checkpoint")
     roofline = phase_roofline(card, main_steps, mesh)
+    _lap("38 roofline")
+    mesh_optim = phase_mesh_optimizers(new_optimizers)
+    _lap("39 mesh optimizers")
     # launches: every path run of the slices, each counted from 0 just before
     # it and read just after (phases 6, 15, 21, 25, 30, 35, 37 train; 8, 17,
     # 23, 27, 32 serve)
@@ -3626,8 +3812,8 @@ def main():
          "mesh_checkpoint": mesh_checkpoint, "roofline": roofline["roofline"],
          "dryrun": roofline["dryrun"], "roofline_mesh_collectives":
              roofline["mesh_collectives"], "roofline_seconds": roofline["seconds"],
-         "path_launches": launches,
-         "seconds": time.perf_counter() - t_start}, indent=1))
+         "mesh_optimizers": mesh_optim, "path_launches": launches,
+         "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

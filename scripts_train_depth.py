@@ -22,7 +22,6 @@ a CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import subprocess
@@ -34,9 +33,10 @@ ROOT = Path(__file__).resolve().parent
 
 def _cut(module, layers: int) -> None:
     """Make ``module.get_config`` give the config cut to its first layers."""
+    from repro_torch.configs import cut_depth
+
     real = module.get_config
-    module.get_config = lambda name: dataclasses.replace(
-        real(name), num_layers=layers, blocks=real(name).blocks[:layers])
+    module.get_config = lambda name: cut_depth(real(name), layers)
 
 
 def _serve_requests(vocab: int):

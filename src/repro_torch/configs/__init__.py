@@ -12,8 +12,8 @@ from typing import Callable, Dict, Tuple
 
 from repro_torch.models import LayerSpec, ModelConfig
 
-__all__ = ["ARCHS", "get_config", "reduced_config", "ShapeSpec", "SHAPES", "LONG_CONTEXT_ARCHS",
-           "cell_is_runnable"]
+__all__ = ["ARCHS", "get_config", "reduced_config", "cut_depth", "ShapeSpec", "SHAPES",
+           "LONG_CONTEXT_ARCHS", "cell_is_runnable"]
 
 
 def internlm2_1_8b() -> ModelConfig:
@@ -275,6 +275,11 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; the port has: {sorted(ARCHS)}")
     return ARCHS[name]()
+
+
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg``'s first ``layers`` decoder layers, its width kept."""
+    return dataclasses.replace(cfg, num_layers=layers, blocks=cfg.blocks[:layers])
 
 
 def reduced_config(name: str) -> ModelConfig:

@@ -55,7 +55,13 @@ class FactoredMoment:
     """Adafactor-style factored second moment over the trailing two dims:
     for a tensor of shape (..., n, m), ``row`` (..., n) and ``col`` (..., m)
     are its means over m and over n; the reconstruction is
-    row ⊗ col / mean(row) (Shazeer & Stern, 2018)."""
+    row ⊗ col / mean(row) (Shazeer & Stern, 2018).
+
+    On a mesh (``tile``: the rank's ``sharding.context.Tile`` of the leaf)
+    ``row`` and ``col`` stay whole and equal on every rank: the update
+    merges the tile's partial sums over the ranks (each distinct box once)
+    and divides by the whole leaf's m (or n), and the reconstruction is the
+    whole one's at the tile's elements."""
 
     __slots__ = ("row", "col", "shape")
 
@@ -71,14 +77,25 @@ class FactoredMoment:
                               torch.zeros(shape[:-2] + shape[-1:], dtype=torch.float32,
                                           device=device), shape)
 
-    def reconstruct(self) -> torch.Tensor:
+    def reconstruct(self, tile=None) -> torch.Tensor:
         """v̂ = row ⊗ col / mean(row); all-zero rows at t=0 are guarded."""
         denom = torch.clamp_min(torch.mean(self.row, dim=-1, keepdim=True), 1e-30)
-        return (self.row / denom)[..., :, None] * self.col[..., None, :]
+        row, col = self.row / denom, self.col
+        if tile is not None:
+            box = tile.box
+            row, col = row[_index(box[:-1])], col[_index(box[:-2] + box[-1:])]
+        return row[..., :, None] * col[..., None, :]
 
-    def ema_update(self, sq: torch.Tensor, b2: float) -> "FactoredMoment":
-        row = b2 * self.row + (1 - b2) * torch.mean(sq, dim=-1)
-        col = b2 * self.col + (1 - b2) * torch.mean(sq, dim=-2)
+    def ema_update(self, sq: torch.Tensor, b2: float, tile=None) -> "FactoredMoment":
+        if tile is None:
+            r_mean, c_mean = torch.mean(sq, dim=-1), torch.mean(sq, dim=-2)
+        else:
+            box, shape = tile.box, self.shape
+            r_mean = _merged_mean(torch.sum(sq, dim=-1), box[:-1], shape[:-1], shape[-1], tile)
+            c_mean = _merged_mean(torch.sum(sq, dim=-2), box[:-2] + box[-1:],
+                                  shape[:-2] + shape[-1:], shape[-2], tile)
+        row = b2 * self.row + (1 - b2) * r_mean
+        col = b2 * self.col + (1 - b2) * c_mean
         return FactoredMoment(row, col, self.shape)
 
     def nbytes(self) -> int:
@@ -86,6 +103,23 @@ class FactoredMoment:
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"FactoredMoment(shape={self.shape})"
+
+
+def _index(box) -> Tuple[slice, ...]:
+    return tuple(slice(a, b) for a, b in box)
+
+
+def _merged_mean(part: torch.Tensor, box, shape, n: int, tile) -> torch.Tensor:
+    """The whole leaf's mean over a dim of ``n`` from a tile's partial sums
+    (``part``, the tile's ``box`` of a ``shape`` vector): placed in the
+    whole vector, summed over the ranks (each distinct box once), divided
+    by ``n``."""
+    from repro_torch.comms.collectives import merge_sum
+
+    whole = torch.zeros(shape, dtype=torch.float32, device=part.device)
+    whole[_index(box)] = part
+    total = merge_sum(whole, take=tile.firsts())
+    return total / torch.full((), float(n), dtype=torch.float32, device=part.device)
 
 
 @dataclasses.dataclass(frozen=True)

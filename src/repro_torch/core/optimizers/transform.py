@@ -19,14 +19,23 @@ leaves that the fused kernel does not carry; ``apply_updates`` and the
 fused kernel update fp32 params in place. Every inner rule of the repo is
 leafwise (per-leaf norms, one shared count), so the result is the
 reference's. On a mesh, ``compressed()`` marks the leaf it updates
-(``sharding.context.leaf``): the quantizer and the fused route then take
-the rank's tile of it with the whole leaf's statistics and noise.
+(``sharding.context.leaf``) and the field it (de)quantizes
+(``sharding.context.field``): the quantizer and the fused route then take
+the rank's tile of it with the whole leaf's statistics and noise. The
+rules read the rank's tile of each leaf from the mesh context and merge
+what needs the whole leaf over the ranks: SM3's accumulator maxima
+(``merge_max``, exact), the factored moments' means, the update clip's
+RMS and Shampoo's grafting norms (``merge_sum``, each distinct box once);
+Shampoo computes its statistics and inverse roots on the range of whole
+blocks its stacks' tile gives the rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -67,6 +76,7 @@ __all__ = [
     "FactoredRmsState",
     "scale_by_shampoo",
     "ScaleByShampooState",
+    "EIGH",
     "add_decayed_weights",
     "scale_by_learning_rate",
     "FusedAdamWRoute",
@@ -209,8 +219,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Grad
             m2 = b1 * state.m[k] + (1.0 - b1) * g
             v = state.v[k]
             if isinstance(v, FactoredMoment):
-                v2 = v.ema_update(g * g, b2)
-                v_full = v2.reconstruct()
+                tile = _tile(k, g)
+                v2 = v.ema_update(g * g, b2, tile)
+                v_full = v2.reconstruct(tile)
             else:
                 v2 = b2 * v + (1.0 - b2) * g * g
                 v_full = v2
@@ -240,6 +251,36 @@ def trace(decay: float) -> GradientTransformation:
         return new_t, TraceState(new_t)
 
     return GradientTransformation(init, update)
+
+
+def _tile(path: str, x: torch.Tensor):
+    """The mesh tile of leaf ``path`` that ``x`` is (``None`` off the mesh,
+    or for a whole leaf)."""
+    tile = mesh_context.leaf_tile(path)
+    if tile is not None and tuple(x.shape) != tile.local_shape:
+        raise ValueError(f"{path}: a tensor of {tuple(x.shape)} is not this rank's tile "
+                         f"{tile.box} of {tile.shape}")
+    return tile
+
+
+def _leaf_sum(x: torch.Tensor, tile) -> torch.Tensor:
+    """``sum(x)`` over the whole leaf: a tile's partial sums merged over the
+    ranks, each distinct box once."""
+    s = torch.sum(x)
+    if tile is None:
+        return s
+    from repro_torch.comms.collectives import merge_sum
+
+    return merge_sum(s[None], take=tile.firsts())[0]
+
+
+def _whole_of(x: torch.Tensor, tile) -> torch.Tensor:
+    """The whole leaf from the ranks' tiles (``x`` itself off the mesh)."""
+    if tile is None:
+        return x
+    from repro_torch.train.mesh import gather
+
+    return gather(x, list(tile.boxes), tile.shape)
 
 
 class Sm3State(NamedTuple):
@@ -277,13 +318,20 @@ def scale_by_sm3(b1: float = 0.9, eps: float = 1e-8) -> GradientTransformation:
             g = g.to(torch.float32)
             shape = tuple(g.shape) if g.ndim > 0 else (1,)
             g_ = g.reshape(shape)
-            nu = _broadcast_min(state.acc[k], shape) + g_ * g_
+            tile, accs = _tile(k, g), state.acc[k]
+            if tile is not None:  # the tile's ranges of the whole accumulators
+                accs = tuple(a[lo:hi] for a, (lo, hi) in zip(accs, tile.box))
+            nu = _broadcast_min(accs, shape) + g_ * g_
             # the max over every other dim (a 1-d leaf's accumulator is nu)
             new_acc[k] = tuple(
                 torch.amax(nu, dim=tuple(i for i in range(len(shape)) if i != r))
                 if len(shape) > 1 else nu
                 for r in range(len(shape))
             )
+            if tile is not None:  # placed in the whole vectors, max over the ranks
+                from repro_torch.kernels.ops import merged_maxima
+
+                new_acc[k] = merged_maxima(new_acc[k], tile.box, tile.shape)
             u = (g_ / (torch.sqrt(nu) + eps)).reshape(g.shape)
             out[k] = b1 * state.m[k] + (1 - b1) * u
         return out, Sm3State(new_acc, out)
@@ -319,18 +367,22 @@ def scale_by_factored_rms(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-30
         for k, g in updates.items():
             g = g.to(torch.float32)
             sq = g * g + eps
-            v = state.v[k]
+            v, tile = state.v[k], _tile(k, g)
             if isinstance(v, FactoredMoment):
-                v2 = v.ema_update(sq, b2)
-                v_hat = v2.reconstruct() / _dev_scalar(bc2, g)
+                v2 = v.ema_update(sq, b2, tile)
+                v_hat = v2.reconstruct(tile) / _dev_scalar(bc2, g)
             else:
                 v2 = b2 * v + (1 - b2) * sq
                 v_hat = v2 / _dev_scalar(bc2, g)
             del sq
             u = g / torch.sqrt(torch.clamp_min(v_hat, eps))
             del v_hat
-            # update clipping: divide by max(1, RMS(u)/d)
-            rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+            # update clipping: divide by max(1, RMS(u)/d), RMS over the whole leaf
+            if tile is None:
+                rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+            else:
+                n_all = _dev_scalar(np.prod(tile.shape, dtype=np.float64), g)
+                rms_u = torch.sqrt(_leaf_sum(u * u, tile) / n_all + 1e-30)
             u = u / torch.clamp_min(rms_u / _dev_scalar(clip_threshold, g), 1.0)
             if state.m is not None:
                 u = b1 * state.m[k] + (1 - b1) * u
@@ -387,6 +439,33 @@ def _shampoo_pad_diag(n, m, br, bc, nb_r, nb_c, device=None):
     return torch.from_numpy(pad_l).to(device), torch.from_numpy(pad_r).to(device)
 
 
+# eigh work of ``_inv_quarter_root`` since the last reset: batched calls,
+# blocks and host seconds
+EIGH: Dict[str, float] = {"calls": 0, "blocks": 0, "s": 0.0}
+
+
+def _eigh_one_thread(a):
+    torch.set_num_threads(1)
+    return torch.linalg.eigh(a)
+
+
+def host_eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of a batch on the host: its slices on the
+    process's intra-op threads side by side, each matrix on one thread, so a
+    block's result does not depend on the thread count. A batch on the card
+    comes here: cuSOLVER decomposes it one call per matrix, 0.96-2.0 ms a
+    128 x 128 block on an H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
+    11), where the host's threads take their slices at once."""
+    threads = torch.get_num_threads()
+    n = max(1, min(threads, a.shape[0]))
+    try:
+        with ThreadPoolExecutor(n) as pool:
+            parts = list(pool.map(_eigh_one_thread, a.chunk(n)))
+    finally:
+        torch.set_num_threads(threads)
+    return torch.cat([w for w, _ in parts]), torch.cat([u for _, u in parts])
+
+
 def _inv_quarter_root(stats, pad_diag, ridge, floor_rel):
     """(stats + ridge*I + diag(pad))^{-1/4} per block, by batched eigh, with
     eigenvalues floored at ``max(ridge, floor_rel * λ_max)`` per block: the
@@ -399,7 +478,14 @@ def _inv_quarter_root(stats, pad_diag, ridge, floor_rel):
     eye = torch.eye(d, dtype=torch.float32, device=stats.device)
     a = stats + ridge * eye + pad_diag[:, :, None] * eye
     a = (a + a.transpose(-1, -2)) / 2
-    w, u = torch.linalg.eigh(a)
+    t0 = time.perf_counter()
+    if a.device.type == "cuda":
+        w, u = (x.to(a.device) for x in host_eigh(a.cpu()))
+    else:
+        w, u = torch.linalg.eigh(a)
+    EIGH["s"] += time.perf_counter() - t0
+    EIGH["calls"] += 1
+    EIGH["blocks"] += a.shape[0]
     del a
     wmax = torch.amax(w, dim=-1, keepdim=True)
     w = torch.maximum(w, torch.clamp_min(floor_rel * wmax, ridge))
@@ -417,7 +503,15 @@ def scale_by_shampoo(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
     steps after (a host decision on the host count; the stale roots are
     reused between), and the direction ``P_L m̂ P_R`` grafted onto the AdamW
     direction's norm per leaf. Params with ndim < 2 take the AdamW
-    direction and hold ``(0,)`` factor placeholders."""
+    direction and hold ``(0,)`` factor placeholders.
+
+    On a mesh the geometry is the whole leaf's. A rank holds its blocks
+    ``[b0, b1)`` of each factor stack (the box of the ``stats_l`` field's
+    tile on dim 0; every block off the mesh): the gradient and ``m̂`` are
+    gathered whole and cut to those blocks, their statistics and roots
+    computed there alone, and the direction's blocks gathered over the
+    ranks and cut back to the parameter's tile; the grafting norms are
+    sums over the whole leaf."""
 
     def _placeholder(p):
         return torch.zeros((0,), dtype=torch.float32, device=p.device)
@@ -448,6 +542,7 @@ def scale_by_shampoo(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
         new = {name: {} for name in ScaleByShampooState._fields[1:]}
         for k, g in updates.items():
             g = g.to(torch.float32)
+            tile = _tile(k, g)
             m2 = b1 * state.m[k] + (1.0 - b1) * g
             v2 = b2 * state.v[k] + (1.0 - b2) * g * g
             m_hat = m2 / _dev_scalar(bc1, g)
@@ -458,23 +553,40 @@ def scale_by_shampoo(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
                 for name in ("stats_l", "stats_r", "precond_l", "precond_r"):
                     new[name][k] = getattr(state, name)[k]
                 continue
-            geo = _shampoo_geometry(tuple(g.shape), block_size)
+            shape = tile.shape if tile is not None else tuple(g.shape)
+            geo = _shampoo_geometry(shape, block_size)
             n, mm = geo[0], geo[1]
-            gb = _shampoo_to_blocks(g.reshape(n, mm), *geo)
+            # this rank's blocks: the stacks' tile on dim 0 (every block off the mesh)
+            blocks = mesh_context.leaf_tile(k, "stats_l")
+            b0, b1_ = blocks.box[0] if blocks is not None else (0, geo[4] * geo[5])
+            to_blocks = lambda x: _shampoo_to_blocks(_whole_of(x, tile).reshape(n, mm),
+                                                     *geo)[b0:b1_]
+            gb = to_blocks(g)
             sl2 = b2 * state.stats_l[k] + (1.0 - b2) * (gb @ gb.transpose(-1, -2))
             sr2 = b2 * state.stats_r[k] + (1.0 - b2) * (gb.transpose(-1, -2) @ gb)
             del gb
             if recompute:
                 pad_l, pad_r = _shampoo_pad_diag(*geo, device=g.device)
-                pl2 = _inv_quarter_root(sl2 / _dev_scalar(bc2, g), pad_l, matrix_eps, floor_rel)
-                pr2 = _inv_quarter_root(sr2 / _dev_scalar(bc2, g), pad_r, matrix_eps, floor_rel)
+                pl2 = _inv_quarter_root(sl2 / _dev_scalar(bc2, g), pad_l[b0:b1_], matrix_eps,
+                                        floor_rel)
+                pr2 = _inv_quarter_root(sr2 / _dev_scalar(bc2, g), pad_r[b0:b1_], matrix_eps,
+                                        floor_rel)
             else:
                 pl2, pr2 = state.precond_l[k], state.precond_r[k]
-            db = pl2 @ _shampoo_to_blocks(m_hat.reshape(n, mm), *geo) @ pr2
-            d = _shampoo_from_blocks(db, *geo).reshape(g.shape)
-            del db, m_hat
-            a_norm = torch.sqrt(torch.sum(adam_dir * adam_dir))
-            d_norm = torch.sqrt(torch.sum(d * d))
+            db = pl2 @ to_blocks(m_hat) @ pr2
+            del m_hat
+            if blocks is not None:  # every rank's blocks
+                from repro_torch.train.mesh import gather
+
+                rest = tuple((0, int(x)) for x in db.shape[1:])
+                db = gather(db, [b[:1] + rest for b in blocks.boxes],
+                            blocks.shape[:1] + tuple(db.shape[1:]))
+            d = _shampoo_from_blocks(db, *geo).reshape(shape)
+            del db
+            if tile is not None:
+                d = d[tile.index()]
+            a_norm = torch.sqrt(_leaf_sum(adam_dir * adam_dir, tile))
+            d_norm = torch.sqrt(_leaf_sum(d * d, tile))
             out[k] = d * (a_norm / (d_norm + 1e-30))
             del d, adam_dir
             new["stats_l"][k], new["stats_r"][k] = sl2, sr2
@@ -633,7 +745,9 @@ def compressed(inner: GradientTransformation, policies: Mapping[str, QuantPolicy
                 view = {}
                 for f in fields:
                     x = getattr(state.inner, f)[k]
-                    view[f] = {k: decompress_moment(x) if isinstance(x, QuantizedTensor) else x}
+                    with mesh_context.field(f):
+                        view[f] = {k: decompress_moment(x) if isinstance(x, QuantizedTensor)
+                                   else x}
                 u, one = inner.update({k: updates[k]}, state.inner._replace(**view),
                                       {k: params[k]} if params is not None else None, key=key)
                 del view
@@ -643,8 +757,9 @@ def compressed(inner: GradientTransformation, policies: Mapping[str, QuantPolicy
                          if lk is not None and len(names) > 1 else {n: lk for n in names})
                 for f in fields:
                     old, x = getattr(state.inner, f)[k], getattr(one, f)[k]
-                    new[f][k] = (quantize(x, old.config, key=fkeys[f])
-                                 if isinstance(old, QuantizedTensor) else x)
+                    with mesh_context.field(f):
+                        new[f][k] = (quantize(x, old.config, key=fkeys[f])
+                                     if isinstance(old, QuantizedTensor) else x)
                 del u, one
         return out_u, CompressedState(count, shared._replace(**new))
 

@@ -40,7 +40,7 @@ from repro_torch.kernels.adamw4bit import LAUNCHES, fused_adamw4, rank1_new_stat
 from repro_torch.kernels.sr import threefry2x32
 
 __all__ = ["fused_adamw4_leaf", "leaf_operands", "seed_rows", "tile_stats", "tile_update",
-           "LAUNCHES"]
+           "merged_maxima", "LAUNCHES"]
 
 _BLOCK = 128
 
@@ -132,7 +132,7 @@ def fused_adamw4_leaf(
     return p, m2, v2
 
 
-def _merged(parts: Tuple[torch.Tensor, ...], box, shape) -> Tuple[torch.Tensor, ...]:
+def merged_maxima(parts: Tuple[torch.Tensor, ...], box, shape) -> Tuple[torch.Tensor, ...]:
     """Per-dim maxima of a tile, placed in the whole leaf's dims and merged
     over the ranks (every value is >= 0 or NaN, so 0 is the identity)."""
     from repro_torch.comms.collectives import merge_max
@@ -205,7 +205,7 @@ def tile_update(tile, p, g, m_s: QuantizedTensor, v_s: QuantizedTensor, new_stat
 def _tile_leaf(tile, p, g, m_s, v_s, lr, b1, b2, eps, weight_decay, bc1, bc2, key):
     from repro_torch.comms.collectives import merge_max
 
-    new_stats = _merged(tile_stats(tile, g, v_s, b2), tile.box, tile.shape)
+    new_stats = merged_maxima(tile_stats(tile, g, v_s, b2), tile.box, tile.shape)
     p, mp3, ms3, vp3, blk = tile_update(tile, p, g, m_s, v_s, new_stats, lr, b1, b2, eps,
                                         weight_decay, bc1, bc2, key)
     m_scale = torch.zeros_like(m_s.scales[0])

@@ -70,6 +70,8 @@ def threefry2x32(k0, k1, c0, c1):
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (c0 + k0) & MASK
     x1 = (c1 + k1) & MASK
+    if isinstance(x0, torch.Tensor) or isinstance(x1, torch.Tensor):
+        return _tensor_rounds(x0, x1, ks)
     for group in range(5):
         rots = _ROT[0:4] if group % 2 == 0 else _ROT[4:8]
         for r in rots:
@@ -77,6 +79,26 @@ def threefry2x32(k0, k1, c0, c1):
             x1 = _rotl(x1, r) ^ x0
         x0 = (x0 + ks[(group + 1) % 3]) & MASK
         x1 = (x1 + ks[(group + 2) % 3] + group + 1) & MASK
+    return x0, x1
+
+
+def _tensor_rounds(x0, x1, ks):
+    """The 20 rounds of ``threefry2x32`` on tensors: the same integer ops,
+    in place on two fresh words and one scratch word (an out-of-place round
+    allocates seven temporaries of the words' size)."""
+    like = x0 if isinstance(x0, torch.Tensor) else x1
+    x0, x1 = (torch.as_tensor(x, dtype=torch.int64, device=like.device) for x in (x0, x1))
+    x0, x1 = (x.clone(memory_format=torch.contiguous_format)
+              for x in torch.broadcast_tensors(x0, x1))
+    t = torch.empty_like(x0)
+    for group in range(5):
+        rots = _ROT[0:4] if group % 2 == 0 else _ROT[4:8]
+        for r in rots:
+            x0.add_(x1).bitwise_and_(MASK)
+            torch.bitwise_left_shift(x1, r, out=t).bitwise_and_(MASK)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(t).bitwise_xor_(x0)
+        x0.add_(ks[(group + 1) % 3]).bitwise_and_(MASK)
+        x1.add_(ks[(group + 2) % 3] + group + 1).bitwise_and_(MASK)
     return x0, x1
 
 

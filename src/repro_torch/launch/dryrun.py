@@ -22,9 +22,8 @@ records per rank:
   at the rank's share, with the H100's constants.
 
 ``status`` is ``ok``, ``skipped`` (``cell_is_runnable``), ``refused`` (the
-port's mesh step would refuse the cell before its first step: an optimizer
-whose statistics need whole leaves, ``train.mesh.check_state``; a data
-shard that would split an MoE group, ``models.moe.moe_shard_groups``; the
+port's mesh step would refuse the cell before its first step: a data shard
+that would split an MoE group, ``models.moe.moe_shard_groups``; the
 refusal's own message), or ``error`` with the traceback's tail. A fused
 leaf whose tiles would cut B128 blocks, or a leaf whose tiles would cut a
 packed byte of its 4-bit moments' codes, is no refusal (the mesh step
@@ -89,15 +88,12 @@ def _gathered_bytes(params: Mapping[str, torch.Tensor]) -> Dict[str, int]:
     return {"gathered_layer_bytes": max(stacks.values(), default=0), "gathered_top_bytes": top}
 
 
-def _refusal(cfg: ModelConfig, shape: ShapeSpec, mesh, shapes, meta_state,
-             accum_steps: int) -> Optional[str]:
+def _refusal(cfg: ModelConfig, shape: ShapeSpec, mesh, accum_steps: int) -> Optional[str]:
     """Why the mesh step would refuse a train cell before its first step
     (None: it would not)."""
     from repro_torch.models.moe import moe_shard_groups
-    from repro_torch.train.mesh import check_state
 
     try:
-        check_state(meta_state, shapes)
         if any(b.kind == "moe" for b in cfg.blocks):
             Bl, shards = rank_batch(shape.global_batch, dp_size(mesh))
             moe_shard_groups(Bl // accum_steps * shape.seq_len, shards, cfg.top_k,
@@ -129,8 +125,7 @@ def memory_record(cfg: ModelConfig, shape: ShapeSpec, mesh: Mapping[str, int],
     if train:
         with torch.no_grad():
             meta_state = _optimizer(opt_name).init(params)
-        why = _refusal(cfg, shape, mesh, {k: tuple(p.shape) for k, p in params.items()},
-                       meta_state, accum_steps)
+        why = _refusal(cfg, shape, mesh, accum_steps)
         if why is not None:
             return dict(out, status="refused", reason=why)
         memory["state_bytes"] = _rank_bytes(

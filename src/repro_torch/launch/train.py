@@ -35,6 +35,10 @@ reading only its part into storage allocated as a fresh rank holds it
 (``abstract_train_state(..., mesh=)``); the one-process run likewise
 resumes a mesh's save. ``--digests`` adds each leaf's sha256 of the final
 state (each rank's part on a mesh) to the summary, to compare two runs.
+``--layers N`` keeps the arch's first N layers at full width (a depth cut
+for a card the whole model does not fit, or a short run); on a mesh every
+rank prints its state bytes and records the eigh work of each step
+(Shampoo's recompute steps).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.comms import GRAD_COMM_MODES, CommsConfig, wire_report
-from repro_torch.configs import ARCHS, get_config, reduced_config
+from repro_torch.configs import ARCHS, cut_depth, get_config, reduced_config
 from repro_torch.core.optimizers import (
     linear_warmup_linear_decay,
     make_optimizer,
@@ -117,6 +121,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="retention: also keep every K-th step")
     ap.add_argument("--digests", action="store_true",
                     help="add each leaf's sha256 of the final state to the summary")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the arch's first N layers (its width kept): a depth cut")
     args = ap.parse_args(argv)
     if args.mesh is not None:
         d, x, m = args.mesh.partition("x")
@@ -188,6 +194,8 @@ def _digests(state) -> Dict[str, str]:
 
 def _setup(args):
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
     if cfg.input_mode == "embeds" or cfg.family == "encdec":
         raise SystemExit(f"{args.arch}: modality-stub arch — use examples/ or the dry-run")
     overrides = {k: _parse_value(v) for k, _, v in (kv.partition("=") for kv in args.opt_arg)}
@@ -204,17 +212,9 @@ def _main_mesh(args, argv, device, cfg, opt) -> Dict:
     """``--mesh DxM``: D*M processes, rank 0's summary returned."""
     import torch.multiprocessing as mp
 
-    from repro_torch.models import named_params
-    from repro_torch.train.mesh import check_state
-
     d, _, m = args.mesh.partition("x")
     shape = (int(d), int(m))
     world = shape[0] * shape[1]
-    meta = named_params(init_model(cfg, device="meta"))
-    try:  # refuse before starting the ranks
-        check_state(opt.init(meta), {k: tuple(p.shape) for k, p in meta.items()})
-    except ValueError as e:
-        raise SystemExit(f"--mesh --optimizer {args.optimizer}: {e}")
     own_card = device.type == "cuda" and torch.cuda.device_count() >= world
     backend = "nccl" if own_card else "gloo"
     where = ("one card per rank" if own_card else
@@ -240,6 +240,8 @@ def _main_mesh(args, argv, device, cfg, opt) -> Dict:
 def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -> None:
     import torch.distributed as dist
 
+    from repro_torch.comms import collectives
+    from repro_torch.core.optimizers.transform import EIGH
     from repro_torch.kernels import adamw4bit, quant4
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.fault_tolerance import plan_elastic
@@ -253,6 +255,7 @@ def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -
     dist.init_process_group(backend, init_method="file://" + os.path.join(run_dir, "rendezvous"),
                             rank=rank, world_size=world)
     try:
+        collectives.open_host_slots()
         mesh = make_mesh(shape, ("data", "model"), "cuda" if backend == "nccl" else "cpu")
         cfg, opt, sr_key = _setup(args)
         axes = param_axes(cfg)
@@ -293,13 +296,15 @@ def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -
                   f"state_bytes={whole_bytes:,} device={device}", flush=True)
         step_fn = build_train_step(model, opt, mesh, axes, comms=comms)
         data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
-        records = []
+        records, eigh = [], []
         for t in range(start, args.steps):
             batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(t).items()}
+            eigh0 = dict(EIGH)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             ms = (time.perf_counter() - t0) * 1e3
+            eigh.append({k: EIGH[k] - eigh0[k] for k in EIGH})
             records.append({"step": t, "loss": loss, "ms": ms,
                             "ce_loss": float(metrics["ce_loss"]),
                             "aux_loss": float(metrics["aux_loss"]),
@@ -321,7 +326,8 @@ def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -
                 "peak_bytes": (torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else 0),
                 "checkpoint": ckpt if mgr else None,
-                "launches": {**adamw4bit.LAUNCHES, **quant4.LAUNCHES}}
+                "launches": {**adamw4bit.LAUNCHES, **quant4.LAUNCHES},
+                "eigh": eigh}  # Shampoo's eigh work a step on this rank
         if args.digests:
             mine["digests"] = _digests(state)
         every = [None] * world
@@ -344,7 +350,9 @@ def _mesh_rank(rank: int, world: int, shape, argv, run_dir: str, backend: str) -
                            "n_params": n_params, "mesh": list(shape), "backend": backend,
                            "steps": records, "checkpoint": ckpt if mgr else None,
                            "ranks": ranks}, f)
+        dist.barrier()  # no rank tears down while another still talks
     finally:
+        collectives.close_host_slots()
         dist.destroy_process_group()
 
 

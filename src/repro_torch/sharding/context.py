@@ -13,6 +13,9 @@ tensor and the code that needs the whole leaf asks this module:
   ``leaf(path)`` marks the leaf being updated, and ``current_tile()`` gives
   its ``Tile`` (the whole leaf's shape and this rank's box) or ``None``
   off the mesh, where every caller keeps its one-device path unchanged;
+  a state leaf shaped otherwise than its parameter (Shampoo's factor
+  stacks) has its own tile in the map under ``(path, field)``, current
+  within ``field(name)``;
 * ``batch_shards(n)`` tells the model its batch is one of ``n`` data
   shards (the MoE layer forms its token groups over the global batch).
 """
@@ -29,8 +32,8 @@ import torch
 
 from repro_torch.sharding.rules import dp_axes, mesh_axis_sizes
 
-__all__ = ["Tile", "MeshRun", "use", "leaf", "current_run", "current_tile", "tile_of", "box_of",
-           "rank_coord", "batch_shards", "current_batch_shards"]
+__all__ = ["Tile", "MeshRun", "use", "leaf", "field", "current_run", "current_tile", "leaf_tile",
+           "tile_of", "box_of", "rank_coord", "batch_shards", "current_batch_shards"]
 
 Box = Tuple[Tuple[int, int], ...]
 
@@ -38,10 +41,22 @@ Box = Tuple[Tuple[int, int], ...]
 @dataclasses.dataclass(frozen=True)
 class Tile:
     """A rank's part of a leaf: the whole ``shape`` and the ``box``
-    (``(start, stop)`` per dim) it holds."""
+    (``(start, stop)`` per dim) it holds; ``boxes``, where given, is every
+    rank's box in rank order."""
 
     shape: Tuple[int, ...]
     box: Box
+    boxes: Tuple[Box, ...] = ()
+
+    def firsts(self) -> Tuple[int, ...]:
+        """The lowest rank holding each distinct box, ascending: the ranks
+        whose partials a sum over the leaf counts."""
+        if not self.boxes:
+            raise ValueError(f"a tile of {self.shape} without every rank's box")
+        seen: Dict[Box, int] = {}
+        for r, b in enumerate(self.boxes):
+            seen.setdefault(b, r)
+        return tuple(sorted(seen.values()))
 
     @property
     def local_shape(self) -> Tuple[int, ...]:
@@ -94,6 +109,8 @@ _TILES: contextvars.ContextVar[Optional[Mapping[str, Tile]]] = contextvars.Conte
     "repro_mesh_tiles", default=None)
 _LEAF: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar("repro_mesh_leaf",
                                                                       default=None)
+_FIELD: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar("repro_mesh_field",
+                                                                       default=None)
 _SHARDS: contextvars.ContextVar[int] = contextvars.ContextVar("repro_batch_shards", default=1)
 
 
@@ -132,17 +149,39 @@ def leaf(path: str) -> Iterator[None]:
         _LEAF.reset(token)
 
 
+@contextlib.contextmanager
+def field(name: str) -> Iterator[None]:
+    """Within it, the tensor being (de)quantized is the current leaf's
+    state field ``name``: its own tile, where the map has one."""
+    token = _FIELD.set(name)
+    try:
+        yield
+    finally:
+        _FIELD.reset(token)
+
+
 def current_run() -> Optional[MeshRun]:
     return _RUN.get()
 
 
-def current_tile() -> Optional[Tile]:
-    """The current leaf's tile (``None`` off the mesh, or for a whole leaf)."""
-    tiles, path = _TILES.get(), _LEAF.get()
+def leaf_tile(path: Optional[str], name: Optional[str] = None) -> Optional[Tile]:
+    """The tile of ``path`` in the active map, or with ``name`` the tile of
+    that state field of it (``None`` where the map has none); ``None`` off
+    the mesh, and for a whole leaf."""
+    tiles = _TILES.get()
     if tiles is None or path is None:
         return None
-    tile = tiles.get(path)
+    tile = tiles.get(path if name is None else (path, name))
     return None if tile is None or tile.whole else tile
+
+
+def current_tile() -> Optional[Tile]:
+    """The current leaf's tile (``None`` off the mesh, or for a whole
+    leaf); within ``field(name)``, that field's own tile where it has one."""
+    tiles, path, name = _TILES.get(), _LEAF.get(), _FIELD.get()
+    if tiles is not None and name is not None and (path, name) in tiles:
+        return leaf_tile(path, name)
+    return leaf_tile(path)
 
 
 def tile_of(path: str) -> Tile:

@@ -32,9 +32,14 @@ of every fp32 moment, of the packed codes, and its part of the scales.
   on tiles of whole rows instead: its parameter, gradient and moments move
   there and back.
 
-Optimizers whose rules need whole-leaf statistics outside these paths
-(factored moments, SM3's accumulators, Shampoo's factor stacks) are refused
-by ``MeshStep``.
+Every optimizer of the repo runs here. A state leaf moves by its own
+shape and plan: SM3's accumulators and the factored moments are
+replicated and pass through (the rules read the tile's ranges of them and
+merge their new values over the ranks, ``core.optimizers.transform``);
+Shampoo's factor stacks are updated on ranges of whole blocks, those of
+the stacks' plan where it cuts dim 0, else ranges the step chooses (the
+greatest common divisor of the block count and the world size of equal
+ranges), each stack's tile in the context under ``(path, field)``.
 
 ``MeshStep.reckon`` walks the same code with no world (a ``MeshRun`` made
 for one rank of an ``{axis: size}`` mesh, ``meta`` parts, the collectives
@@ -60,7 +65,7 @@ from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.kernels import sr
 from repro_torch.sharding import context
 from repro_torch.sharding.context import MeshRun, Tile
-from repro_torch.sharding.rules import spec_for, with_zero
+from repro_torch.sharding.rules import P, spec_for, with_zero
 from repro_torch.sharding.specs import (
     batch_shardings,
     box_index,
@@ -70,7 +75,7 @@ from repro_torch.sharding.specs import (
     opt_state_shardings,
 )
 
-__all__ = ["MeshStep", "STATS", "check_state"]
+__all__ = ["MeshStep", "STATS"]
 
 Box = Tuple[Tuple[int, int], ...]
 
@@ -230,53 +235,101 @@ class MeshStep:
             self.param_plan[k] = with_zero(shape, spec, sizes, axes=axes[k]) if zero else spec
         self.boxes = {k: [local_box(self.param_plan[k], s, c, sizes) for c in run.coords]
                       for k, s in self.shapes.items()}
-        self.tiles = {k: Tile(s, self.boxes[k][run.rank]) for k, s in self.shapes.items()}
+        self.tiles = {k: Tile(s, self.boxes[k][run.rank], tuple(self.boxes[k]))
+                      for k, s in self.shapes.items()}
         # the update's layout: the parameter's tile, unless that cuts the B128
         # blocks of a leaf the fused kernel may take (it needs whole blocks
         # per tile row), or a packed byte of a 4-bit moment's codes; such a
         # leaf is updated on row tiles instead
-        packed = {k for k, v in _mirror_leaves(meta_state, self.shapes)
+        packed = {k for k, _, v in _mirror_leaves(meta_state, self.shapes)
                   if isinstance(v, QuantizedTensor) and v.config.bits == 4}
         self.work = {k: _block_rows(b, s, run.world)
                      if _cuts_blocks(b, s) or (k in packed and _splits_bytes(b, s)) else b
                      for (k, b), s in zip(self.boxes.items(), self.shapes.values())}
-        self.work_tiles = {k: Tile(s, self.work[k][run.rank]) for k, s in self.shapes.items()}
-        check_state(meta_state, self.shapes)
+        self.work_tiles: Dict[Any, Tile] = {k: Tile(s, self.work[k][run.rank], tuple(self.work[k]))
+                                            for k, s in self.shapes.items()}
         self.state_plan = opt_state_shardings(meta_state, meta_params, axes, sizes, zero)
         # (whole shape, partition) at every tensor of the state
         self.state_shapes = map_plan(lambda t, p: (tuple(t.shape), p), meta_state,
                                      self.state_plan)
+        # state leaves shaped otherwise (Shampoo's factor stacks): their own
+        # work boxes, ranges of whole blocks on dim 0, keyed (path, field)
+        self.stack_work = self._stack_work()
+        for (k, f), boxes in self.stack_work.items():
+            self.work_tiles[(k, f)] = Tile(_box_shape(boxes), boxes[run.rank], tuple(boxes))
         self._grads: Dict[str, torch.Tensor] = {}
         self._written: set = set()
+
+    def _stack_work(self) -> Dict[Tuple[str, str], List[Box]]:
+        """The block ranges of every state leaf whose shape is not its
+        parameter's: those of a stack of the leaf whose plan cuts dim 0,
+        else ``gcd(blocks, world)`` equal ranges (rank ``r`` takes range
+        ``r // (world / ranges)``)."""
+        stacks: Dict[str, Dict[str, Tuple[Tuple[int, ...], List[Box]]]] = {}
+        for k, f, sp in _mirror_leaves(self.state_shapes, self.shapes):
+            if isinstance(sp, QuantizedTensor):
+                shape, plan = tuple(sp.shape), self.plan_boxes(*sp.codes)
+            elif isinstance(sp, tuple) and len(sp) == 2 and isinstance(sp[1], P):
+                shape, plan = sp[0], self.plan_boxes(*sp)
+            else:  # factored moments, SM3's accumulator tuples: replicated
+                continue
+            if shape != self.shapes[k] and math.prod(shape) > 0:
+                stacks.setdefault(k, {})[f] = (shape, plan)
+        world, out = self.run.world, {}
+        for k, by_field in stacks.items():
+            nb = next(iter(by_field.values()))[0][0]
+            cut = [p for _, p in by_field.values() if any(b[0] != (0, nb) for b in p)]
+            if cut:
+                ranges = [b[0] for b in cut[0]]
+            else:
+                n = math.gcd(nb, world)
+                ranges = [((r // (world // n)) * (nb // n), (r // (world // n) + 1) * (nb // n))
+                          for r in range(world)]
+            for f, (shape, _) in by_field.items():
+                out[(k, f)] = [(rg,) + tuple((0, d) for d in shape[1:]) for rg in ranges]
+        return out
 
     # -- layouts ------------------------------------------------------------
 
     def plan_boxes(self, shape, spec) -> List[Box]:
         return [local_box(spec, shape, c, self.run.sizes) for c in self.run.coords]
 
-    def _convert(self, tree, sp, to_work: bool):
+    def _convert(self, tree, sp, to_work: bool, field: Optional[str] = None):
         if (isinstance(tree, dict) and tree and all(k in self.shapes for k in tree)
                 and all(isinstance(v, _LEAF_TYPES) for v in tree.values())):
-            return {k: self._convert_leaf(k, v, sp[k], to_work) for k, v in tree.items()}
+            return {k: self._convert_leaf(k, v, sp[k], to_work, field) for k, v in tree.items()}
         if isinstance(tree, ChainState):
             return ChainState(self._convert(s, p, to_work) for s, p in zip(tree.states, sp.states))
         if isinstance(tree, PartitionState):
             return PartitionState({k: self._convert(tree.states[k], sp.states[k], to_work)
                                    for k in tree.states}, tree.param_paths)
         if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-            return type(tree)(*(self._convert(s, p, to_work) for s, p in zip(tree, sp)))
+            return type(tree)(*(self._convert(s, p, to_work, f)
+                                for s, p, f in zip(tree, sp, tree._fields)))
         if isinstance(tree, dict):
-            return {k: self._convert(v, sp[k], to_work) for k, v in tree.items()}
+            return {k: self._convert(v, sp[k], to_work, field) for k, v in tree.items()}
         if isinstance(tree, (tuple, list)):
-            return type(tree)(self._convert(s, p, to_work) for s, p in zip(tree, sp))
+            return type(tree)(self._convert(s, p, to_work, field) for s, p in zip(tree, sp))
         return tree  # step counters and other replicated leaves
 
-    def _convert_leaf(self, k: str, v, sp, to_work: bool):
-        rank, work = self.run.rank, self.work[k]
+    def _convert_leaf(self, k: str, v, sp, to_work: bool, field: Optional[str]):
+        """One state leaf between its plan and the update's layout, by its
+        own shape: a parameter-shaped leaf on the parameter's work tile, a
+        factor stack on its block range; factored moments and empty
+        placeholders are replicated and pass through."""
+        if isinstance(v, FactoredMoment):
+            return v
+        rank = self.run.rank
+        whole = tuple(sp.shape) if isinstance(v, QuantizedTensor) else sp[0]
+        if whole == self.shapes[k]:
+            work, tile = self.work[k], self.work_tiles[k]
+        elif (k, field) in self.stack_work:
+            work, tile = self.stack_work[(k, field)], self.work_tiles[(k, field)]
+        else:
+            return v
         if isinstance(v, QuantizedTensor):
             cshape, cspec = sp.codes
-            cwork = ([_halve_last(b, self.shapes[k][-1]) for b in work] if v.config.bits == 4
-                     else work)
+            cwork = [_halve_last(b, whole[-1]) for b in work] if v.config.bits == 4 else work
             cplan = self.plan_boxes(cshape, cspec)
             src, dst = (cplan, cwork) if to_work else (cwork, cplan)
             codes = reshard(v.codes, cshape, src, dst, rank)
@@ -285,7 +338,7 @@ class MeshStep:
                 boxes = self.plan_boxes(sshape, sspec)
                 scales.append(gather(s, boxes, sshape) if to_work
                               else s[box_index(boxes[rank])].clone())
-            shape = self.work_tiles[k].local_shape if to_work else self.shapes[k]
+            shape = tile.local_shape if to_work else whole
             return QuantizedTensor(codes, tuple(scales), shape, v.config)
         shape, spec = sp
         plan = self.plan_boxes(shape, spec)
@@ -484,34 +537,29 @@ class MeshStep:
         return torch.sqrt(allp.sum(dim=0).sum())
 
 
-def _mirror_leaves(node, shapes: Mapping[str, Tuple[int, ...]]):
-    """``(path, leaf)`` of every subtree of a state that mirrors the params
-    (a ``{path: leaf}`` mapping over parameter paths)."""
+def _mirror_leaves(node, shapes: Mapping[str, Tuple[int, ...]], field: Optional[str] = None):
+    """``(path, field, leaf)`` of every subtree of a state that mirrors the
+    params (a ``{path: leaf}`` mapping over parameter paths; ``field`` the
+    name of the nearest named field above it)."""
     if isinstance(node, dict) and node and all(k in shapes for k in node):
-        yield from node.items()
+        for k, v in node.items():
+            yield k, field, v
         return
     if isinstance(node, ChainState):
         node = node.states
     elif isinstance(node, PartitionState):
         node = list(node.states.values())
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f, v in zip(node._fields, node):
+            yield from _mirror_leaves(v, shapes, f)
+        return
     if isinstance(node, dict):
         node = list(node.values())
     if isinstance(node, (tuple, list)):
         for v in node:
-            yield from _mirror_leaves(v, shapes)
+            yield from _mirror_leaves(v, shapes, field)
 
 
-def check_state(meta_state, shapes: Mapping[str, Tuple[int, ...]]) -> None:
-    """Refuse a state whose rules need whole-leaf statistics the tile update
-    does not merge."""
-
-    def bad(what):
-        raise ValueError(f"mesh train step: {what}; the tile update covers raw moments and "
-                         "4-bit/8-bit blockwise, rank-1 and per-tensor quantized moments "
-                         "(ROADMAP queue A: the other optimizers' rules on a mesh)")
-
-    for k, v in _mirror_leaves(meta_state, shapes):
-        if isinstance(v, FactoredMoment):
-            bad(f"{k} has a factored moment")
-        if not isinstance(v, _LEAF_TYPES) or tuple(v.shape) != shapes[k]:
-            bad(f"{k} has a state leaf that is not shaped like the parameter")
+def _box_shape(boxes: List[Box]) -> Tuple[int, ...]:
+    """The whole shape that boxes starting at 0 cover."""
+    return tuple(max(b[d][1] for b in boxes) for d in range(len(boxes[0])))

@@ -43,6 +43,7 @@ from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.models import init_model, named_params  # noqa: E402
 from repro_torch.serve import weight_report  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -68,7 +69,7 @@ def _bits(a):
 
 
 def _jparams(arch):
-    return jax.jit(lambda k: j_init(k, j_reduced(arch))[0])(jax.random.PRNGKey(0))
+    return ref_params(j_reduced(arch))
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

@@ -28,7 +28,6 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.models import decode_step as j_decode_step  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
 from repro.models import init_serve_cache as j_init_serve_cache  # noqa: E402
 from repro.models import prefill_with_cache as j_prefill_with_cache  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
@@ -47,6 +46,7 @@ from repro_torch.serve import (  # noqa: E402
     prepare_params,
     weight_report,
 )
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -57,7 +57,7 @@ PROMPTS = [[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22], 
 
 
 def _params(arch):
-    jparams = jax.jit(lambda k: j_init(k, j_reduced(arch))[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(j_reduced(arch))
     return jparams, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
 
 

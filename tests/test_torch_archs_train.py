@@ -28,7 +28,6 @@ from repro.core.optimizers.presets import production_labels as j_labels  # noqa:
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
 from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
 from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
 from repro.train.train_loop import build_train_step as j_build  # noqa: E402
 from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
@@ -41,6 +40,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.models import init_model, named_params  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -48,7 +48,7 @@ NEW_ARCHS = ["qwen3-4b", "chatglm3-6b", "gemma2-2b"]
 
 
 def _jparams(arch):
-    return jax.jit(lambda k: j_init(k, j_reduced(arch))[0])(jax.random.PRNGKey(0))
+    return ref_params(j_reduced(arch))
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

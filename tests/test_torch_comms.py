@@ -15,6 +15,10 @@ reference's ``repro.comms``: the single-process cases of
   gradient norms within 5e-3 (the tolerances of ``test_torch_train.py``;
   the bf16 products round at other places, which can move a transport
   code); the CLI's wire line and both SR warnings; a mesh refused.
+
+``CommsConfig``, the accounting and ``reduce_grads``' threshold and RTN
+cases are in ``tests/test_torch_mesh_comms.py`` (pytest-xdist's ``--dist
+loadfile`` hands out the files with the most tests first).
 """
 
 import numpy as np
@@ -39,13 +43,8 @@ from repro.models import init_model as j_init  # noqa: E402
 from repro.train.train_loop import build_train_step as j_build  # noqa: E402
 from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
 from repro_torch.comms import (  # noqa: E402
-    GRAD_COMM_KEY_DOMAIN,
-    GRAD_COMM_MODES,
     CommsConfig,
-    format_wire_table,
     grad_comm_key,
-    leaf_wire_bytes,
-    mode_totals,
     quantized_all_reduce,
     reduce_grads,
     wire_report,
@@ -58,7 +57,7 @@ from repro_torch.core.quantizer import dequantize, quantize  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.models import LayerSpec, ModelConfig, init_model, named_params  # noqa: E402
+from repro_torch.models import init_model, named_params  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
 
 torch.set_num_threads(1)
@@ -89,84 +88,9 @@ def _bits(x):
 # ---------------------------------------------------------------------------
 
 
-def test_commsconfig_parse_and_properties():
-    cfg = CommsConfig.parse("INT4")
-    assert cfg.mode == "int4" and cfg.bits == 4 and cfg.quantized
-    assert cfg.compresses and cfg.cast_dtype is None
-    q = cfg.quant_config()
-    assert q.bits == 4 and q.signed and q.normalization == "blockwise"
-    assert q.block_size == 128 and q.stochastic_rounding
-    assert cfg.name == JCommsConfig.parse("INT4").name == "int4/B128/DE+SR"
-    bf16 = CommsConfig(mode="bf16")
-    assert not bf16.quantized and bf16.compresses
-    assert bf16.cast_dtype == torch.bfloat16 and bf16.quant_config() is None
-    fp32 = CommsConfig()
-    assert not fp32.compresses and fp32.quant_config() is None
-    assert GRAD_COMM_MODES == ("fp32", "bf16", "int8", "int4")
-    assert GRAD_COMM_KEY_DOMAIN == 0x67726164
-    with pytest.raises(ValueError, match="unknown grad-comm mode"):
-        CommsConfig(mode="int2")
-
-
-def test_commsconfig_validates_mapping():
-    from repro_torch.core import mappings
-
-    with pytest.raises(ValueError, match="registered mappings"):
-        CommsConfig(mode="int4", mapping="ed")
-    for name in mappings.registered():
-        assert CommsConfig(mode="int4", mapping=name).quant_config().mapping == name
-
-
-def test_grad_dtype_knob_is_gone():
-    model = init_model(reduced_config("internlm2-1.8b"), device="cpu")
-    with pytest.raises(TypeError):
-        build_train_step(model, make_optimizer("adamw32", 1e-3), grad_dtype=torch.bfloat16)
-
-
 # ---------------------------------------------------------------------------
 # accounting
 # ---------------------------------------------------------------------------
-
-
-def test_leaf_wire_bytes_matches_real_payload():
-    cfg = CommsConfig(mode="int4")
-    g = _grads()["embed"]
-    fp32, wire = leaf_wire_bytes(tuple(g.shape), cfg)
-    assert fp32 == g.numel() * 4
-    assert wire == quantize(g, cfg.quant_config()).nbytes()
-    assert leaf_wire_bytes((64,), cfg) == (256, 256)
-    assert leaf_wire_bytes((64,), CommsConfig(mode="bf16")) == (256, 128)
-
-
-def test_wire_report_ratios_and_floor():
-    grads = _grads()
-    reports = {r["mode"]: r for r in mode_totals(grads)}
-    assert reports["fp32"]["ratio_vs_fp32"] == 1.0
-    assert reports["bf16"]["ratio_vs_fp32"] == pytest.approx(2.0)
-    assert reports["int8"]["ratio_vs_fp32"] > 3.5
-    assert reports["int4"]["ratio_vs_fp32"] >= 4.0
-    for mode in GRAD_COMM_MODES:
-        j = j_wire_report(_jgrads(), JCommsConfig(mode=mode))
-        t = reports[mode]
-        for key in ("name", "n_leaves", "quantized_leaves", "total_fp32_bytes",
-                    "total_wire_bytes", "ratio_vs_fp32"):
-            assert t[key] == j[key], (mode, key)
-        assert [(r["path"], r["wire_bytes"]) for r in t["leaves"]] == \
-            [(r["path"], r["wire_bytes"]) for r in j["leaves"]]
-    r = reports["int4"]
-    assert r["quantized_leaves"] == 2 and r["n_leaves"] == 3
-    assert sum(row["wire_bytes"] for row in r["leaves"]) == r["total_wire_bytes"]
-    table = format_wire_table(mode_totals(grads), title="t")
-    assert "int4" in table and "| grad-comm |" in table
-
-
-def test_wire_report_gpt2m():
-    cfg = ModelConfig(name="gpt2m-like", num_layers=24, d_model=1024, num_heads=16,
-                      num_kv_heads=16, head_dim=64, d_ff=4096, vocab_size=50257,
-                      blocks=(LayerSpec("dense", 0),) * 24, gated_mlp=False)
-    r = wire_report(named_params(init_model(cfg, device="meta")), CommsConfig(mode="int4"))
-    assert r["total_wire_bytes"] == 215_142_464 and r["total_fp32_bytes"] == 1_619_865_600
-    assert r["ratio_vs_fp32"] >= 4.0
 
 
 @pytest.mark.parametrize("mode,wire,quantized", [
@@ -198,26 +122,6 @@ def test_reduce_grads_fp32_and_bf16_modes():
     for k in grads:
         assert out[k].dtype == torch.bfloat16
         np.testing.assert_array_equal(_bits(out[k]), _bits(jout[k]))
-
-
-def test_reduce_grads_quantized_threshold_and_error():
-    grads = _grads()
-    key = grad_comm_key(sr.PRNGKey(0), 0)
-    out = reduce_grads(grads, None, None, CommsConfig(mode="int4"), key=key)
-    assert torch.equal(out["bias"], grads["bias"])  # sub-threshold: untouched, fp32
-    for k in ("embed", "w"):
-        g, d = grads[k], (out[k] - grads[k]).abs()
-        assert float(d.max()) <= float(g.abs().max())
-        assert float(d.mean()) < 0.2 * float(g.abs().mean())
-        assert not torch.equal(out[k], g)
-
-
-def test_reduce_grads_rtn_without_key_is_deterministic():
-    cfg = CommsConfig(mode="int4")
-    a = reduce_grads(_grads(), None, None, cfg, key=None)
-    b = reduce_grads(_grads(), None, None, cfg, key=None)
-    for k in a:
-        assert torch.equal(a[k], b[k])
 
 
 def test_grad_comm_key_stream():

@@ -609,8 +609,10 @@ def test_new_optimizers_on_card_match_cpu(cuda, name, ov):
     CPU: float state leaves and params within 1e-5 of the leaf's largest
     magnitude (cuBLAS and the reductions sum in other orders; torch's CPU
     sqrt is not correctly rounded), Shampoo's inverse roots within 1e-4
-    (cuSOLVER's fp32 eigh against LAPACK's: 2.9e-5 measured on an H100 80GB
-    HBM3 at 700 W), 4-bit codes agreeing at 99% or more."""
+    (2.9e-5 measured on an H100 80GB HBM3 at 700 W when the card's roots
+    came from cuSOLVER's fp32 eigh; the card's batches now go through the
+    host's LAPACK, ``transform.host_eigh``), 4-bit codes agreeing at 99% or
+    more."""
     from repro_torch.core.optimizers import make_optimizer
     from repro_torch.io.tree import flatten_with_keys
 

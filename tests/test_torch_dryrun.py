@@ -14,10 +14,9 @@
   ``addressable_shards`` on the 8-device harness.
 * ``run_all`` over xlstm-125m and internlm2-1.8b on the single-pod plan
   writes 8 records (1 skipped, none in error) and a second call adds none;
-  the CLI prints one record.
+  the CLI prints one record (``tests/test_torch_dryrun_all.py``, a file of
+  its own: the longest test of the port's files).
 """
-
-import json
 
 import pytest
 
@@ -139,7 +138,7 @@ def test_param_bytes_equal_reference_rules(mesh_kind):
     assert every == {dryrun.memory_record(cfg, shape, mesh)["memory"]["param_bytes"]}
 
 
-@pytest.mark.parametrize("opt_name", ["adamw4bit", "production4bit"])
+@pytest.mark.parametrize("opt_name", ["adamw4bit", "production4bit", "factor4bit", "shampoo4bit"])
 def test_state_bytes_equal_reference_addressable_shards(opt_name):
     arch = "internlm2-1.8b"
     out = {}
@@ -169,31 +168,12 @@ def test_state_bytes_equal_reference_addressable_shards(opt_name):
 
 def test_refusals_carry_the_mesh_steps_message():
     shape = ShapeSpec("small", 32, 8, "train")
+    # an optimizer whose rules need whole-leaf statistics is no refusal
     rec = dryrun.dry_run(reduced_config("internlm2-1.8b"), shape, {"data": 2, "model": 1},
                          "sm3", accum_steps=1)
-    assert rec["status"] == "refused" and "mesh train step" in rec["reason"]
+    assert rec["status"] == "ok"
     # 8 x 16 tokens of reduced phi3.5 (groups of 64) split over 4 data shards
     rec = dryrun.dry_run(reduced_config("phi3.5-moe-42b-a6.6b"), ShapeSpec("small", 16, 8,
                                                                          "train"),
                          {"data": 4, "model": 1}, accum_steps=1)
     assert rec["status"] == "refused" and "does not hold whole groups" in rec["reason"]
-
-
-def test_run_all_is_resumable_and_the_cli_prints_a_record(tmp_path, capsys):
-    out = str(tmp_path / "d.json")
-    archs = ["xlstm-125m", "internlm2-1.8b"]
-    recs = dryrun.run_all(out, meshes=("single",), archs=archs)
-    assert len(recs) == 8
-    status = [r["status"] for r in recs]
-    assert status.count("skipped") == 1 and "error" not in status, recs
-    assert [r for r in recs if r["status"] == "skipped"][0]["arch"] == "internlm2-1.8b"
-    with open(out) as f:
-        assert json.load(f) == json.loads(json.dumps(recs))
-    assert dryrun.run_all(out, meshes=("single",), archs=archs) == json.loads(json.dumps(recs))
-    capsys.readouterr()
-    dryrun.main(["--arch", "internlm2-1.8b", "--shape", "train_4k", "--mesh", "single"])
-    rec = json.loads(capsys.readouterr().out)
-    assert (rec["arch"], rec["shape"], rec["mesh"], rec["status"]) == (
-        "internlm2-1.8b", "train_4k", "single", "ok")
-    train = [r for r in recs if (r["arch"], r["shape"]) == ("internlm2-1.8b", "train_4k")][0]
-    assert rec["memory"] == train["memory"] and rec["roofline"] == train["roofline"]

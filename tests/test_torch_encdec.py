@@ -76,6 +76,7 @@ from repro_torch.models.layers import (  # noqa: E402
     sinusoidal_at,
     sinusoidal_positions,
 )
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -196,7 +197,7 @@ def test_init_constants_match_reference():
 
 def test_loss_and_grads_match_reference():
     jcfg, cfg = j_reduced(WHISPER), reduced_config(WHISPER)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     b = encdec_batch(cfg, 1, B=2, S=16, Se=24)
     (jl, _), jg = jax.jit(jax.value_and_grad(lambda p: j_loss_fn(p, jcfg, b), has_aux=True))(
@@ -241,7 +242,7 @@ def _configs(case):
 @pytest.mark.parametrize("case", ["test_models", "reduced"])
 def test_decode_matches_teacher_forced(case):
     jcfg, cfg = _configs(case)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     B, S, Se = 2, 10, 16
     b = encdec_batch(cfg, 3, B=B, S=S, Se=Se)

@@ -24,6 +24,12 @@ of its one-process save. Held to:
 (e) the protocol: rank 1 dies at the ``ckpt_written`` seam, so no COMMIT
     lands, every rank's ``wait()`` raises and ``latest_step`` falls back;
     process 0 repairs an interrupted re-save while the others wait;
+(g) shampoo4bit with SR and factor4bit on (2, 1) (a world of 2 ranks of
+    its own): replicated scales and factored moments (written once, by the
+    lowest holder), factor stacks ZeRO-cut into ranges of whole blocks and
+    SR-drawn codes; saved there after two mesh updates, restored on (1, 2)
+    in the same ranks and here in one process, every leaf bit-equal to the
+    saved state;
 (f) the CLI (``--reduced --device cpu``): ``--mesh 2x1 --ckpt-every 2
     --steps 4`` run whole, its step-4 save then stripped of COMMIT (a run
     killed before it committed), and the same command again resumes from
@@ -53,12 +59,13 @@ from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
 from repro.io import restore_checkpoint as j_restore  # noqa: E402
 from repro.io import save_checkpoint as j_save  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
 from repro.train.train_loop import TrainState as JTrainState  # noqa: E402
 from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
 from repro.train.train_loop import train_state_shardings as j_shardings  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
-from repro_torch.core.optimizers import make_optimizer  # noqa: E402
+from repro_torch.core.optimizers import FactoredMoment, make_optimizer  # noqa: E402
+from repro_torch.core.optimizers.base import _leaves  # noqa: E402
+from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.io import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.io import format as ckfmt  # noqa: E402
 from repro_torch.io.tree import flatten_with_keys, plan_of  # noqa: E402
@@ -68,6 +75,7 @@ from repro_torch.launch.train import abstract_train_state  # noqa: E402
 from repro_torch.models import param_axes  # noqa: E402
 from repro_torch.sharding.specs import local_box, local_slice, mesh_coords  # noqa: E402
 from repro_torch.train.train_loop import train_state_shardings  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 from test_torch_io import assert_leaves_equal, jax_leaves, port_leaves  # noqa: E402
 from test_torch_mesh import _ref_axes, _torch_leaves  # noqa: E402
 
@@ -78,6 +86,8 @@ ARCH, OPT, LR, SEED, STEP = "internlm2-1.8b", "production4bit", 3e-3, 5, 2
 CLI = ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
        "--optimizer", OPT, "--sr-seed", "0", "--steps", "4", "--ckpt-every", "2", "--digests"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (g): the states of rules that need whole-leaf statistics
+MESH_CKPT_OPTIMIZERS = (("shampoo4bit", {"stochastic_rounding": True}), ("factor4bit", {}))
 
 
 def _cli(args, run_dir):
@@ -98,7 +108,7 @@ def _finish(proc, run_dir):
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
     return {k: str(tmp_path_factory.mktemp(k)) for k in (
-        "one", "mesh24", "port22", "protocol", "world", "cli", "port1")}
+        "one", "mesh24", "port22", "protocol", "world", "cli", "port1", "shampoo", "world2")}
 
 
 @pytest.fixture(scope="module")
@@ -127,10 +137,16 @@ def started(paths, grads):
                      "repair_delay": 0.5},
     }
     world = worker.start(4, tasks, paths["world"])
+    two_steps = [grads, {k: -0.5 * v for k, v in grads.items()}]
+    shampoo = worker.start(2, {name: {
+        "kind": "mesh_ckpt", "arch": ARCH, "optimizer": name, "lr": LR, "overrides": ov,
+        "sr_seed": SEED, "dst": os.path.join(paths["shampoo"], name), "grads": two_steps}
+        for name, ov in MESH_CKPT_OPTIMIZERS}, paths["world2"])
     cli_dir = os.path.join(paths["cli"], "ckpt")
     whole = _cli(["--mesh", "2x1", "--ckpt-dir", cli_dir, *CLI],
                  os.path.join(paths["cli"], "run_whole"))
-    return {"world": world, "whole": whole, "ready": ready, "cli_dir": cli_dir}
+    return {"world": world, "whole": whole, "ready": ready, "cli_dir": cli_dir,
+            "shampoo": shampoo}
 
 
 @pytest.fixture(scope="module")
@@ -139,7 +155,7 @@ def reference(paths, started):
     mesh (the world's inputs), and its axes."""
     cfg = j_reduced(ARCH)
     opt = j_make(OPT, LR)
-    params = jax.jit(lambda k: j_init(k, cfg)[0])(jax.random.PRNGKey(0))
+    params = ref_params(cfg)
     state = jax.jit(lambda p, k: j_make_state(p, opt, key=k))(params, jax.random.PRNGKey(SEED))
     update = jax.jit(opt.update)
     rng = np.random.default_rng(7)
@@ -190,8 +206,10 @@ def results(started, one_process):
 
 def _plan(sizes):
     """(whole port state's keys -> partition, coordinates) under ``sizes``."""
-    cfg = reduced_config(ARCH)
-    opt = make_optimizer(OPT, LR)
+    return _plan_of(reduced_config(ARCH), make_optimizer(OPT, LR), sizes)
+
+
+def _plan_of(cfg, opt, sizes):
     _, whole = abstract_train_state(cfg, opt, key=sr.PRNGKey(SEED))
     parts = plan_of(whole, train_state_shardings(whole, param_axes(cfg), sizes))
     return {k: parts.get(id(v)) for k, v in flatten_with_keys(whole)}, mesh_coords(sizes)
@@ -314,6 +332,52 @@ def test_repair_by_process_0_while_others_wait(results):
     assert all(r["repaired_latest"] == 1 for r in res)
     for r in res[1:]:
         assert r["return_t"] >= res[0]["scan_t"]
+
+
+@pytest.fixture(scope="module")
+def mesh_ckpts(started, results):
+    ranks = worker.collect(started["shampoo"])
+    return {name: [r[name] for r in ranks] for name, _ in MESH_CKPT_OPTIMIZERS}
+
+
+def _state_tensors(state):
+    """Every tensor of a state, in order (a factored moment's row and col)."""
+    out = []
+    for leaf in _leaves(state):
+        out += ([leaf.codes, *leaf.scales] if isinstance(leaf, QuantizedTensor)
+                else [leaf.row, leaf.col] if isinstance(leaf, FactoredMoment) else [leaf])
+    return out
+
+
+@pytest.mark.parametrize("name,ov", MESH_CKPT_OPTIMIZERS, ids=["shampoo4bit_sr", "factor4bit"])
+def test_whole_leaf_rules_mesh_save_restores_on_another_layout_and_one_process(
+        name, ov, paths, mesh_ckpts):
+    """(g)"""
+    ranks = mesh_ckpts[name]
+    saved = ranks[0]["saved"]
+    want = _state_tensors(saved["opt_state"])
+    assert want
+    for r in ranks:  # every rank gathers the same whole states
+        for what in ("saved", "restored"):
+            got = _state_tensors(r[what]["opt_state"])
+            assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+            for k, p in r[what]["params"].items():
+                assert torch.equal(p, saved["params"][k]), (what, k)
+    assert ranks[0]["restored"]["step"] == 2
+    cfg, opt = reduced_config(ARCH), make_optimizer(name, LR, **ov)
+    specs, _ = _plan_of(cfg, opt, {"data": 2, "model": 1})
+    if name == "shampoo4bit":  # the stacks are cut over data: a whole stack is no rank's part
+        assert any("stats_l" in k and specs[k] is not None and any(specs[k]) for k in specs)
+    else:  # the factored moments are replicated: written once, by rank 0
+        assert any(".row" in k and specs[k] is not None and not any(specs[k]) for k in specs)
+    _, target = abstract_train_state(cfg, opt, key=sr.PRNGKey(SEED), device="cpu")
+    one, _ = restore_checkpoint(os.path.join(paths["shampoo"], name), target, device="cpu")
+    got = _state_tensors(one.opt_state)
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    for k, p in one.params.items():
+        assert torch.equal(p.detach(), saved["params"][k]), k
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,9 @@ SR, the reference's params and its gradients of two batches. Held to:
 * each rank holds only its plan's tiles (shapes) and its plan's state bytes;
 * a MoE arch (reduced phi3.5-moe, (2, 1)) forms its token groups over the
   global batch: losses and aux within 1e-5 of one process.
+
+Also here: the logical-axes tree of all 10 archs against the
+reference's (``tests/test_torch_sharding.py``'s ``_ref_axes``).
 """
 
 import numpy as np
@@ -29,26 +32,29 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-import torch_mesh_worker as worker  # noqa: E402
 from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
 from repro.core.quantizer import QuantizedTensor as JQ  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
-from repro.models import loss_fn as j_loss  # noqa: E402
-from repro.train.train_loop import build_train_step as j_build  # noqa: E402
-from repro.train.train_loop import jit_train_step as j_jit  # noqa: E402
+from repro.models import init_model as j_init, loss_fn as j_loss  # noqa: E402
 from repro.sharding import batch_shardings as j_batch_shardings  # noqa: E402
-from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
-from repro.train.train_loop import train_state_shardings as j_state_shardings  # noqa: E402
-from repro_torch.configs import reduced_config  # noqa: E402
+from repro.train.train_loop import (  # noqa: E402
+    build_train_step as j_build,
+    jit_train_step as j_jit,
+    make_train_state as j_make_state,
+    train_state_shardings as j_state_shardings,
+)
+from repro_torch.configs import ARCHS, reduced_config  # noqa: E402
 from repro_torch.convert import load_params, params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer  # noqa: E402
 from repro_torch.core.optimizers.base import _leaves  # noqa: E402
 from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
-from repro_torch.models import Transformer, init_model, named_params  # noqa: E402
+from repro_torch.models import init_model, named_params, param_axes, Transformer  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
+from test_torch_sharding import _ref_axes as _ref_axes_of_arch  # noqa: E402
+import torch_mesh_worker as worker  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 ARCH, LR, SEED = "internlm2-1.8b", 1e-3, 0
 
@@ -63,7 +69,7 @@ def inputs():
     """The reference's params (jitted init) and gradients of two batches at
     them: what every run below is fed."""
     cfg = j_reduced(ARCH)
-    p = jax.jit(lambda k: j_init(k, cfg)[0])(jax.random.PRNGKey(0))
+    p = ref_params(cfg)
     data = SyntheticLM(DataConfig(cfg.vocab_size, 32, 8))
     batches = [data.batch_at(t) for t in range(2)]
     grad_fn = jax.jit(jax.grad(lambda p, b: j_loss(p, cfg, b)[0]))
@@ -252,3 +258,8 @@ def test_mesh_step_losses_and_rank_layout(mesh, results, reference, one_process,
     whole = sum(v.nbytes for v in inputs["params0"].values())
     held = sum(int(np.prod(s)) * 4 for s in ranks[0]["tile_shapes"].values())
     assert held < whole  # a part, not the whole
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_param_axes_equal_reference(arch):
+    assert param_axes(reduced_config(arch)) == _ref_axes_of_arch(arch)

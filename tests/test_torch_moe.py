@@ -64,6 +64,7 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.models.layers import COMPUTE_DTYPE  # noqa: E402
 from repro_torch.models.moe import moe_apply, moe_capacity, moe_route  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -206,7 +207,7 @@ def test_moe_decode_matches_teacher_forced():
                   moe_group_size=64)
     jcfg = JModelConfig(blocks=(JLayerSpec("moe", 0),) * 2, remat=False, **common)
     cfg = ModelConfig(blocks=(LayerSpec("moe", 0),) * 2, **common)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     B, S = 2, 12
     tokens = np.array(jax.random.randint(jax.random.PRNGKey(1), (B, S), 0, 128))
@@ -353,7 +354,7 @@ def test_prefill_part_filled_wave_matches_reference(arch):
     tokens, one group, so padding and empty rows take expert slots beside
     the real tokens as in the reference."""
     jcfg, cfg = j_reduced(arch), reduced_config(arch)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     rng = np.random.default_rng(2)
     B, S = 4, 16

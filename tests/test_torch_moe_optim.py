@@ -17,6 +17,9 @@ bit.)
 * production4bit state bytes and q4 / bf16 serving weight bytes on the
   ``meta`` device against the reference's ``eval_shape`` counts, at full
   depth and at the depths the card runs (``chip_smoke.py``).
+
+The structural byte counts are in ``tests/test_torch_moe_train.py``
+(pytest-xdist's ``--dist loadfile`` hands out the files with the most tests first).
 """
 
 import dataclasses
@@ -36,7 +39,6 @@ from repro.core.optimizers import optimizer_names as j_optimizer_names  # noqa: 
 from repro.core.optimizers import state_nbytes as j_state_nbytes  # noqa: E402
 from repro.core.optimizers.presets import production_labels as j_labels  # noqa: E402
 from repro.models import init_model as j_init  # noqa: E402
-from repro.serve import weight_report as j_weight_report  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer, state_nbytes  # noqa: E402
@@ -45,7 +47,7 @@ from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.io.tree import flatten_with_keys, structure_repr  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.models import init_model, named_params  # noqa: E402
-from repro_torch.serve import weight_report  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -74,7 +76,7 @@ def test_optimizer_state_layout_on_reduced_phi35(name):
     """Two steps of the port from the reference's params; the state layout
     and bytes against the reference's after two updates."""
     arch = "phi3.5-moe-42b-a6.6b"
-    jparams = jax.jit(lambda k: j_init(k, j_reduced(arch))[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(j_reduced(arch))
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     opt = make_optimizer(name, 1e-3)
     ts = opt.init(tparams)
@@ -154,21 +156,3 @@ BYTES = {
         12: (20_057_643_864, 9_391_127_552, 35_354_787_840),
     },
 }
-
-
-@pytest.mark.parametrize("arch,layers", [(a, L) for a, rows in BYTES.items() for L in rows])
-def test_structural_bytes_match_reference(arch, layers):
-    jparams = jax.eval_shape(lambda k: j_init(k, _cut(j_get_config(arch), layers))[0],
-                             jax.random.PRNGKey(0))
-    jbytes = j_state_nbytes(jax.eval_shape(lambda: j_make("production4bit", 1e-3).init(jparams)))
-    params = named_params(init_model(_cut(get_config(arch), layers), device="meta"))
-    mine = state_nbytes(make_optimizer("production4bit", 1e-3).init(params))
-    state_bytes, q4_bytes, bf16_bytes = BYTES[arch][layers]
-    assert mine == jbytes == state_bytes
-    for mode, want in (("q4", q4_bytes), ("bf16", bf16_bytes)):
-        t, j = weight_report(params, mode), j_weight_report(jparams, mode)
-        assert t["total_serve_bytes"] == j["total_serve_bytes"] == want, mode
-        assert [(r["path"], r["serve_bytes"]) for r in t["leaves"]] == \
-            [(r["path"], r["serve_bytes"]) for r in j["leaves"]], mode
-        if mode == "q4":
-            assert (t["quantized_leaves"], t["n_leaves"]) == (12, 13)

@@ -16,7 +16,12 @@ mixtral-8x7b) against the JAX reference, on the CPU.
   ``tests/test_torch_moe.py``: an expert choice may part at a bf16 near
   tie), aux losses within 1e-3.
 * The training and q4 serving CLIs at CPU scale for each arch.
+
+Also here: the structural byte counts of both MoE archs
+(``tests/test_torch_moe_optim.py``'s cuts).
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -26,29 +31,39 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import reduced_config as j_reduced  # noqa: E402
-from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
+from repro.configs import get_config as j_get_config, reduced_config as j_reduced  # noqa: E402
+from repro.core.optimizers import (  # noqa: E402
+    make_optimizer as j_make,
+    state_nbytes as j_state_nbytes,
+)
 from repro.core.optimizers.presets import production_labels as j_labels  # noqa: E402
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
 from repro.core.quantizer import QuantizedTensor as JQ  # noqa: E402
-from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
-from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
-from repro.models import LayerSpec as JLayerSpec  # noqa: E402
-from repro.models import ModelConfig as JModelConfig  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
-from repro.train.train_loop import build_train_step as j_build  # noqa: E402
-from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
-from repro_torch.configs import reduced_config  # noqa: E402
+from repro.data.pipeline import DataConfig as JDataConfig, SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.models import (  # noqa: E402
+    init_model as j_init,
+    LayerSpec as JLayerSpec,
+    ModelConfig as JModelConfig,
+)
+from repro.serve import weight_report as j_weight_report  # noqa: E402
+from repro.train.train_loop import (  # noqa: E402
+    build_train_step as j_build,
+    make_train_state as j_make_state,
+)
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import load_params, params_from_jax  # noqa: E402
-from repro_torch.core.optimizers import make_optimizer  # noqa: E402
+from repro_torch.core.optimizers import make_optimizer, state_nbytes  # noqa: E402
 from repro_torch.core.optimizers.base import _leaves  # noqa: E402
 from repro_torch.core.optimizers.presets import production_labels  # noqa: E402
 from repro_torch.core.optimizers.schedule import linear_warmup_linear_decay  # noqa: E402
 from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
-from repro_torch.models import init_model  # noqa: E402
+from repro_torch.models import init_model, named_params  # noqa: E402
+from repro_torch.serve import weight_report  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
+from test_torch_moe_optim import _cut, BYTES  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -87,20 +102,31 @@ def test_production4bit_sr_updates_bit_equal():
     experts = 16
     jcfg = _mini(experts)
     jparams = jax.tree_util.tree_map(
-        np.asarray, jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0)))
+        np.asarray, ref_params(jcfg))
     tparams = params_from_jax(jparams, device="cpu")
-    jopt = j_make("production4bit", j_sched(1e-3, 1, 10))
-    topt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, 10))
-    jp = jax.tree_util.tree_map(jnp.asarray, jparams)
-    js, ts = jopt.init(jp), topt.init(tparams)
     rng = np.random.default_rng(1)
-    for step in range(3):
-        grads = jax.tree_util.tree_map(
-            lambda p: (rng.normal(size=p.shape) * 1e-2).astype(np.float32), jparams)
-        jp, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, grads), js, jp,
-                             key=jax.random.fold_in(jax.random.PRNGKey(3), step))
-        tparams, ts = topt.update(params_from_jax(grads, device="cpu"), ts, tparams,
-                                  key=sr.fold_in(sr.PRNGKey(3), step))
+    grads = [jax.tree_util.tree_map(
+        lambda p: (rng.normal(size=p.shape) * 1e-2).astype(np.float32), jparams)
+        for _ in range(3)]
+
+    def reference():
+        jopt = j_make("production4bit", j_sched(1e-3, 1, 10))
+        jp = jax.tree_util.tree_map(jnp.asarray, jparams)
+        js = jopt.init(jp)
+        for step, g in enumerate(grads):
+            jp, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp,
+                                 key=jax.random.fold_in(jax.random.PRNGKey(3), step))
+        return jp, js
+
+    # the reference's eager steps (compiles, outside the GIL) beside the port's
+    with ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(reference)
+        topt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, 10))
+        ts = topt.init(tparams)
+        for step, g in enumerate(grads):
+            tparams, ts = topt.update(params_from_jax(g, device="cpu"), ts, tparams,
+                                      key=sr.fold_in(sr.PRNGKey(3), step))
+        jp, js = ref.result()
     jl, tl = _jax_leaves(js), _torch_leaves(ts)
     assert len(jl) == len(tl)
     for i, (a, b) in enumerate(zip(tl, jl)):
@@ -127,7 +153,7 @@ def test_production4bit_sr_updates_bit_equal():
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_train_steps_match_reference(arch):
     jcfg = j_reduced(arch)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = init_model(reduced_config(arch), device="cpu")
     load_params(model, params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                                        device="cpu"))
@@ -163,3 +189,21 @@ def test_cli_cpu_reduced_runs(arch, capsys):
                       "--requests", "3", "--max-new-tokens", "4"])
     assert res["weight_report"]["quantized_leaves"] == 9  # reduced: the router stays fp32
     assert all(r.done and len(r.output) == 4 for r in res["requests"])
+
+
+@pytest.mark.parametrize("arch,layers", [(a, L) for a, rows in BYTES.items() for L in rows])
+def test_structural_bytes_match_reference(arch, layers):
+    jparams = jax.eval_shape(lambda k: j_init(k, _cut(j_get_config(arch), layers))[0],
+                             jax.random.PRNGKey(0))
+    jbytes = j_state_nbytes(jax.eval_shape(lambda: j_make("production4bit", 1e-3).init(jparams)))
+    params = named_params(init_model(_cut(get_config(arch), layers), device="meta"))
+    mine = state_nbytes(make_optimizer("production4bit", 1e-3).init(params))
+    state_bytes, q4_bytes, bf16_bytes = BYTES[arch][layers]
+    assert mine == jbytes == state_bytes
+    for mode, want in (("q4", q4_bytes), ("bf16", bf16_bytes)):
+        t, j = weight_report(params, mode), j_weight_report(jparams, mode)
+        assert t["total_serve_bytes"] == j["total_serve_bytes"] == want, mode
+        assert [(r["path"], r["serve_bytes"]) for r in t["leaves"]] == \
+            [(r["path"], r["serve_bytes"]) for r in j["leaves"]], mode
+        if mode == "q4":
+            assert (t["quantized_leaves"], t["n_leaves"]) == (12, 13)

@@ -5,6 +5,9 @@ Identical params, grads and SR key go through both frameworks' ``init`` and
 leaf, unfused attention leaf, fp32 embed/head/norm): every state leaf — step counts,
 packed codes, scales, fp32 moments — must be bit-equal and params within
 1e-6 relative. Byte counts of full-size trees are taken on meta tensors.
+
+The structural state bytes are in ``tests/test_torch_stub_optim.py``
+(pytest-xdist's ``--dist loadfile`` hands out the files with the most tests first).
 """
 
 import numpy as np
@@ -22,7 +25,7 @@ from repro.core.optimizers import state_nbytes as j_state_nbytes  # noqa: E402
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
 from repro.core.quantizer import QuantizedTensor as JQ  # noqa: E402
 from repro.models import init_model as j_init  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer, state_nbytes  # noqa: E402
 from repro_torch.core.optimizers.base import _leaves  # noqa: E402
@@ -115,24 +118,6 @@ def _gpt2m_cfg():
         head_dim=64, d_ff=4096, vocab_size=50257, blocks=(LayerSpec("dense", 0),) * 24,
         gated_mlp=False,
     )
-
-
-@pytest.mark.parametrize("cfg_name,opt_name,expected", [
-    ("gpt2m", "production4bit", 1_135_298_392),
-    ("gpt2m", "adamw32", 3_239_731_212),
-    ("internlm2-1.8b", "production4bit", 4_590_578_552),
-    # the reference's eval_shape counts at full internlm2-1.8b size
-    ("internlm2-1.8b", "sm3", 7_557_380_132),
-    ("internlm2-1.8b", "adafactor", 7_645_301_960),
-    ("internlm2-1.8b", "factor4bit", 1_092_458_700),
-    ("internlm2-1.8b", "shampoo32", 45_341_376_524),
-    ("internlm2-1.8b", "shampoo4bit", 5_963_813_036),
-])
-def test_structural_state_bytes(cfg_name, opt_name, expected):
-    cfg = _gpt2m_cfg() if cfg_name == "gpt2m" else get_config(cfg_name)
-    params = named_params(init_model(cfg, device="meta"))
-    opt = make_optimizer(opt_name, 1e-3)
-    assert state_nbytes(opt.init(params)) == expected
 
 
 @pytest.mark.parametrize("name", j_optimizer_names())

@@ -7,6 +7,10 @@ interpret mode and ``core.quantizer.quantize(x, WEIGHT_Q4)`` (the q4
 serving format): codes equal, scales equal, dequantized values equal. The
 CUDA kernels are held against the same plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+The non-finite and subnormal blocks and the refused shapes are in
+``tests/test_torch_quant4_edges.py`` (pytest-xdist's ``--dist loadfile``
+hands out the files with the most tests first).
 """
 
 import numpy as np
@@ -109,12 +113,6 @@ def test_plain_oracle_broadcasts_over_leading_dims():
     assert torch.equal(p.reshape(24, 128), p2) and torch.equal(s.reshape(24, 2), s2)
 
 
-@pytest.mark.parametrize("shape", [(4, 100), (3,), (2, 2, 128)])
-def test_wrapper_rejects_shapes_the_kernel_cannot_take(shape):
-    with pytest.raises(ValueError, match=r"shape"):
-        quant4.quantize_blockwise_4bit(torch.zeros(shape), TABLE)
-
-
 # Block kinds that leave the kernels' fast division: each goes into one block
 # of an otherwise normal (4, 256) input (flat block 3).
 NONFINITE_BLOCKS = ("nan", "+inf", "-inf", "nan and inf", "-0 only", "zeros",
@@ -144,62 +142,6 @@ def _special_block(kind):
     else:
         raise ValueError(kind)
     return b.astype(np.float32)
-
-
-@pytest.mark.parametrize("kind", NONFINITE_BLOCKS)
-def test_quant_blockwise_nonfinite_blocks_match_reference(kind):
-    """NaN, infinities, signed zeros, subnormal elements and a huge scale: the
-    port's codes and scales equal the reference's oracle, its interpret-mode
-    kernel and ``quantize(x, WEIGHT_Q4)`` (a NaN scale would count as equal
-    to a NaN, but the guard leaves none)."""
-    x = _rand((4, 256), 23)
-    x[1, 128:] = _special_block(kind)
-    pt, st = _check_against_reference(x, torch.from_numpy(x))
-    want = {"nan": 1.0, "+inf": np.inf, "-inf": np.inf, "nan and inf": 1.0, "-0 only": 1.0,
-            "zeros": 1.0, "scale above 2^60": 2.0**70}.get(kind)
-    if want is not None:
-        assert float(st[1, 1]) == want
-    if "nan" in kind:  # NaN takes code 0, the rest of the block is divided by 1
-        codes = ref.unpack_codes(pt)[1, 128:]
-        assert int(codes[5]) == 0
-        n = torch.from_numpy(np.nan_to_num(x[1, 128:], nan=0.0))
-        expect = ref.encode_table(n, TABLE)
-        expect[5] = 0
-        assert torch.equal(codes, expect)
-
-
-def test_quant_blockwise_all_subnormal_block_keeps_its_scale():
-    """The one block kind where the port and the JAX reference differ, by a
-    property of the reference: XLA's CPU backend (like the TPU) flushes
-    subnormals to zero, so a block whose elements are all subnormal gets
-    JAX's scale guard(0) = 1.0 and the zero code. The port keeps subnormals
-    (its plain version here, its kernels with no -ftz on the card): its
-    scale is the subnormal absmax and its codes are those of the exact
-    quotient. Every other block agrees bit for bit."""
-    x = _rand((4, 256), 23)
-    x[1, 128:] = _special_block("all subnormal")
-    absmax = np.float32(np.max(np.abs(x[1, 128:])))
-    assert 0.0 < absmax < np.finfo(np.float32).tiny
-    pt, st = quant4.quantize_blockwise_4bit(torch.from_numpy(x), TABLE)
-    pj, sj = j_ref.quant_blockwise(jnp.asarray(x), J_TABLE)
-    pk, sk = j_quant_kernel(jnp.asarray(x), J_TABLE, interpret=True)
-    sj, sk, pj, pk = (np.asarray(a) for a in (sj, sk, pj, pk))
-    assert float(st[1, 1]) == absmax
-    assert sj[1, 1] == 1.0 and sk[1, 1] == 1.0
-    mids = (np.asarray(J_TABLE[1:]) + np.asarray(J_TABLE[:-1])) / np.float32(2.0)
-    n = x[1, 128:] / absmax  # numpy keeps subnormals: the correctly rounded quotient
-    codes = (n[:, None] > mids[None, :]).sum(axis=1)
-    assert np.array_equal(ref.unpack_codes(pt)[1, 128:].numpy(), codes)
-    zero_code = int(np.argmin(np.abs(np.asarray(J_TABLE))))
-    assert np.all(np.asarray(j_ref.unpack_codes(jnp.asarray(pj)))[1, 128:] == zero_code)
-    others = np.ones(st.shape, dtype=bool)
-    others[1, 1] = False
-    assert np.array_equal(st.numpy()[others], sj[others])
-    assert np.array_equal(st.numpy()[others], sk[others])
-    code_others = np.ones(pt.shape, dtype=bool)
-    code_others[1, 64:] = False
-    assert np.array_equal(pt.numpy()[code_others], pj[code_others])
-    assert np.array_equal(pt.numpy()[code_others], pk[code_others])
 
 
 def test_count_guard_refuses_blocks_past_32_bits():

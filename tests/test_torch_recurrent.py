@@ -40,9 +40,14 @@ Inputs come from numpy with a seed; parameters are the reference's own
   (``tests/test_serving.py::test_prefill_matches_decode_oracle_archs``),
   the caches' K/V, positions and recurrent states within 1e-3 of their
   scale, then four greedy decode steps from both caches.
+
+``gla_chunked`` is held in ``tests/test_torch_recurrent_train.py``;
+``gla_decode_step``, ``slstm_scan``, the constants, the bf16 cotangents and
+the padded prefill against its decode oracle in
+``tests/test_torch_recurrent_optim.py`` (pytest-xdist's ``--dist
+loadfile`` hands out the files with the most tests first).
 """
 
-import math
 
 import numpy as np
 import pytest
@@ -51,7 +56,6 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_models import naive_gla  # noqa: E402
 
 from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.models import LayerSpec as JLayerSpec  # noqa: E402
@@ -60,7 +64,6 @@ from repro.models import decode_step as j_decode_step  # noqa: E402
 from repro.models import init_model as j_init  # noqa: E402
 from repro.models import init_serve_cache as j_init_serve_cache  # noqa: E402
 from repro.models import prefill as j_prefill  # noqa: E402
-from repro.models import gla as j_gla  # noqa: E402
 from repro.models.blocks import apply_block as j_apply_block  # noqa: E402
 from repro.models.blocks import init_block as j_init_block  # noqa: E402
 from repro.models.layers import COMPUTE_DTYPE as J_COMPUTE  # noqa: E402
@@ -76,18 +79,12 @@ from repro_torch.models import (  # noqa: E402
     init_serve_cache,
     named_params,
     prefill,
-    prefill_with_cache,
 )
 from repro_torch.models.blocks import RECURRENT  # noqa: E402
-from repro_torch.models.gla import (  # noqa: E402
-    GLAState,
-    SLSTMState,
-    gla_chunked,
-    gla_decode_step,
-    slstm_scan,
-)
+from repro_torch.models.gla import GLAState  # noqa: E402
 from repro_torch.models.layers import COMPUTE_DTYPE  # noqa: E402
-from repro_torch.models.model import cache_leaves, cache_map  # noqa: E402
+from repro_torch.models.model import cache_leaves  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -122,69 +119,6 @@ def _gla_inputs(S, seed, B=2, H=3, dk=8, dv=8):
 # ---------------------------------------------------------------------------
 # gla_chunked, gla_decode_step, slstm_scan
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("normalize", [True, False])
-@pytest.mark.parametrize("S,chunk,init", [(37, 8, False), (64, 16, False), (21, 8, True)])
-def test_gla_chunked_matches_reference(normalize, S, chunk, init):
-    q, k, v, log_a, st = _gla_inputs(S, 1)
-    jst = j_gla.GLAState(*(jnp.asarray(a) for a in st)) if init else None
-    jy, jstate = jax.jit(lambda *a: j_gla.gla_chunked(*a, chunk=chunk, normalize=normalize,
-                                                      init_state=jst))(q, k, v, log_a)
-    ty, tstate = gla_chunked(_t(q), _t(k), _t(v), _t(log_a), chunk=chunk, normalize=normalize,
-                             init_state=GLAState(*map(_t, st)) if init else None)
-    assert ty.shape == (2, S, 3, 8) and ty.dtype == torch.float32
-    _close(ty.numpy(), jy, what="y")
-    for a, b in zip(tstate, jstate):
-        _close(a.numpy(), b, what="state")
-    if not init:
-        np.testing.assert_allclose(ty.numpy(), naive_gla(q, k, v, log_a, normalize),
-                                   rtol=2e-3, atol=2e-4)
-
-
-def test_gla_decode_step_continues_chunked():
-    q, k, v, log_a, _ = _gla_inputs(24, 2, B=1, H=2)
-    tq, tk, tv, tla = map(_t, (q, k, v, log_a))
-    full, _ = gla_chunked(tq, tk, tv, tla, chunk=8)
-    _, st = gla_chunked(tq[:, :16], tk[:, :16], tv[:, :16], tla[:, :16], chunk=8)
-    _, jst = j_gla.gla_chunked(*(jnp.asarray(a[:, :16]) for a in (q, k, v, log_a)), chunk=8)
-    ys, jys = [], []
-    for t in range(16, 24):
-        sl = slice(t, t + 1)
-        y, st = gla_decode_step(tq[:, sl], tk[:, sl], tv[:, sl], tla[:, sl], st)
-        jy, jst = j_gla.gla_decode_step(*(jnp.asarray(a[:, sl]) for a in (q, k, v, log_a)), jst)
-        ys.append(y)
-        jys.append(np.asarray(jy))
-    got = torch.cat(ys, dim=1).numpy()
-    _close(got, full[:, 16:].numpy(), what="decode vs chunked")
-    _close(got, np.concatenate(jys, axis=1), what="decode vs reference")
-    for a, b in zip(st, jst):
-        _close(a.numpy(), b, what="state")
-
-
-@pytest.mark.parametrize("masked", [False, True])
-def test_slstm_scan_matches_reference(masked):
-    B, S, H, dh = 3, 13, 4, 8
-    D = H * dh
-    rng = np.random.default_rng(3)
-    gates = jnp.asarray(rng.normal(size=(B, S, 4, D)).astype(np.float32)).astype(J_COMPUTE)
-    r = (rng.normal(size=(H, 4, dh, dh)) * 0.3).astype(np.float32)
-    mask = np.arange(S)[None, :] < np.array([13, 7, 1])[:, None] if masked else None
-    jh, jst = jax.jit(lambda g, rr, m: j_gla.slstm_scan(g, rr, H, step_mask=m))(
-        gates, r, None if mask is None else jnp.asarray(mask))
-    tg = torch.from_numpy(np.asarray(gates.astype(jnp.float32))).to(COMPUTE_DTYPE)
-    th, tst = slstm_scan(tg, _t(r), H, step_mask=None if mask is None else torch.from_numpy(mask))
-    assert th.dtype == COMPUTE_DTYPE and isinstance(tst, SLSTMState)
-    # h is rounded to bf16 by both: compare in its units
-    np.testing.assert_allclose(th.float().numpy(), np.asarray(jh.astype(jnp.float32)),
-                               atol=BF16_ULP, rtol=0)
-    for name, a, b in zip(SLSTMState._fields, tst, jst):
-        _close(a.numpy(), b, what=name)
-    if masked:
-        # row 2 took one real step: its state is the state after step 0
-        _, one = slstm_scan(tg[2:3, :1], _t(r), H)
-        for a, b in zip(tst, one):
-            assert torch.equal(a[2:3], b)
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +204,7 @@ def test_decode_matches_teacher_forced(case):
                   head_dim=8, d_ff=64, vocab_size=128, **kw)
     jcfg = JModelConfig(blocks=tuple(JLayerSpec(*s) for s in specs), remat=False, **common)
     cfg = ModelConfig(blocks=tuple(LayerSpec(*s) for s in specs), **common)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     B, S = 2, 12
     tokens = np.array(jax.random.randint(jax.random.PRNGKey(1), (B, S), 0, 128))
@@ -351,7 +285,7 @@ def test_init_constants_match_reference(arch):
 @pytest.mark.parametrize("arch", RECURRENT_ARCHS)
 def test_prefill_matches_reference(arch):
     jcfg, cfg = j_reduced(arch), reduced_config(arch)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     toks = np.random.default_rng(6).integers(0, 512, size=(2, 19)).astype(np.int32)
     jl = np.asarray(jax.jit(lambda p, t: j_prefill(p, jcfg, {"tokens": t}))(jparams, toks))
@@ -360,110 +294,7 @@ def test_prefill_matches_reference(arch):
     assert np.max(np.abs(tl - jl)) < 2e-2, np.max(np.abs(tl - jl))
 
 
-@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
-def test_prefill_matches_decode_oracle(arch):
-    """Two right-padded prompts in one batched prefill (the padded steps of
-    the short one are identity steps, or frozen in the sLSTM) against the
-    token-at-a-time decode; then four greedy steps from both caches."""
-    cfg = reduced_config(arch)
-    jparams = jax.jit(lambda k: j_init(k, j_reduced(arch))[0])(jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
-    prompts = [[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23], [9, 10]]
-    B, S = len(prompts), max(len(p) for p in prompts)
-    with torch.no_grad():
-        oracle = init_serve_cache(cfg, B, 256, device="cpu")
-        last = [None] * B
-        for t in range(S):
-            # a row whose prompt has ended stops here: its cache must hold
-            # the prompt's state alone, as the batched prefill's does
-            toks = torch.tensor([p[min(t, len(p) - 1)] for p in prompts])
-            logits, stepped = decode_step(params, cfg, cache_map(torch.clone, oracle), toks,
-                                          torch.full((B,), t))
-            live = torch.tensor([t < len(p) for p in prompts])
-            _select(oracle, stepped, live)
-            for b, p in enumerate(prompts):
-                if t == len(p) - 1:
-                    last[b] = logits[b]
-        l_oracle = torch.stack(last)
-        toks = torch.zeros((B, S), dtype=torch.int64)
-        for b, p in enumerate(prompts):
-            toks[b, :len(p)] = torch.tensor(p)
-        lens = torch.tensor([len(p) for p in prompts])
-        batch = init_serve_cache(cfg, B, 256, device="cpu")
-        l_batch, batch = prefill_with_cache(params, cfg, toks, lens, batch)
-        # measured: equal (both archs)
-        np.testing.assert_allclose(l_batch.numpy(), l_oracle.numpy(), atol=5e-2, rtol=0)
-        # the caches themselves: positions equal, K/V and the recurrent
-        # states of both rows (the short one's padded steps identities or
-        # frozen) within 1e-3 of each leaf's scale (measured at most 3.0e-7)
-        for a, o in zip(cache_leaves(batch), cache_leaves(oracle)):
-            if a.dtype in (torch.int32, torch.int64):
-                assert torch.equal(a, o)
-                continue
-            a, o = a.float(), o.float()
-            finite = o > -1e29  # the sLSTM stabilizer starts at -1e30
-            assert torch.equal(a > -1e29, finite)
-            err = float((a - o)[finite].abs().max()) if finite.any() else 0.0
-            assert err <= 1e-3 * max(float(o[finite].abs().max()), 1e-30), err
-        pos = lens.clone()
-        tok_a = torch.argmax(l_oracle, -1)
-        tok_b = torch.argmax(l_batch, -1)
-        for t in range(4):
-            la, oracle = decode_step(params, cfg, oracle, tok_a, pos + t)
-            lb, batch = decode_step(params, cfg, batch, tok_b, pos + t)
-            np.testing.assert_allclose(lb.numpy(), la.numpy(), atol=5e-2, rtol=0)
-            tok_a, tok_b = torch.argmax(la, -1), torch.argmax(lb, -1)
-
-
 def _select(dst, src, live):
     """dst <- src in the rows (batch axis 1 of every stacked leaf) of live."""
     for a, b in zip(cache_leaves(dst), cache_leaves(src)):
         a[:, live] = b[:, live]
-
-
-def test_recurrent_constants():
-    """The sLSTM MLP width and the caches' shapes at full size."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.blocks import slstm_ff
-
-    assert slstm_ff(768) == 1024 and slstm_ff(64) == 128
-    x = get_config("xlstm-125m")
-    c = init_serve_cache(x, 2, 512, device="meta")
-    assert tuple(c[0]["sub0"].S.shape) == (3, 2, 4, 192, 192)
-    assert tuple(c[0]["sub3"].m.shape) == (3, 2, 768)
-    m = init_serve_cache(reduced_config("xlstm-125m"), 1, 64, device="cpu")[1]["sub0"].m
-    assert torch.equal(m, torch.full_like(m, -1e30))
-    h = get_config("hymba-1.5b")
-    c = init_serve_cache(h, 2, 4096, device="meta")
-    assert [tuple(u["sub0"]["attn"].k.shape[:3]) for u in c] == [
-        (1, 2, 4096), (14, 2, 1024), (1, 2, 4096), (15, 2, 1024), (1, 2, 4096)]
-    assert tuple(c[1]["sub0"]["ssm"].S.shape) == (14, 2, 25, 16, 64)
-    assert math.isclose(h.d_model / h.num_heads, 64)
-
-
-def test_reference_sums_bf16_cotangents_in_bf16():
-    """A property of the reference, not a fault of the port: the cotangent of
-    a bf16 weight broadcast over (B, S, dh), as hymba's ``ssm_D`` is in ``y +
-    D * v``, is summed in bf16 by XLA and in fp32 by torch. At the reduced
-    config's 2,048 terms a head the port lies within one bf16 rounding of
-    the float64 sum of the same bf16 products, the reference off by more
-    than 1e-2 on some head (measured 2.0e-3 and 9.5e-2)."""
-    rng = np.random.default_rng(0)
-    shape = (4, 32, 4, 16)
-    v, w = (jnp.asarray(rng.normal(size=shape).astype(np.float32)).astype(J_COMPUTE)
-            for _ in range(2))
-
-    def f(d):
-        y = d[None, None, :, None].astype(J_COMPUTE) * v
-        return jnp.sum((y * w).astype(jnp.float32))
-
-    jg = np.asarray(jax.jit(jax.grad(f))(jnp.ones(4, jnp.float32)), np.float64)
-    tv, tw = (torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(COMPUTE_DTYPE)
-              for a in (v, w))
-    d = torch.ones(4, requires_grad=True)
-    ((d[None, None, :, None].to(COMPUTE_DTYPE) * tv) * tw).float().sum().backward()
-    exact = (tv * tw).double().sum(dim=(0, 1, 3)).numpy()  # the bf16 products
-    port_err = np.max(np.abs(d.grad.numpy() - exact) / np.abs(exact))
-    ref_err = np.max(np.abs(jg - exact) / np.abs(exact))
-    print(f"relative error against the float64 sum: port {port_err:.3g}, reference {ref_err:.3g}")
-    assert port_err <= 2.0 ** -8 and ref_err > 1e-2, (port_err, ref_err)

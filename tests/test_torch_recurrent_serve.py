@@ -15,6 +15,9 @@ reference's own parameters carried across (``convert``): the checks of
   one request beside live slots (the prefill's cache merge must leave the
   live slots' recurrent states alone): equal up to the first step where
   they part, which must be a near tie of the port's own logits.
+
+Also here, with ``tests/test_torch_serving.py``'s ``TINY`` engine: retire
+and backfill without a KV leak, early EOS and the serve CLI.
 """
 
 import jax
@@ -24,23 +27,33 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_archs_serve import LOGIT_ATOL, PROMPTS, _padded, _params, _top2_margin  # noqa: E402
-from test_torch_archs_serve import (  # noqa: E402
-    test_prepare_params_and_report_match_reference as _prepare_and_report,
-)
-
 from repro.configs import reduced_config as j_reduced  # noqa: E402
-from repro.models import decode_step as j_decode_step  # noqa: E402
-from repro.models import init_serve_cache as j_init_serve_cache  # noqa: E402
-from repro.models import prefill_with_cache as j_prefill_with_cache  # noqa: E402
-from repro.serve import Request as JRequest  # noqa: E402
-from repro.serve import ServeEngine as JServeEngine  # noqa: E402
-from repro.serve import materialize as j_materialize  # noqa: E402
-from repro.serve import prepare_params as j_prepare_params  # noqa: E402
+from repro.models import (  # noqa: E402
+    decode_step as j_decode_step,
+    init_serve_cache as j_init_serve_cache,
+    prefill_with_cache as j_prefill_with_cache,
+)
+from repro.serve import (  # noqa: E402
+    materialize as j_materialize,
+    prepare_params as j_prepare_params,
+    Request as JRequest,
+    ServeEngine as JServeEngine,
+)
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import quant4  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import decode_step, init_serve_cache, prefill_with_cache  # noqa: E402
-from repro_torch.serve import Request, ServeEngine, materialize, prepare_params  # noqa: E402
+from repro_torch.serve import materialize, prepare_params, Request, ServeEngine  # noqa: E402
+from test_torch_archs_serve import (  # noqa: E402
+    _padded,
+    _params,
+    _top2_margin,
+    LOGIT_ATOL,
+    PROMPTS,
+    test_prepare_params_and_report_match_reference as _prepare_and_report,
+)
+from test_torch_serving import _serve, tiny  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -149,3 +162,40 @@ def test_engine_streams_match_reference_engine(arch):
             print(f"{arch} stream {j.rid} parts at token {d}: top-2 margin {margin:.3g}")
             assert margin < 2 * LOGIT_ATOL, (arch, j.rid, d, margin)
     assert same >= sum(new_tokens) // 2, same
+
+
+def test_retire_backfill_no_kv_leak(tiny):
+    _, tparams = tiny
+    prompts = [[5, 6, 7, 8, 9, 10, 11], [12, 13], [14, 15, 16], [17], [18, 19, 20, 21, 22]]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+    eng = _serve(tparams, reqs, 2)
+    assert eng.materialize_calls["prefill"] >= 3  # three waves through two slots
+    for i, r in enumerate(reqs):
+        solo = Request(rid=i, prompt=prompts[i], max_new_tokens=6)
+        _serve(tparams, [solo], 1)
+        assert r.done and r.output == solo.output, f"rid={i} diverged after backfill"
+
+
+def test_eos_retires_early(tiny):
+    _, tparams = tiny
+    probe = Request(rid=0, prompt=[7, 8, 9], max_new_tokens=4)
+    _serve(tparams, [probe], 1)
+    eos = probe.output[1]
+    r0 = Request(rid=0, prompt=[7, 8, 9], max_new_tokens=4, eos_id=eos)
+    r1 = Request(rid=1, prompt=[10, 11], max_new_tokens=3)
+    _serve(tparams, [r0, r1], 1)
+    assert r0.done and r0.output == probe.output[:2]
+    solo = Request(rid=1, prompt=[10, 11], max_new_tokens=3)
+    _serve(tparams, [solo], 1)
+    assert r1.output == solo.output
+
+
+def test_serve_cli_at_cpu_scale():
+    before = dict(quant4.LAUNCHES)
+    out = serve_cli.main(["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu",
+                          "--weights", "q4", "--requests", "3", "--max-batch", "2",
+                          "--max-new-tokens", "5", "--temperature", "0.8", "--top-k", "5"])
+    assert out["tokens"] == 15 and all(r.done for r in out["requests"])
+    assert out["weight_report"]["quantized_leaves"] == 9
+    assert out["peak_bytes"] is None and out["engine"].phase_ms == {"prefill": [], "decode": []}
+    assert quant4.LAUNCHES == before

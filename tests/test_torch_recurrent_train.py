@@ -18,6 +18,9 @@ bit, the full-size routes and the structural byte counts.)
   669,510,744 / 67,447,776 / 253,784,352 B; hymba-1.5b 2,192,732,204 /
   761,193,920 / 2,865,315,200 B).
 * The training and q4 serving CLIs at CPU scale for each arch.
+
+Also here: ``gla_chunked`` against the reference
+(``tests/test_torch_recurrent.py``'s bars).
 """
 
 import dataclasses
@@ -30,18 +33,19 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import get_config as j_get_config  # noqa: E402
-from repro.configs import reduced_config as j_reduced  # noqa: E402
-from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
-from repro.core.optimizers import state_nbytes as j_state_nbytes  # noqa: E402
+from repro.configs import get_config as j_get_config, reduced_config as j_reduced  # noqa: E402
+from repro.core.optimizers import (  # noqa: E402
+    make_optimizer as j_make,
+    state_nbytes as j_state_nbytes,
+)
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
-from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
-from repro.data.pipeline import SyntheticLM as JSyntheticLM  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
-from repro.models import loss_fn as j_loss_fn  # noqa: E402
+from repro.data.pipeline import DataConfig as JDataConfig, SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.models import gla as j_gla, init_model as j_init, loss_fn as j_loss_fn  # noqa: E402
 from repro.serve import weight_report as j_weight_report  # noqa: E402
-from repro.train.train_loop import build_train_step as j_build  # noqa: E402
-from repro.train.train_loop import make_train_state as j_make_state  # noqa: E402
+from repro.train.train_loop import (  # noqa: E402
+    build_train_step as j_build,
+    make_train_state as j_make_state,
+)
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import load_params, params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer, state_nbytes  # noqa: E402
@@ -49,8 +53,12 @@ from repro_torch.core.optimizers.schedule import linear_warmup_linear_decay  # n
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.models import init_model, loss_fn, named_params  # noqa: E402
+from repro_torch.models.gla import gla_chunked, GLAState  # noqa: E402
 from repro_torch.serve import weight_report  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
+from test_models import naive_gla  # noqa: E402
+from test_torch_recurrent import _close, _gla_inputs, _t  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -67,7 +75,7 @@ def _port_model(cfg, jparams):
 @pytest.mark.parametrize("arch", RECURRENT_ARCHS)
 def test_loss_and_grads_match_reference(arch):
     jcfg = j_reduced(arch)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(reduced_config(arch), jparams)
     b = SyntheticLM(DataConfig(512, 32, 4)).batch_at(0)
     (jl, _), jg = jax.jit(jax.value_and_grad(lambda p: j_loss_fn(p, jcfg, b), has_aux=True))(
@@ -92,7 +100,7 @@ def test_loss_and_grads_match_reference(arch):
 @pytest.mark.parametrize("arch", RECURRENT_ARCHS)
 def test_train_steps_match_reference(arch):
     jcfg = j_reduced(arch)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(reduced_config(arch), jparams)
     steps = 3
     jopt = j_make("production4bit", j_sched(1e-3, 1, steps))
@@ -153,3 +161,21 @@ def test_cli_cpu_reduced_runs(arch, capsys):
                       "--requests", "3", "--max-new-tokens", "4"])
     assert all(r.done and len(r.output) == 4 for r in res["requests"])
     assert res["weight_report"]["quantized_leaves"] > 0
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("S,chunk,init", [(37, 8, False), (64, 16, False), (21, 8, True)])
+def test_gla_chunked_matches_reference(normalize, S, chunk, init):
+    q, k, v, log_a, st = _gla_inputs(S, 1)
+    jst = j_gla.GLAState(*(jnp.asarray(a) for a in st)) if init else None
+    jy, jstate = jax.jit(lambda *a: j_gla.gla_chunked(*a, chunk=chunk, normalize=normalize,
+                                                      init_state=jst))(q, k, v, log_a)
+    ty, tstate = gla_chunked(_t(q), _t(k), _t(v), _t(log_a), chunk=chunk, normalize=normalize,
+                             init_state=GLAState(*map(_t, st)) if init else None)
+    assert ty.shape == (2, S, 3, 8) and ty.dtype == torch.float32
+    _close(ty.numpy(), jy, what="y")
+    for a, b in zip(tstate, jstate):
+        _close(a.numpy(), b, what="state")
+    if not init:
+        np.testing.assert_allclose(ty.numpy(), naive_gla(q, k, v, log_a, normalize),
+                                   rtol=2e-3, atol=2e-4)

@@ -35,6 +35,12 @@ reckoning against the reference and against real steps.
   in a half byte) and d_ff 170 (``w1/w3``' tiles on (1, 2) are 85 columns
   wide, so they update on row tiles) trains 2 steps on (1, 2) within 1e-5
   of one process.
+
+The counts (``_ring_bytes``, ``count_params``/``model_flops``, the
+linear extrapolation) are in ``tests/test_torch_roofline_counts.py``, the
+terms, the recorder, the dense layer and ``measure`` on a mesh in
+``tests/test_torch_dryrun_all.py`` (pytest-xdist's ``--dist loadfile``
+hands out the files with the most tests first).
 """
 
 import dataclasses
@@ -50,16 +56,12 @@ from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 import torch_mesh_worker as worker  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import init_model as j_init  # noqa: E402
-from repro.roofline import analysis as j_analysis  # noqa: E402
 from repro_torch.comms import CommsConfig  # noqa: E402
-from repro_torch.comms.collectives import Ranks, all_gather, recording  # noqa: E402
-from repro_torch.comms.collectives import without_world  # noqa: E402
-from repro_torch.configs import ARCHS, ShapeSpec, get_config, reduced_config  # noqa: E402
+from repro_torch.configs import ShapeSpec, reduced_config  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch.specs import input_specs  # noqa: E402
 from repro_torch.models import init_model, named_params, param_axes  # noqa: E402
-from repro_torch.models import plan_scan_units  # noqa: E402
 from repro_torch.models.layers import COMPUTE_DTYPE  # noqa: E402
 from repro_torch.models.model import prefill  # noqa: E402
 from repro_torch.roofline import analysis, measured  # noqa: E402
@@ -68,7 +70,6 @@ from repro_torch.sharding.specs import local_slice, map_plan  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
 from repro_torch.train.mesh import MeshStep  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
-from test_roofline import SAMPLE_HLO  # noqa: E402
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 MESH_ARCH = "internlm2-1.8b"
@@ -113,35 +114,6 @@ def _world_results(worlds, n, key):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_ring_bytes_equal_reference(kind):
-    for k in (1, 2, 4, 8, 16):
-        for r in (0.0, 1.0, 4096.0, 3.5e9):
-            assert analysis._ring_bytes(kind, r, k) == j_analysis._ring_bytes(kind, r, k)
-
-
-@pytest.mark.parametrize("bottleneck,cost,coll", [
-    ("compute", {"flops": 2e15, "bytes accessed": 1e12}, 1e9),
-    ("memory", {"flops": 1e14, "bytes accessed": 7e12}, 2e10),
-    ("collective", {"flops": 1e13, "bytes accessed": 1e11}, 5e12),
-])
-def test_roofline_terms_equal_reference(bottleneck, cost, coll):
-    hw = analysis.H100
-    ref_hw = j_analysis.HW(peak_flops=hw.peak_flops, hbm_bw=hw.hbm_bw, link_bw=hw.link_bw)
-    got = analysis.roofline_terms(cost, coll, 256, 3e15, hw)
-    want = j_analysis.roofline_terms(cost, coll, 256, 3e15, ref_hw)
-    assert got.as_dict() == want.as_dict()
-    assert got.bottleneck == bottleneck
-
-
-def test_h100_is_the_default_and_only_card():
-    assert analysis.roofline_terms({"flops": 1.0}, 0.0, 1, 1.0).compute_s == 1.0 / 989.4e12
-    assert analysis.hw_for_card("NVIDIA H100 80GB HBM3") is analysis.H100
-    for name in ("NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB", "TPU v5 lite"):
-        with pytest.raises(ValueError, match="no roofline constants"):
-            analysis.hw_for_card(name)
-
-
 def _ref_shapes_and_axes(arch):
     out = {}
 
@@ -152,48 +124,9 @@ def _ref_shapes_and_axes(arch):
     return jax.eval_shape(capture), out["axes"]
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_count_params_and_model_flops_equal_reference(arch):
-    ref_params, ref_axes = _ref_shapes_and_axes(arch)
-    cfg = get_config(arch)
-    params = named_params(init_model(cfg, device="meta"))
-    axes = param_axes(cfg)
-    assert analysis.count_params(params, axes) == j_analysis.count_params(ref_params, ref_axes)
-    for kind, tokens in (("train", 256 * 4096), ("prefill", 32 * 32768), ("decode", 128)):
-        got = analysis.model_flops(cfg, params, axes, kind, tokens)
-        want = j_analysis.model_flops(j_get_config(arch), ref_params, ref_axes, kind, tokens)
-        assert got == want, (arch, kind)
-
-
 # ---------------------------------------------------------------------------
 # (b) the recorder against the reference's HLO parse
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("multiplier", [1.0, 3.0])
-def test_recorder_equals_hlo_parse(multiplier):
-    want = j_analysis.collective_bytes_from_hlo(SAMPLE_HLO, multiplier=multiplier)
-    with without_world(16), recording() as calls:
-        # bf16[16,4096] gathered over groups of 4: each rank's (4, 4096)
-        out = all_gather(torch.empty((4, 4096), dtype=torch.bfloat16, device="meta"),
-                         Ranks(range(4)))
-    assert tuple(out.shape) == (4, 4, 4096)
-    assert calls == [("all-gather", 16 * 4096 * 2, 4)]
-    calls = [("all-reduce", 1024 * 512 * 4, 8),    # f32[1024,512], replica_groups=[2,8]
-             *calls,
-             ("reduce-scatter", 64 * 4, 4),        # f32[64], {{0,1,2,3}}
-             ("collective-permute", 128 * 2, 1)]   # bf16[128], no groups
-    assert analysis.collective_bytes(calls, multiplier) == want
-
-
-def test_recorder_costs_nothing_when_closed():
-    with without_world(4):
-        all_gather(torch.empty(8, device="meta"))  # no recording open: nothing kept
-        with recording() as calls:
-            all_gather(torch.empty(8, device="meta"))
-    assert calls == [("all-gather", 4 * 8 * 4, 4)]
-    rec = analysis.collective_bytes(calls)
-    assert rec["ops"] == 1.0 and rec["all-gather"] == 3 / 4 * 4 * 8 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -250,48 +183,6 @@ def test_decomposition_equals_whole_model(arch, kind):
         assert b1 == whole.b1 and b1["fused_adamw4"] == b1["rank1_new_stats"]
 
 
-@pytest.mark.parametrize("train", [True, False])
-def test_linear_unit_extrapolates_exactly(train):
-    cfg = dataclasses.replace(reduced_config("xlstm-125m"), gla_chunk=8)
-    S = 64
-    s1 = measured._linear_probe_len(cfg, S)
-    assert s1 == 8
-    dtype = torch.float32 if train else COMPUTE_DTYPE
-    for unit in plan_scan_units(cfg.blocks):
-        assert measured._unit_is_linear(unit)
-        probe = lambda n: measured._seq_probe(cfg, unit, "decoder", 2, n, None, train, dtype)
-        ys, full = [probe(i * s1) for i in (2, 3, 4)], probe(S)
-        got = measured._extrapolate(*ys, S // s1)
-        assert (got.flops_by_dtype, got.bytes) == (full.flops_by_dtype, full.bytes), unit
-        line = ys[0] + (ys[1] - ys[0]) * (S // s1 - 2)
-        assert line.flops == full.flops  # the products are linear from the second chunk
-        if train:  # each step's slice writes a whole-length gradient: bytes grow as S²
-            assert line.bytes < full.bytes
-
-
-@pytest.mark.parametrize("train", [True, False])
-def test_dense_layer_flops_are_2mnk(train):
-    cfg = reduced_config("internlm2-1.8b")
-    B, S, D, F = 2, 64, cfg.d_model, cfg.d_ff
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    unit = plan_scan_units(cfg.blocks)[0]
-    dtype = torch.float32 if train else COMPUTE_DTYPE
-    pos = torch.arange(S, device="meta")[None].expand(B, S)
-    c = measured._seq_probe(cfg, unit, "decoder", B, S, pos, train, dtype)
-    mm = lambda m, n, k: 2 * m * n * k
-    bf16 = (mm(B * S, H * hd, D) + 2 * mm(B * S, Hkv * hd, D) + mm(B * S, D, H * hd)
-            + 3 * mm(B * S, F, D))               # w1, w3, w2
-    fp32 = 2 * B * H * mm(S, S, hd)              # q.k over every (q, k) pair, then p.v
-    k = 3 if train else 1                        # backward: both operands' gradients
-    assert c.flops_by_dtype == {"bfloat16": k * bf16, "float32": k * fp32}
-    # the fp32 products run off the tensor cores: priced at the card's fp32 rate
-    hw = analysis.H100
-    terms = analysis.roofline_terms({"flops": c.flops, "flops by dtype": c.flops_by_dtype},
-                                    0.0, 1, 1.0, hw)
-    assert terms.compute_s == k * bf16 / 989.4e12 + k * fp32 / 67e12
-    assert terms.compute_s > c.flops / hw.peak_flops
-
-
 # ---------------------------------------------------------------------------
 # (f) the reckoning against real gloo steps
 # ---------------------------------------------------------------------------
@@ -330,22 +221,6 @@ def test_reckoned_collectives_equal_real_steps(worlds, layout):
             assert sorted(got["recorded"]) == sorted(calls), (layout, rank, mode)
             link = analysis.collective_bytes(calls)
             assert link["total"] > 0 and link["ops"] == len(calls) > 0
-
-
-def test_measure_on_a_mesh_records_the_reckoning():
-    cfg = reduced_config(MESH_ARCH)
-    shape = ShapeSpec("small", 32, 8, "train")
-    rec = measured.measure(cfg, shape, {"data": 2, "model": 2}, optimizer="production4bit")
-    result_bytes, calls = _reckon((2, 2), 0)[0]
-    link = analysis.collective_bytes(calls)
-    assert rec["collectives"]["result_bytes"] == result_bytes
-    assert {k: rec["collectives"][k] for k in link} == link
-    assert rec["rank_batch"] == 4 and rec["n_chips"] == 4
-    assert rec["roofline"]["collective_bytes"] == link["total"]
-    one = measured.measure(cfg, shape, optimizer="production4bit")
-    # data-split compute: a rank of 2 data shards does half the one-device products
-    assert rec["roofline"]["flops"] * 2 == one["roofline"]["flops"]
-    assert rec["row_tile_leaves"] == []
 
 
 def test_packed_byte_tiles_train_as_one_process(worlds):

@@ -23,6 +23,10 @@ parameters carried across (``convert``). Held to:
   stream parts at its last token, where the two frameworks' bf16 rounding
   flips a near tie); streams reproducible and slot-invariant, no KV leak
   across retire and backfill, early EOS, and the CLI at CPU scale.
+
+Retire and backfill, early EOS and the CLI are in
+``tests/test_torch_recurrent_serve.py`` (pytest-xdist's ``--dist
+loadfile`` hands out the files with the most tests first).
 """
 
 import dataclasses
@@ -54,7 +58,6 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax, serving_params_from_jax  # noqa: E402
 from repro_torch.core.quantizer import QuantizedTensor, dequantize, quantize  # noqa: E402
 from repro_torch.kernels import quant4  # noqa: E402
-from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import LayerSpec, ModelConfig, init_model, named_params  # noqa: E402
 from repro_torch.models import decode_step, init_serve_cache, prefill_with_cache  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -397,40 +400,3 @@ def test_engine_streams_reproducible_and_slot_invariant(tiny):
     c = serve([0, 1, 2, 3, 4], 2)  # restart
     assert a == b == c
     assert len({tuple(v) for v in a.values()}) > 1  # streams differ by rid
-
-
-def test_retire_backfill_no_kv_leak(tiny):
-    _, tparams = tiny
-    prompts = [[5, 6, 7, 8, 9, 10, 11], [12, 13], [14, 15, 16], [17], [18, 19, 20, 21, 22]]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
-    eng = _serve(tparams, reqs, 2)
-    assert eng.materialize_calls["prefill"] >= 3  # three waves through two slots
-    for i, r in enumerate(reqs):
-        solo = Request(rid=i, prompt=prompts[i], max_new_tokens=6)
-        _serve(tparams, [solo], 1)
-        assert r.done and r.output == solo.output, f"rid={i} diverged after backfill"
-
-
-def test_eos_retires_early(tiny):
-    _, tparams = tiny
-    probe = Request(rid=0, prompt=[7, 8, 9], max_new_tokens=4)
-    _serve(tparams, [probe], 1)
-    eos = probe.output[1]
-    r0 = Request(rid=0, prompt=[7, 8, 9], max_new_tokens=4, eos_id=eos)
-    r1 = Request(rid=1, prompt=[10, 11], max_new_tokens=3)
-    _serve(tparams, [r0, r1], 1)
-    assert r0.done and r0.output == probe.output[:2]
-    solo = Request(rid=1, prompt=[10, 11], max_new_tokens=3)
-    _serve(tparams, [solo], 1)
-    assert r1.output == solo.output
-
-
-def test_serve_cli_at_cpu_scale():
-    before = dict(quant4.LAUNCHES)
-    out = serve_cli.main(["--arch", "internlm2-1.8b", "--reduced", "--device", "cpu",
-                          "--weights", "q4", "--requests", "3", "--max-batch", "2",
-                          "--max-new-tokens", "5", "--temperature", "0.8", "--top-k", "5"])
-    assert out["tokens"] == 15 and all(r.done for r in out["requests"])
-    assert out["weight_report"]["quantized_leaves"] == 9
-    assert out["peak_bytes"] is None and out["engine"].phase_ms == {"prefill": [], "decode": []}
-    assert quant4.LAUNCHES == before

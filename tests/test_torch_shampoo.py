@@ -320,3 +320,25 @@ def test_shampoo_registered_in_optimizer_specs():
     state = opt.init(params)
     p2, _ = opt.update({"w": torch.ones(16, 512)}, state, params, key=sr.PRNGKey(0))
     assert bool(torch.all(torch.isfinite(p2["w"])))
+
+
+@pytest.mark.parametrize("threads", [1, 3, 4])
+def test_host_eigh_equals_one_thread_lapack_matrix_for_matrix(threads):
+    """``host_eigh`` (where a batch on the card is decomposed) equals
+    ``torch.linalg.eigh`` on one thread bit for bit, at any thread count, and
+    restores the process's thread count."""
+    from repro_torch.core.optimizers.transform import host_eigh
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(37, 128, 128, generator=g)
+    a = x @ x.transpose(-1, -2) / 128
+    want_w, want_u = torch.linalg.eigh(a)  # the module runs on one thread
+    torch.set_num_threads(threads)
+    try:
+        w, u = host_eigh(a)
+        assert torch.get_num_threads() == threads
+    finally:
+        torch.set_num_threads(1)
+    assert torch.equal(w, want_w) and torch.equal(u, want_u)
+    w0, u0 = host_eigh(a[:0])
+    assert w0.shape == (0, 128) and u0.shape == (0, 128, 128)

@@ -13,10 +13,12 @@ bytes of production4bit state on (2, 4) (the sum of its
 ``addressable_shards``) equal to the port's plan bytes at that
 coordinate; and B1's plain version on every tile of the (2, 2) plan, with
 offsets and max-merged stats, bit-equal to the whole leaf's, RTN and SR.
+
+The axes trees are held in ``tests/test_torch_mesh.py`` and B1's tiles in
+``tests/test_torch_mesh_optim.py`` (pytest-xdist's ``--dist loadfile``
+hands out the files with the most tests first).
 """
 
-import dataclasses
-import itertools
 
 import numpy as np
 import pytest
@@ -33,14 +35,10 @@ from repro.sharding.specs import opt_state_shardings as j_plan  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer, optimizer_names  # noqa: E402
-from repro_torch.core.optimizers.adamw import M_4BIT, V_4BIT  # noqa: E402
-from repro_torch.core.quantizer import quantize  # noqa: E402
 from repro_torch.io.tree import flatten_with_keys  # noqa: E402
-from repro_torch.kernels import adamw4bit, ops, sr  # noqa: E402
 from repro_torch.models import init_model, named_params, param_axes  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.sharding.specs import (  # noqa: E402
-    local_box,
     opt_state_shardings,
     param_shardings,
     plan_leaves,
@@ -77,11 +75,6 @@ def _ref_axes(arch):
 
 def _pad(spec, n):
     return tuple(spec) + (None,) * (n - len(spec))
-
-
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_param_axes_equal_reference(arch):
-    assert param_axes(reduced_config(arch)) == _ref_axes(arch)
 
 
 @pytest.mark.parametrize("sizes", MESHES, ids=["16x16", "2x16x16", "2x4", "4x2"])
@@ -174,71 +167,3 @@ def test_rank_bytes_equal_reference_addressable_shards(internlm2):
     assert len(seen) == 1  # an even plan: every rank holds the same bytes
     whole = sum(t.numel() * t.element_size() for t, _ in plan_leaves(state, plan))
     assert whole > 2 * next(iter(seen))
-
-
-@pytest.mark.parametrize("use_sr", [False, True])
-def test_b1_plain_on_tiles_equals_whole_leaf(use_sr):
-    """Every tile of the (2, 2) plan of reduced internlm2's ``mlp/w1`` (4, 64,
-    256): pass 1 per tile, the per-dim maxima merged (max), pass 2 per tile
-    with the tile's offsets and seed rows -> the whole leaf's result at the
-    tile, bit for bit."""
-    shape, axes = (4, 64, 256), ("layers", "embed", "mlp")
-    sizes = {"data": 2, "model": 2}
-    spec = rules.wire_spec(shape, axes, sizes)
-    assert tuple(spec) == (None, "data", "model")
-    rng = np.random.default_rng(5)
-    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-    g = torch.from_numpy((rng.normal(size=shape) * 0.1).astype(np.float32))
-    mc = dataclasses.replace(M_4BIT, stochastic_rounding=use_sr)
-    vc = dataclasses.replace(V_4BIT, stochastic_rounding=use_sr)
-    m_s = quantize(torch.from_numpy((rng.normal(size=shape) * 0.01).astype(np.float32)), mc)
-    v_s = quantize(torch.from_numpy((np.abs(rng.normal(size=shape)) * 1e-3).astype(np.float32)),
-                   vc)
-    key = sr.PRNGKey(3) if use_sr else None
-    hp = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
-              bc1=np.float32(0.19), bc2=np.float32(0.001999))
-    whole_w = w.clone()
-    _, m2, v2 = ops.fused_adamw4_leaf(whole_w, g, m_s, v_s, **hp, key=key)
-
-    L, R, C = shape
-    tiles = [local_box(spec, shape, dict(zip(sizes, c)), sizes)
-             for c in itertools.product(range(2), range(2))]
-    parts = []
-    for box in tiles:  # pass 1 per tile
-        idx = tuple(slice(a, b) for a, b in box)
-        (r0, r1), (c0, c1) = box[1], box[2]
-        v_r, v_c = ops._rank1_slice_stats(tuple(s[a:b] for s, (a, b) in zip(v_s.scales, box)),
-                                          (L, r1 - r0, c1 - c0))
-        parts.append(adamw4bit.rank1_new_stats(
-            v_s.codes[idx[0], idx[1], c0 // 2:c1 // 2].contiguous(), v_r.contiguous(),
-            v_c.contiguous(), g[idx].contiguous(), vc.table("cpu"), hp["b2"],
-            (L, r1 - r0, c1 - c0)))
-    merged = []
-    for d, n in enumerate(shape):  # the max-merge over the tiles
-        full = torch.zeros(n)
-        for box, st in zip(tiles, parts):
-            full[box[d][0]:box[d][1]] = torch.maximum(full[box[d][0]:box[d][1]], st[d])
-        merged.append(full)
-    for a, b in zip(merged, v2.scales):
-        assert torch.equal(a, b)
-    seeds = ops.seed_rows(key, L) if use_sr else None
-    for box in tiles:  # pass 2 per tile
-        idx = tuple(slice(a, b) for a, b in box)
-        (r0, r1), (c0, c1) = box[1], box[2]
-        tshape = (L, r1 - r0, c1 - c0)
-        old = [tuple(s[a:b] for s, (a, b) in zip(st, box)) for st in (v_s.scales, merged)]
-        (v_r, v_c), (v_rn, v_cn) = (ops._rank1_slice_stats(o, tshape) for o in old)
-        ms = m_s.scales[0].reshape(L, R, C // 128)[:, r0:r1, c0 // 128:c1 // 128]
-        w_t, mp, mscale, vp = adamw4bit.fused_adamw4(
-            w[idx].contiguous(), g[idx].contiguous(),
-            m_s.codes[idx[0], idx[1], c0 // 2:c1 // 2].contiguous(), ms.contiguous(),
-            v_s.codes[idx[0], idx[1], c0 // 2:c1 // 2].contiguous(), v_r.contiguous(),
-            v_c.contiguous(), v_rn.contiguous(), v_cn.contiguous(), mc.table("cpu"),
-            vc.table("cpu"), hp["lr"], hp["bc1"], hp["bc2"], seeds,
-            b1=hp["b1"], b2=hp["b2"], eps=hp["eps"], weight_decay=hp["weight_decay"],
-            use_sr=use_sr, tile=(r0, c0, C))
-        assert torch.equal(w_t, whole_w[idx])
-        assert torch.equal(mp, m2.codes[idx[0], idx[1], c0 // 2:c1 // 2])
-        assert torch.equal(vp, v2.codes[idx[0], idx[1], c0 // 2:c1 // 2])
-        assert torch.equal(mscale, m2.scales[0].reshape(L, R, C // 128)[:, r0:r1,
-                                                                         c0 // 128:c1 // 128])

@@ -26,6 +26,9 @@
   ``prefill`` over embeds and image positions plus six decode steps,
   logits within 2e-2 absolute of the reference's
   (``tests/test_torch_serving.py``'s bound).
+
+Also here: the structural state bytes of every optimizer at full size
+(``tests/test_torch_optim.py``).
 """
 
 import numpy as np
@@ -35,28 +38,35 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_torch_encdec import encdec_batch  # noqa: E402
-from test_torch_vl import vl_batch  # noqa: E402
 
-from repro.configs import get_config as j_get_config  # noqa: E402
-from repro.configs import reduced_config as j_reduced  # noqa: E402
-from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
-from repro.core.optimizers import state_nbytes as j_state_nbytes  # noqa: E402
+from repro.configs import get_config as j_get_config, reduced_config as j_reduced  # noqa: E402
+from repro.core.optimizers import (  # noqa: E402
+    make_optimizer as j_make,
+    state_nbytes as j_state_nbytes,
+)
 from repro.core.optimizers.presets import production_labels as j_labels  # noqa: E402
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
 from repro.core.quantizer import QuantizedTensor as JQ  # noqa: E402
-from repro.models import decode_step as j_decode_step  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
-from repro.models import init_serve_cache as j_init_serve_cache  # noqa: E402
-from repro.models import prefill as j_prefill  # noqa: E402
-from repro.models.layers import COMPUTE_DTYPE as J_COMPUTE  # noqa: E402
-from repro.models.layers import sinusoidal_positions as j_sinusoidal_positions  # noqa: E402
-from repro.models.model import _final_norm as j_final_norm  # noqa: E402
-from repro.models.model import _run_units as j_run_units  # noqa: E402
-from repro.models.model import plan_scan_units as j_plan  # noqa: E402
-from repro.serve import materialize as j_materialize  # noqa: E402
-from repro.serve import prepare_params as j_prepare_params  # noqa: E402
-from repro.serve import weight_report as j_weight_report  # noqa: E402
+from repro.models import (  # noqa: E402
+    decode_step as j_decode_step,
+    init_model as j_init,
+    init_serve_cache as j_init_serve_cache,
+    prefill as j_prefill,
+)
+from repro.models.layers import (  # noqa: E402
+    COMPUTE_DTYPE as J_COMPUTE,
+    sinusoidal_positions as j_sinusoidal_positions,
+)
+from repro.models.model import (  # noqa: E402
+    _final_norm as j_final_norm,
+    _run_units as j_run_units,
+    plan_scan_units as j_plan,
+)
+from repro.serve import (  # noqa: E402
+    materialize as j_materialize,
+    prepare_params as j_prepare_params,
+    weight_report as j_weight_report,
+)
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax, serving_params_from_jax  # noqa: E402
 from repro_torch.core.optimizers import make_optimizer, state_nbytes  # noqa: E402
@@ -75,6 +85,10 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.serve import materialize, prepare_params, weight_report  # noqa: E402
 from repro_torch.serve.weights import kernel_view  # noqa: E402
+from test_torch_encdec import encdec_batch  # noqa: E402
+from test_torch_optim import _gpt2m_cfg  # noqa: E402
+from test_torch_vl import vl_batch  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -107,7 +121,7 @@ def _is_fused(label, p):
 @pytest.mark.parametrize("arch", STUB_ARCHS)
 def test_production4bit_sr_update_bit_equal(arch):
     jparams = jax.tree_util.tree_map(
-        np.asarray, jax.jit(lambda k: j_init(k, j_reduced(arch))[0])(jax.random.PRNGKey(0)))
+        np.asarray, ref_params(j_reduced(arch)))
     tparams = params_from_jax(jparams, device="cpu")
     jopt = j_make("production4bit", j_sched(1e-3, 1, 10))
     topt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, 10))
@@ -195,7 +209,7 @@ def _j_encode(jcfg, p, frames):
 @pytest.mark.parametrize("arch", STUB_ARCHS)
 def test_q4_serving_matches_reference(arch):
     jcfg, cfg = j_reduced(arch), reduced_config(arch)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     jtree = jax.jit(lambda p: j_prepare_params(p, "q4"))(jparams)
     jflat = serving_params_from_jax(jax.tree_util.tree_map(np.asarray, jtree), device="cpu")
@@ -241,3 +255,21 @@ def test_q4_serving_matches_reference(arch):
             want.append(np.asarray(jl))
     for i, (a, b) in enumerate(zip(got, want)):
         assert np.max(np.abs(a - b)) < 2e-2, (arch, i, np.max(np.abs(a - b)))
+
+
+@pytest.mark.parametrize("cfg_name,opt_name,expected", [
+    ("gpt2m", "production4bit", 1_135_298_392),
+    ("gpt2m", "adamw32", 3_239_731_212),
+    ("internlm2-1.8b", "production4bit", 4_590_578_552),
+    # the reference's eval_shape counts at full internlm2-1.8b size
+    ("internlm2-1.8b", "sm3", 7_557_380_132),
+    ("internlm2-1.8b", "adafactor", 7_645_301_960),
+    ("internlm2-1.8b", "factor4bit", 1_092_458_700),
+    ("internlm2-1.8b", "shampoo32", 45_341_376_524),
+    ("internlm2-1.8b", "shampoo4bit", 5_963_813_036),
+])
+def test_structural_state_bytes(cfg_name, opt_name, expected):
+    cfg = _gpt2m_cfg() if cfg_name == "gpt2m" else get_config(cfg_name)
+    params = named_params(init_model(cfg, device="meta"))
+    opt = make_optimizer(opt_name, 1e-3)
+    assert state_nbytes(opt.init(params)) == expected

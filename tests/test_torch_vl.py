@@ -38,7 +38,6 @@ from repro.configs import reduced_config as j_reduced  # noqa: E402
 from repro.core.optimizers import make_optimizer as j_make  # noqa: E402
 from repro.core.optimizers.schedule import linear_warmup_linear_decay as j_sched  # noqa: E402
 from repro.models import decode_step as j_decode_step  # noqa: E402
-from repro.models import init_model as j_init  # noqa: E402
 from repro.models import init_serve_cache as j_init_serve_cache  # noqa: E402
 from repro.models import loss_fn as j_loss_fn  # noqa: E402
 from repro.models import prefill as j_prefill  # noqa: E402
@@ -63,6 +62,7 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.models.layers import COMPUTE_DTYPE, mrope  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
+from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -132,7 +132,7 @@ def test_mrope_matches_reference(sections, dtype):
 
 def test_loss_grads_and_prefill_match_reference():
     jcfg, cfg = j_reduced(VL), reduced_config(VL)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     b = vl_batch(cfg, 1)
     (jl, _), jg = jax.jit(jax.value_and_grad(lambda p: j_loss_fn(p, jcfg, b), has_aux=True))(
@@ -158,7 +158,7 @@ def test_loss_grads_and_prefill_match_reference():
 
 def test_decode_matches_teacher_forced():
     jcfg, cfg = j_reduced(VL), reduced_config(VL)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     B, S = 2, 12
     tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
@@ -197,7 +197,7 @@ def test_decode_matches_teacher_forced():
 
 def test_accum_steps_slice_positions_on_their_batch_dim():
     jcfg, cfg = j_reduced(VL), reduced_config(VL)
-    jparams = jax.jit(lambda k: j_init(k, jcfg)[0])(jax.random.PRNGKey(0))
+    jparams = ref_params(jcfg)
     model = _port_model(cfg, jparams)
     steps = 2
     jopt = j_make("production4bit", j_sched(1e-3, 1, steps))

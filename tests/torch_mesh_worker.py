@@ -4,14 +4,17 @@
 through a ``FileStore`` in ``tmp`` (never a fixed port), runs every task
 in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
-``kind`` (``allreduce``, ``reduce``, ``step``, ``losses``, ``collectives``, and the checkpoint
-kinds ``save``, ``restore``, ``resume``, ``protocol``) and its inputs; a task
+``kind`` (``allreduce``, ``reduce``, ``step``, ``optim``, ``optim_one``, ``losses``,
+``collectives``, and the checkpoint kinds ``save``, ``restore``, ``resume``, ``mesh_ckpt``,
+``protocol``) and its inputs; a task
 with ``after`` waits until that file exists (the caller writes its inputs
 meanwhile). Each rank runs on one CPU thread (pytest runs several workers
 at once).
 """
 
+import contextlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -122,6 +125,156 @@ def _step(task, rank):
     return out
 
 
+@contextlib.contextmanager
+def _compute_dtype(dtype):
+    """The port's models compute in ``dtype`` within the block (every loaded
+    ``repro_torch`` module's ``COMPUTE_DTYPE``, bound at import, set)."""
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch.") and hasattr(m, "COMPUTE_DTYPE")]
+    old = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        for m, d in zip(mods, old):
+            m.COMPUTE_DTYPE = d
+
+
+def _run_losses(fn, state, batches):
+    losses = []
+    for batch in batches:
+        state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def _optim(task, rank):
+    """``_step`` on each of ``task["meshes"]`` for each of
+    ``task["optimizers"]`` (``(name, overrides)``): the update fed the whole
+    gradients for two steps (with the eigh blocks each step computed here,
+    and the shapes this rank holds against its plan's), then the end-to-end
+    losses; ``{mesh: {optimizer: result}}``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import load_params
+    from repro_torch.core.optimizers import make_optimizer, state_nbytes
+    from repro_torch.core.optimizers.transform import EIGH
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Transformer, init_model, named_params, param_axes
+    from repro_torch.sharding.specs import local_box, plan_leaves, plan_nbytes
+    from repro_torch.train.mesh import _mirror_leaves
+    from repro_torch.train.train_loop import (
+        build_train_step,
+        make_train_state,
+        shard_train_state,
+    )
+
+    cfg = reduced_config(task["arch"])
+    axes = param_axes(cfg)
+    key = sr.PRNGKey(task["sr_seed"])
+    params = {k: torch.from_numpy(v) for k, v in task["params"].items()}
+    meta = named_params(init_model(cfg, device="meta"))
+    out = {}
+    for shape, (name, ov) in ((m, o) for m in task["meshes"] for o in task["optimizers"]):
+        mesh = make_mesh(shape, ("data", "model"))
+        def fresh():
+            model = Transformer(cfg, device="cpu")
+            load_params(model, params)
+            opt = make_optimizer(name, task["lr"], **ov)
+            state = make_train_state(model, opt, key=key)
+            return model, opt, shard_train_state(state, mesh, axes)
+
+        res = {}
+        model, opt, state = fresh()
+        ms = build_train_step(model, opt, mesh, axes).mesh_step
+        meta_state = opt.init(meta)
+        res["state_bytes"] = state_nbytes(state.opt_state)
+        res["plan_bytes"] = plan_nbytes(meta_state, ms.state_plan, ms.run.coord, ms.run.sizes)
+        res["held"] = [(tuple(t.shape), local_box(p, tuple(w.shape), ms.run.coord, ms.run.sizes),
+                        tuple(w.shape))
+                       for (t, _), (w, p) in zip(plan_leaves(state.opt_state, ms.state_plan),
+                                                 plan_leaves(meta_state, ms.state_plan))]
+        # the parameters several ranks hold a box of, the ranges of whole
+        # blocks of each Shampoo leaf, and each factor stack held (local
+        # and whole shape of its tensor, or of its codes)
+        res["shared_boxes"] = [k for k, t in ms.work_tiles.items()
+                               if isinstance(k, str) and len(t.firsts()) < ms.run.world]
+        res["block_ranges"] = {k: sorted({b[0] for b in t.boxes})
+                               for (k, f), t in ((k, t) for k, t in ms.work_tiles.items()
+                                                 if isinstance(k, tuple)) if f == "stats_l"}
+        held = lambda v: tuple((v.codes if hasattr(v, "codes") else v).shape)
+        whole = {(k, f): held(v) for k, f, v in _mirror_leaves(meta_state, ms.shapes)
+                 if (k, f) in ms.stack_work}
+        res["stacks"] = [(k, f, held(v), whole[(k, f)])
+                         for k, f, v in _mirror_leaves(state.opt_state, ms.shapes)
+                         if (k, f) in ms.stack_work]
+        res["eigh_blocks"] = []
+        for t, g in enumerate(task["grads"]):
+            tiles = {k: torch.from_numpy(v)[ms.tiles[k].index()].clone() for k, v in g.items()}
+            EIGH["blocks"] = 0
+            with torch.no_grad():
+                state.opt_state = ms.update(opt, tiles, state.opt_state, state.params,
+                                            key=sr.fold_in(key, t))
+            res["eigh_blocks"].append(EIGH["blocks"])
+        res["params"] = ms.whole_params(state.params)
+        res["opt_state"] = ms.whole_state(state.opt_state)
+        model, opt, state = fresh()
+        res["losses"] = _run_losses(build_train_step(model, opt, mesh, axes), state,
+                                    task["batches"])
+        if shape[0] > 1:  # the batch split over data: also in fp32 compute
+            with _compute_dtype(torch.float32):
+                model, opt, state = fresh()
+                res["losses_fp32"] = _run_losses(build_train_step(model, opt, mesh, axes),
+                                                 state, task["batches"])
+        out.setdefault(shape, {})[name] = res
+    return out
+
+
+def _optim_one(task, rank):
+    """``_optim``'s runs in one process, off the mesh (a world of one): the
+    update fed the whole gradients (with the eigh blocks of each step) and
+    the end-to-end losses."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import load_params
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.core.optimizers.transform import EIGH
+    from repro_torch.kernels import sr
+    from repro_torch.models import Transformer
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    cfg = reduced_config(task["arch"])
+    key = sr.PRNGKey(task["sr_seed"])
+    params = {k: torch.from_numpy(v) for k, v in task["params"].items()}
+    out = {}
+    for name, ov in task["optimizers"]:
+        def fresh():
+            model = Transformer(cfg, device="cpu")
+            load_params(model, params)
+            opt = make_optimizer(name, task["lr"], **ov)
+            return model, opt, make_train_state(model, opt, key=key)
+
+        model, opt, state = fresh()
+        eigh = []
+        for t, g in enumerate(task["grads"]):
+            EIGH["blocks"] = 0
+            with torch.no_grad():
+                _, state.opt_state = opt.update({k: torch.from_numpy(v) for k, v in g.items()},
+                                                state.opt_state, state.params,
+                                                key=sr.fold_in(key, t))
+            eigh.append(EIGH["blocks"])
+        res = {"params": {k: p.detach().clone() for k, p in state.params.items()},
+               "state": state.opt_state, "eigh_blocks": eigh}
+        model, opt, state = fresh()
+        res["losses"] = _run_losses(build_train_step(model, opt), state, task["batches"])
+        with _compute_dtype(torch.float32):
+            model, opt, state = fresh()
+            res["losses_fp32"] = _run_losses(build_train_step(model, opt), state,
+                                             task["batches"])
+        out[name] = res
+    return out
+
+
 def _losses(task, rank):
     """End-to-end losses of the mesh step from ``init_model(seed=0)`` (the
     reduced config with the task's ``overrides``, if any)."""
@@ -188,6 +341,41 @@ def _collectives(task, rank):
     return out
 
 
+def _slots(task, rank):
+    """The shared-memory transport's chunked rounds against gloo's own
+    transport: slots opened at ``HOST_MIN_BYTES`` (the least that takes
+    them), payloads of several slots, over the world and over a group of
+    ranks 0 and 2; the slots then opened again at their default size."""
+    from repro_torch.comms import collectives as C
+
+    world = dist.get_world_size()
+    g = torch.Generator().manual_seed(rank)
+    # fp32 elements: the gather's payload 3 slots and a bit, the exchange's
+    # pieces a slot and a bit each (a round carries a slot / world of each)
+    x = torch.randn(3 * C.HOST_MIN_BYTES // 4 + 5, generator=g)
+    pieces = torch.randn(world, C.HOST_MIN_BYTES // 4 + 7, generator=g)
+    pair = dist.new_group([0, 2])
+
+    def run():
+        out = {"gather": C.all_gather(x), "exchange": C.all_to_all(pieces)}
+        if rank in (0, 2):
+            out["pair_gather"] = C.all_gather(x, pair)
+            out["pair_exchange"] = C.all_to_all(pieces[:2], pair)
+        return out
+
+    assert C.open_host_slots(C.HOST_MIN_BYTES)
+    chunk = C._SLOTS.plan(None)[0]
+    shm = run()
+    C.close_host_slots()
+    assert C._SLOTS.plan(None) is None
+    gloo = run()
+    C.open_host_slots()
+    return {"chunk": chunk, "x_bytes": x.numel() * 4, "piece_bytes": pieces[0].numel() * 4,
+            "equal": {k: torch.equal(shm[k], gloo[k]) for k in gloo},
+            "shm": shm, "gloo": gloo,
+            "left": [f for f in os.listdir("/dev/shm") if f.startswith(f"repro_{os.getpid()}_")]}
+
+
 def _ckpt_setup(task):
     """(cfg, optimizer, SR key, axes) of a checkpoint task."""
     from repro_torch.configs import reduced_config
@@ -196,8 +384,8 @@ def _ckpt_setup(task):
     from repro_torch.models import param_axes
 
     cfg = reduced_config(task["arch"])
-    return (cfg, make_optimizer(task["optimizer"], task["lr"]), sr.PRNGKey(task["sr_seed"]),
-            param_axes(cfg))
+    return (cfg, make_optimizer(task["optimizer"], task["lr"], **task.get("overrides", {})),
+            sr.PRNGKey(task["sr_seed"]), param_axes(cfg))
 
 
 def _plan(cfg, opt, key, axes, mesh):
@@ -298,6 +486,42 @@ def _resume(task, rank):
             "opt_state": ms.whole_state(new)}
 
 
+def _mesh_ckpt(task, rank):
+    """A nonzero state on (2, 1) (two mesh updates fed the whole ``grads``)
+    saved into ``dst`` with its plan, then restored on (1, 2) in the same
+    processes: both whole states, gathered on every rank."""
+    from repro_torch.io import restore_checkpoint, save_checkpoint
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import abstract_train_state
+    from repro_torch.models import init_model
+    from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+
+    cfg, opt, key, axes = _ckpt_setup(task)
+    mesh = make_mesh((2, 1), ("data", "model"))
+    model = init_model(cfg, seed=0, device="cpu")
+    state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
+    ms = build_train_step(model, opt, mesh, axes).mesh_step
+    for t, g in enumerate(task["grads"]):
+        tiles = {k: torch.from_numpy(v)[ms.tiles[k].index()].clone() for k, v in g.items()}
+        with torch.no_grad():
+            state.opt_state = ms.update(opt, tiles, state.opt_state, state.params,
+                                        key=sr.fold_in(key, t))
+    state.step = len(task["grads"])
+    save_checkpoint(task["dst"], state.step, state, shardings=_plan(cfg, opt, key, axes, mesh),
+                    mesh=mesh)
+    out = {"saved": {"params": ms.whole_params(state.params),
+                     "opt_state": ms.whole_state(state.opt_state)}}
+    mesh2 = make_mesh((1, 2), ("data", "model"))
+    model2, target = abstract_train_state(cfg, opt, key=key, device="cpu", mesh=mesh2, axes=axes)
+    got, _ = restore_checkpoint(task["dst"], target, device="cpu",
+                                shardings=_plan(cfg, opt, key, axes, mesh2), mesh=mesh2)
+    ms2 = build_train_step(model2, opt, mesh2, axes).mesh_step
+    out["restored"] = {"params": ms2.whole_params(got.params),
+                       "opt_state": ms2.whole_state(got.opt_state), "step": int(got.step)}
+    return out
+
+
 def _protocol(task, rank):
     """The commit protocol in ``dir``: a save, then one whose rank 1 dies at
     the ``ckpt_written`` seam (short rendezvous timeout), then a re-save
@@ -355,15 +579,21 @@ def _protocol(task, rank):
     return out
 
 
-TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "losses": _losses,
-         "collectives": _collectives,
-         "save": _save, "restore": _restore, "resume": _resume, "protocol": _protocol}
+TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "optim": _optim,
+         "optim_one": _optim_one, "losses": _losses,
+         "collectives": _collectives, "slots": _slots,
+         "save": _save, "restore": _restore, "resume": _resume, "mesh_ckpt": _mesh_ckpt,
+         "protocol": _protocol}
 
 
-def _rank(rank, world, store, tasks, out_dir):
+def _rank(rank, world, store, tasks_file, out_dir):
     torch.set_num_threads(1)
+    tasks = torch.load(tasks_file, weights_only=False)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
     try:
+        from repro_torch.comms.collectives import open_host_slots
+
+        open_host_slots()
         res = {}
         for name, t in tasks.items():
             if t.get("after"):
@@ -374,14 +604,22 @@ def _rank(rank, world, store, tasks, out_dir):
                     time.sleep(0.05)
             res[name] = TASKS[t["kind"]](t, rank)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
     finally:
+        from repro_torch.comms.collectives import close_host_slots
+
+        close_host_slots()
         dist.destroy_process_group()
 
 
 def start(world, tasks, tmp):
     """Start the world; ``collect`` waits for it and returns each rank's results."""
     os.makedirs(tmp, exist_ok=True)
-    ctx = mp.start_processes(_rank, args=(world, os.path.join(tmp, "store"), tasks, tmp),
+    # the ranks read the tasks from a file: a task's arrays pickled to each
+    # spawned process take seconds
+    tasks_file = os.path.join(tmp, "tasks.pt")
+    torch.save(tasks, tasks_file)
+    ctx = mp.start_processes(_rank, args=(world, os.path.join(tmp, "store"), tasks_file, tmp),
                              nprocs=world, join=False, start_method="spawn")
     return ctx, world, tmp
 
