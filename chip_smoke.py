@@ -114,7 +114,8 @@ Phases, each failing the run on error:
     exact); time both passes by event pairs against their bounds and sum
     each arch's step;
 15. drive each of the three archs through ``repro_torch.launch.train`` at
-    full width, production4bit with SR, 5 steps of batch 8 x seq 128, with
+    full width, production4bit with SR, ``ARCH_STEPS`` (3; 5 before phase
+    40 took their time) steps of batch 8 x seq 128, with
     every launch count set to 0 just before and read just after: gemma2-2b
     at its 26 layers, qwen3-4b at ``QWEN3_LAYERS`` of 36 and chatglm3-6b at
     ``CHATGLM3_LAYERS`` of 28 (the unfused SR draw grows the peak ~1.6 and
@@ -151,8 +152,8 @@ Phases, each failing the run on error:
     on windows at the start, around 2^31 and 2^32, and at the end; timed;
 21. drive each MoE arch through ``repro_torch.launch.train`` at full width,
     cut in depth only (``PHI35_TRAIN_LAYERS``, ``MIXTRAL_TRAIN_LAYERS`` of 32),
-    production4bit with SR, 5 steps of batch 8 x seq 128, counts set to 0
-    just before and read just after: state bytes (the reference's count at
+    production4bit with SR, ``ARCH_STEPS`` steps of batch 8 x seq 128,
+    counts set to 0 just before and read just after: state bytes (the reference's count at
     that depth), 4 launches of each B1 pass a step, none of B2/B3, ce and
     aux losses finite (aux positive), the total falling; step ms split into
     model and optimizer, peak memory;
@@ -174,8 +175,8 @@ Phases, each failing the run on error:
     (3, 768, 1024) / (3, 1024, 768); time both passes against their bounds
     and sum the step;
 25. drive xlstm-125m and hymba-1.5b through ``repro_torch.launch.train`` at
-    full width, production4bit with SR, 5 steps of batch 8 x seq 128, counts
-    set to 0 just before and read just after, at the depths of
+    full width, production4bit with SR, ``ARCH_STEPS`` steps of batch 8 x
+    seq 128, counts set to 0 just before and read just after, at the depths of
     ``RECURRENT_TRAIN``: state bytes (the reference's counts), 11 / 0
     launches of each B1 pass a step (hymba has no last dim that is a
     multiple of 256: its 1.33 G 4-bit elements take the unfused SR draw),
@@ -302,7 +303,8 @@ Phases, each failing the run on error:
     launches included) within 2% of (b)'s;
     not a path run, so its launches are not in the kernel table; (d) phase
     35's collective bytes, reckoned from the plan with no world
-    (``MeshStep.reckon``), equal to the bytes each of its steps recorded.
+    (``MeshStep.reckon``), equal to the bytes each of its steps recorded,
+    and likewise phase 40's (1, 2) cell.
 39. the rules that need whole-leaf statistics on the mesh, through the train
     CLI: ``--mesh 2x1`` (two processes on ``cuda:0`` over gloo, as in phase
     35), internlm2-1.8b at full width on phase 11's depth (1 of the 24
@@ -314,18 +316,33 @@ Phases, each failing the run on error:
     launch on either rank (none of these rules has a kernel route); prints
     each step's split into compute, collective and update, and each rank's
     eigh matrices and seconds on Shampoo's recompute step.
+40. the mesh step computing tensor-parallel on the model axis, in phase
+    35's two processes after phase 36: internlm2-1.8b at full width and
+    depth on a (data=1, model=2) mesh, production4bit with SR, 2 steps of
+    batch 8 x seq 128: each rank computes its 8 of the 16 heads, its 4096
+    of the 8192 mlp columns and its half of the vocabulary, and sums the
+    partials over the pair (``sharding.tensor_parallel``); both ranks'
+    losses bit-equal and within 1e-4 relative of phase 6's, each rank's
+    state bytes equal to its plan's, 4 launches of each B1 pass a step on
+    each rank and none of B2/B3, the collective bytes each step recorded
+    equal to ``MeshStep.reckon``'s (reckoned on ``meta``, and again in
+    phase 38 (d)); prints each step's split into compute, collective and
+    update, each rank's peak, the reckoning before this slice
+    (11,334,660,216 B a step a rank) beside the new one, and the fp32 and
+    bf16 row-parallel partial products of ``wo`` and ``w2`` timed on the
+    card.
 
 Each phase's seconds are printed as it ends (``phase clock:``) and kept in
 ``chiprun_out/chip_smoke.json``.
 
 The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
-30, 35 and 37 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0
+30, 35, 37 and 40 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0
 just before it (a spawned rank's counts start at 0 with its process); phase
 39's runs count none.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
-phases 10 and 34-37 alone (no result lines); ``--mesh-optim-phases`` runs phases 11
+phases 10, 34-37 and 40 alone (no result lines); ``--mesh-optim-phases`` runs phases 11
 and 39 alone. Needs a CUDA card and the repository
 beside it; without either it
 exits non-zero and prints no result.
@@ -363,6 +380,10 @@ SR_ALU_OPS_PER_ELEMENT = 2 * (19 + 19) - 1
 EXPECTED_LOSSES = (11.8285, 11.6147, 11.5683, 11.3304, 11.3129)
 STATE_BYTES_INTERNLM2 = 4_590_578_552
 STEPS = 5
+# phases 15, 21 and 25: steps of each arch's CLI run (5 before slice 15, which
+# cut them to 3 to make room for phase 40: every check holds at 3; the last
+# two steps of the seven runs took ~25 s on an H100 80GB HBM3 at 700 W)
+ARCH_STEPS = 3
 TRAIN_ARGS = ["--arch", "internlm2-1.8b", "--optimizer", "production4bit", "--sr-seed", "0",
               "--steps", str(STEPS), "--batch", "8", "--seq", "128", "--device", "cuda"]
 # the fused leaves of internlm2-1.8b: (names, shape, leaves of that shape)
@@ -591,6 +612,11 @@ TILE_MESHES = ((2, 1), (1, 2), (2, 2))
 MESH_SHAPE, MESH_STEPS = (2, 1), 2
 ALL_REDUCE_LEAVES = (("wq", (2048, 16, 128)), ("wo", (16, 128, 2048)), ("w1", (2048, 8192)),
                      ("w2", (8192, 2048)), ("norm1", (2048,)))
+# phase 40 (slice 15): the tensor-parallel mesh, its steps, and the collective
+# bytes a step a rank that MeshStep.reckon gave this (1, 2) cell before the
+# compute was split (every fp32 layer gathered over the model axis)
+TP_SHAPE, TP_STEPS = (1, 2), 2
+TP_RECKON_BEFORE = 11_334_660_216
 # phases 10 and 37 (slices 5 and 12): the checkpoint runs, all with the same
 # --steps (the CLI's schedule spans them) and the step saved, at 2 of the 24
 # layers: an even depth, so the stacked leaves' layer dim splits over data=2
@@ -1962,7 +1988,8 @@ def _arch_args(arch, steps=STEPS):
 
 def phase_arch_train(counters, table=ARCH_TRAIN):
     """Each arch of ``table`` through the CLI at full width, production4bit
-    with SR, 5 steps of batch 8 x seq 128, at the depth the table gives it;
+    with SR, ``ARCH_STEPS`` steps of batch 8 x seq 128, at the depth the
+    table gives it;
     where it names a probe depth, a 2-step run there first, and the full
     depth's peak extrapolated per layer from the two. MoE archs: their aux
     losses finite and positive."""
@@ -1976,7 +2003,7 @@ def phase_arch_train(counters, table=ARCH_TRAIN):
             _check_trains(probe, f"{arch} probe")
             res["probe"] = dict(layers=probe_layers, peak_bytes=probe["peak_bytes"],
                                 state_bytes=probe["state_bytes"], step_ms=probe["step_ms"])
-        run = _cli_run(counters, _arch_args(arch), None if layers == full else layers)
+        run = _cli_run(counters, _arch_args(arch, ARCH_STEPS), None if layers == full else layers)
         what = f"{arch} at {layers} of {full} layers"
         _print_run(run, what)
         _check_trains(run, what)
@@ -1986,7 +2013,7 @@ def phase_arch_train(counters, table=ARCH_TRAIN):
         if run["state_bytes"] != state_bytes:
             fail(f"{what}: state_bytes {run['state_bytes']:,} != {state_bytes:,}")
         for name in ("fused_adamw4", "rank1_new_stats"):
-            if run["launches"][name] != fused * STEPS:
+            if run["launches"][name] != fused * ARCH_STEPS:
                 fail(f"{what}: {name} launched {run['launches'][name]} times, expected "
                      f"{fused} a step")
         if (run["launches"]["quantize_blockwise_4bit"]
@@ -2006,8 +2033,9 @@ def phase_arch_train(counters, table=ARCH_TRAIN):
         split = run["split"][1:]
         res["model_ms_median"] = _median([x["model_ms"] for x in split])
         res["optimizer_ms_median"] = _median([x["optimizer_ms"] for x in split])
-        print(f"{what}: step {res['step_ms_median']:.1f} ms (median of steps 1-4; model "
-              f"{res['model_ms_median']:.1f}, optimizer {res['optimizer_ms_median']:.1f} ms), "
+        print(f"{what}: step {res['step_ms_median']:.1f} ms (median of steps "
+              f"1-{ARCH_STEPS - 1}; model {res['model_ms_median']:.1f}, optimizer "
+              f"{res['optimizer_ms_median']:.1f} ms), "
               f"peak {run['peak_bytes'] / 1e9:.2f} GB, B1 {fused} launches of each pass a step")
         out[arch] = res
     return out
@@ -3058,6 +3086,99 @@ def _mesh_train(rank, dev, counters):
     return res
 
 
+def _mesh_tp_train(rank, dev, counters):
+    """Phase 40 in one rank: 2 steps on the (data=1, model=2) mesh, the
+    compute split over the model axis; counts from 0 just before the steps
+    and read just after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizers import (
+        linear_warmup_linear_decay,
+        make_optimizer,
+        state_nbytes,
+    )
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.sharding.specs import plan_nbytes
+    from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+
+    cfg = get_config("internlm2-1.8b")
+    opt = make_optimizer("production4bit", linear_warmup_linear_decay(1e-3, 1, STEPS))
+    mesh = make_mesh(TP_SHAPE, ("data", "model"))
+    axes = param_axes(cfg)
+    key = sr.PRNGKey(0)
+    model = init_model(cfg, seed=0, device=dev)
+    state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
+    fn = build_train_step(model, opt, mesh, axes)
+    ms = fn.mesh_step
+    meta = named_params(init_model(cfg, device="meta"))
+    res = {"split": sum(d is not None for d in ms.split.values()),
+           "gathered": sum(d is None for d in ms.split.values()),
+           "state_bytes": state_nbytes(state.opt_state),
+           "plan_bytes": plan_nbytes(opt.init(meta), ms.state_plan, ms.run.coord, ms.run.sizes),
+           "param_bytes": sum(p.numel() * 4 for p in state.params.values())}
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    steps = []
+    for t in range(TP_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(t).items()}
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append({"step": t, "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                      **fn.times})
+    res["launches"] = _read(counters)
+    res["steps"] = steps
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    res["state_bytes_after"] = state_nbytes(state.opt_state)
+    return res
+
+
+def _tp_reckoned():
+    """Phase 40's cell reckoned on ``meta`` (``roofline.measured.measure``
+    walks ``MeshStep.reckon`` with the global batch): its record."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.roofline.measured import measure
+
+    arch, batch, seq, opt_name = ROOFLINE_ARGS
+    return measure(get_config(arch), ShapeSpec(f"train_{batch}x{seq}", seq, batch, "train"),
+                   dict(zip(("data", "model"), TP_SHAPE)), optimizer=opt_name)
+
+
+def _partial_times(dev, n=21):
+    """The row-parallel products of one (1, 2) rank at phase 40's shapes
+    (``wo``: 8 of 16 heads, ``w2``: 4096 of 8192 columns), bf16 operands:
+    the partial in fp32 (what the port runs) and in bf16; medians of ``n``
+    CUDA-event timings, ms."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    cases = {"wo": ("bshe,hed->bsd", bf(8, 128, 8, 128), bf(8, 128, 2048)),
+             "w2": ("bsf,fd->bsd", bf(8, 128, 4096), bf(4096, 2048))}
+    out = {}
+    for name, (spec, a, w) in cases.items():
+        for kind, fn in (("fp32", lambda: torch.einsum(spec, a.float(), w.float())),
+                         ("bf16", lambda: torch.einsum(spec, a, w))):
+            fn()
+            times = []
+            for _ in range(n):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1))
+            out[f"{name}_{kind}_ms"] = _median(times)
+    return out
+
+
 def _mesh_all_reduce(rank, dev):
     """Phase 36 in one rank: quantized_all_reduce (int4, SR) on leaves of
     internlm2-1.8b's shapes against the host oracle computed on the card."""
@@ -3094,7 +3215,7 @@ def _mesh_all_reduce(rank, dev):
 
 
 def _mesh_child(rank, world, run_dir):
-    """One rank of phases 35-36: ``cuda:0`` shared with the other rank, gloo
+    """One rank of phases 35, 36 and 40: ``cuda:0`` shared with the other rank, gloo
     through a FileStore in ``run_dir``; results to ``rank<r>.json``."""
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -3111,8 +3232,11 @@ def _mesh_child(rank, world, run_dir):
         from repro_torch.comms.collectives import open_host_slots
 
         open_host_slots()
-        res = {"train": _mesh_train(rank, dev, (adamw4bit.LAUNCHES, quant4.LAUNCHES)),
+        counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
+        res = {"train": _mesh_train(rank, dev, counters),
                "all_reduce": _mesh_all_reduce(rank, dev)}
+        torch.cuda.empty_cache()
+        res["tp"] = _mesh_tp_train(rank, dev, counters)
         with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -3120,8 +3244,9 @@ def _mesh_child(rank, world, run_dir):
 
 
 def phase_mesh():
-    """Phases 35-36: two processes on ``cuda:0`` over gloo (NCCL refuses two
-    ranks on one device; gloo moves CUDA tensors through host memory)."""
+    """Phases 35, 36 and 40: two processes on ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one device; gloo moves CUDA tensors through host
+    memory)."""
     import torch
     import torch.multiprocessing as mp
 
@@ -3181,8 +3306,59 @@ def phase_mesh():
     for row in ranks[0]["all_reduce"]:
         print(f"quantized_all_reduce int4+SR {row['leaf']} {tuple(row['shape'])}: both ranks "
               f"bit-equal to the host oracle on the card, {row['ms']:.1f} ms on rank 0")
-    print(f"mesh phases (35-36): {wall:.1f} s with both processes' start")
-    return {"launches": launches, "ranks": ranks, "seconds": wall}
+    # phase 40
+    tp = [res["tp"] for res in ranks]
+    tp_launches = {}
+    for r, tr in enumerate(tp):
+        if tr["state_bytes"] != tr["plan_bytes"] or tr["state_bytes_after"] != tr["plan_bytes"]:
+            fail(f"tensor-parallel rank {r}: state bytes {tr['state_bytes']} / "
+                 f"{tr['state_bytes_after']} != the plan's {tr['plan_bytes']}")
+        for k, v in tr["launches"].items():
+            tp_launches[k] = tp_launches.get(k, 0) + v
+        for name in ("fused_adamw4", "rank1_new_stats"):
+            if tr["launches"][name] != 4 * TP_STEPS:
+                fail(f"tensor-parallel rank {r}: {name} launched {tr['launches'][name]} times, "
+                     f"expected {4 * TP_STEPS} (4 leaves a step on the rank's tiles)")
+        if tr["launches"]["quantize_blockwise_4bit"] or tr["launches"]["dequantize_blockwise_4bit"]:
+            fail(f"tensor-parallel rank {r}: the training path launched the q4 kernels")
+        losses = [s["loss"] for s in tr["steps"]]
+        for a, b in zip(losses, EXPECTED_LOSSES):
+            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+                fail(f"tensor-parallel rank {r}: losses {losses} not within 1e-4 relative of "
+                     f"phase 6's {EXPECTED_LOSSES[:TP_STEPS]}")
+    if [s["loss"] for s in tp[0]["steps"]] != [s["loss"] for s in tp[1]["steps"]]:
+        fail(f"tensor-parallel: the ranks' losses differ: {[s['loss'] for s in tp[0]['steps']]} "
+             f"and {[s['loss'] for s in tp[1]['steps']]}")
+    cell = _tp_reckoned()
+    reckoned = cell["collectives"]["result_bytes"]
+    recorded = [s["collective_bytes"] for tr in tp for s in tr["steps"]]
+    if any(b != reckoned for b in recorded):
+        fail(f"tensor-parallel: the steps moved {recorded} B, the reckoning {reckoned} B")
+    for r, tr in enumerate(tp):
+        for s in tr["steps"]:
+            coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
+            print(f"tensor-parallel rank {r} step {s['step']}: loss {s['loss']!r}  "
+                  f"{s['ms']:.1f} ms (compute "
+                  f"{1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, collective "
+                  f"{1e3 * coll:.1f}, update {1e3 * (s['update_s'] - s['collective_update_s']):.1f}"
+                  f" ms; {s['collective_bytes']:,} B through the collectives)")
+        print(f"tensor-parallel rank {r}: {tr['split']} leaves split over model, "
+              f"{tr['gathered']} gathered whole; state_bytes {tr['state_bytes']:,} (the plan's "
+              f"{tr['plan_bytes']:,}), param_bytes {tr['param_bytes']:,}, peak "
+              f"{tr['peak_bytes']:,} B ({tr['peak_bytes'] / 1e9:.2f} GB), launches "
+              f"{tr['launches']}")
+    print(f"tensor-parallel (1, 2): both ranks' losses bit-equal; collectives {reckoned:,} B a "
+          f"step a rank, equal to MeshStep.reckon's (before the split: "
+          f"{TP_RECKON_BEFORE:,} B, {reckoned / TP_RECKON_BEFORE:.1%} of it); compute_split "
+          f"{cell['compute_split']}")
+    partial = _partial_times(torch.device("cuda", 0))
+    print("row-parallel partial products of a (1, 2) rank, median of 21: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in partial.items()))
+    print(f"mesh phases (35, 36, 40): {wall:.1f} s with both processes' start")
+    return {"launches": launches, "ranks": ranks, "seconds": wall,
+            "tp": {"launches": tp_launches, "reckoned": reckoned, "recorded": recorded,
+                   "link": cell["collectives"], "reckoned_before": TP_RECKON_BEFORE,
+                   "partial_ms": partial}}
 
 
 def _one_process_manifest():
@@ -3486,6 +3662,17 @@ def phase_roofline(card, main_steps, mesh):
     print(f"phase 35's collectives reckoned without a world: {reckoned:,} B a step a rank, "
           f"equal to each of its {len(recorded)} recorded steps; link bytes "
           f"{cell['collectives']['total']:.6e} ({cell['collectives']['ops']:.0f} calls)")
+    tp = mesh["tp"]
+    tp_cell = measure(cfg, shape, dict(zip(("data", "model"), TP_SHAPE)), hw, opt_name)
+    if any(b != tp_cell["collectives"]["result_bytes"] for b in tp["recorded"]):
+        fail(f"roofline: phase 40 moved {tp['recorded']} B a step, the reckoning "
+             f"{tp_cell['collectives']['result_bytes']} B")
+    print(f"phase 40's collectives reckoned without a world: "
+          f"{tp_cell['collectives']['result_bytes']:,} B a step a rank (before the split "
+          f"{TP_RECKON_BEFORE:,} B), equal to each of its {len(tp['recorded'])} recorded steps; "
+          f"link bytes {tp_cell['collectives']['total']:.6e} "
+          f"({tp_cell['collectives']['ops']:.0f} calls); the rank's compute "
+          f"{tp_cell['roofline']['compute_s'] * 1e3:.4f} ms ({tp_cell['compute_split']})")
     seconds = time.perf_counter() - t_start
     print(f"roofline phase (38): {seconds:.1f} s")
     return {"card": card, "dryrun": {"records": len(records), "status": status,
@@ -3496,7 +3683,11 @@ def phase_roofline(card, main_steps, mesh):
                              "bytes": c.bytes, "bytes_rel_diff": rel,
                              "b1_passes": c.b1, "launches": launched, "loss": loss}},
             "mesh_collectives": {"reckoned": reckoned, "recorded": recorded,
-                                 "link": cell["collectives"]},
+                                 "link": cell["collectives"],
+                                 "tp": {"reckoned": tp_cell["collectives"]["result_bytes"],
+                                        "recorded": tp["recorded"],
+                                        "link": tp_cell["collectives"],
+                                        "roofline": tp_cell["roofline"]}},
             "seconds": seconds}
 
 
@@ -3612,12 +3803,16 @@ def main():
     counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
     build_report = phase_build()
     _lap("1 build")
-    if sys.argv[1:] == ["--mesh-phases"]:  # phases 10 and 34-37 alone, for work on them
+    if sys.argv[1:] == ["--mesh-phases"]:  # phases 10, 34-37 and 40 alone, for work on them
         checkpoint = phase_checkpoint(counters)
+        _lap("10 checkpoint")
         phase_b1_tiles(dev)
+        _lap("34 B1 tiles")
         phase_mesh()
+        _lap("35-36, 40 mesh")
         phase_mesh_checkpoint(counters, checkpoint)
-        print(f"chip_smoke: phases 10 and 34-37 passed in "
+        _lap("37 mesh checkpoint")
+        print(f"chip_smoke: phases 10, 34-37 and 40 passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return
     if sys.argv[1:] == ["--mesh-optim-phases"]:  # phases 11 and 39 alone
@@ -3701,7 +3896,7 @@ def main():
     b1_tiles = phase_b1_tiles(dev)
     _lap("34 B1 tiles")
     mesh = phase_mesh()
-    _lap("35-36 mesh")
+    _lap("35-36, 40 mesh")
     mesh_checkpoint = phase_mesh_checkpoint(counters, checkpoint)
     _lap("37 mesh checkpoint")
     roofline = phase_roofline(card, main_steps, mesh)
@@ -3709,12 +3904,13 @@ def main():
     mesh_optim = phase_mesh_optimizers(new_optimizers)
     _lap("39 mesh optimizers")
     # launches: every path run of the slices, each counted from 0 just before
-    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37 train; 8, 17,
-    # 23, 27, 32 serve)
+    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37, 40 train; 8,
+    # 17, 23, 27, 32 serve)
     path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train,
                                                       stub_train)
                               for r in t.values()] + [mesh["launches"],
-                                                      mesh_checkpoint["launches"]]
+                                                      mesh_checkpoint["launches"],
+                                                      mesh["tp"]["launches"]]
     serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,
                                                                     rec_serve, stub_serve)
                                             for r in t.values()]

@@ -23,6 +23,11 @@ world that has not opened slots (or found no room for them in
 ``/dev/shm``) keeps gloo's own transport. Slots are for the processes of
 one host: ranks on several hosts each have a card, and NCCL's path.
 
+``STATS`` holds the host seconds and result bytes of the collectives that
+the mesh step runs through ``timed`` since its last reset (the CLI's and
+the smoke's step-time split; ``train.mesh.MeshStep.reckon`` gives a
+step's bytes without a world).
+
 Two contexts serve the roofline (``repro_torch.roofline``):
 
 * ``recording()`` yields a list that every collective call appends its
@@ -44,6 +49,7 @@ import contextvars
 import mmap
 import os
 import socket
+import time
 import uuid
 import warnings
 from typing import Iterator, List, Optional, Tuple
@@ -51,7 +57,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["through_host", "all_gather", "all_to_all", "merge_max", "merge_sum", "Ranks",
+__all__ = ["STATS", "timed", "through_host", "all_gather", "all_to_all", "merge_max", "merge_sum", "Ranks",
            "recording", "without_world", "open_host_slots", "close_host_slots",
            "HOST_MIN_BYTES", "HOST_SLOT_BYTES"]
 
@@ -62,6 +68,21 @@ Call = Tuple[str, int, int]  # (kind, result bytes, group size)
 _RECORDS: List[List[Call]] = []
 _DRY_WORLD: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
     "repro_collective_dry_world", default=None)
+
+
+# host seconds and result bytes of the collectives run through ``timed``
+# since the last reset (read by the CLI and the smoke's step-time split)
+STATS = {"collective_s": 0.0, "bytes": 0}
+
+
+def timed(fn, *args):
+    """``fn(*args)`` (a collective), its host seconds and its result's
+    bytes added to ``STATS``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    STATS["collective_s"] += time.perf_counter() - t0
+    STATS["bytes"] += out.numel() * out.element_size()
+    return out
 
 
 class Ranks(tuple):

@@ -14,8 +14,9 @@ records per rank:
   (``opt_state_shardings``), ``batch_bytes`` (``batch_shardings``),
   ``cache_bytes`` (``cache_shardings``) and their sum ``argument_bytes``,
   each the largest over the mesh's ranks (``plan_nbytes``); and, for train
-  cells on the mesh path, ``gathered_layer_bytes``, the largest whole layer
-  a rank gathers (one stack's layer), and ``gathered_top_bytes``, the
+  cells on the mesh path, ``gathered_layer_bytes``, the largest layer a
+  rank gathers (one stack's layer: the model shard of a leaf that computes
+  tensor-parallel, any other leaf whole), and ``gathered_top_bytes``, the
   top-level leaves it holds gathered through the step. XLA's temp and peak
   bytes have no counterpart and are not recorded;
 * ``roofline``, ``cost`` and ``collectives`` from ``roofline.measured``
@@ -74,17 +75,23 @@ def _rank_bytes(tree, plan, mesh) -> int:
     return plan_nbytes(tree, plan, mesh_coords(mesh)[0], mesh)
 
 
-def _gathered_bytes(params: Mapping[str, torch.Tensor]) -> Dict[str, int]:
-    """Whole bytes the mesh step holds gathered: the largest one layer of a
-    stack (``train.mesh._Stack``), and the top-level leaves."""
+def _gathered_bytes(params: Mapping[str, torch.Tensor], axes, mesh) -> Dict[str, int]:
+    """Bytes the mesh step holds gathered: the largest one layer of a stack
+    (``train.mesh._Stack``), and the top-level leaves; a leaf that computes
+    tensor-parallel (``sharding.tensor_parallel.placement``) as its model
+    shard, any other whole."""
+    from repro_torch.sharding.tensor_parallel import placement
+
+    split = placement({k: tuple(p.shape) for k, p in params.items()}, axes, mesh)
     stacks: Dict[str, int] = {}
     top = 0
     for k, p in params.items():
+        n = p.numel() * p.element_size() // (mesh["model"] if split[k] is not None else 1)
         if k.startswith(("decoder/", "encoder/")):
             stack = "/".join(k.split("/")[:3])
-            stacks[stack] = stacks.get(stack, 0) + p[0].numel() * p.element_size()
+            stacks[stack] = stacks.get(stack, 0) + n // p.shape[0]
         else:
-            top += p.numel() * p.element_size()
+            top += n
     return {"gathered_layer_bytes": max(stacks.values(), default=0), "gathered_top_bytes": top}
 
 
@@ -138,7 +145,7 @@ def memory_record(cfg: ModelConfig, shape: ShapeSpec, mesh: Mapping[str, int],
     memory["argument_bytes"] = sum(memory[k] for k in ("param_bytes", "state_bytes",
                                                        "batch_bytes", "cache_bytes"))
     if train and n_chips > 1:
-        memory.update(_gathered_bytes(params))
+        memory.update(_gathered_bytes(params, axes, mesh))
     return dict(out, status="ok", memory=memory)
 
 

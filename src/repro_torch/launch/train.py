@@ -12,7 +12,10 @@ they meet through a ``FileStore`` in a fresh directory (``--run-dir``, else
 a new temporary one), never a fixed port. The backend is NCCL when each
 rank has a card of its own and gloo on the CPU or when the ranks share a
 card (the first line says which); under gloo the collectives copy CUDA
-tensors through host memory. Rank 0 prints the step lines and every rank's
+tensors through host memory; it also counts the leaves that compute
+tensor-parallel on the model axis (heads, mlp columns, vocab rows:
+``sharding.tensor_parallel``) and those gathered whole. Rank 0 prints the
+step lines and every rank's
 state, parameter and peak bytes and checkpoint times. The modality-stub
 archs (whisper-large-v3, qwen2-vl-2b) are refused, as the reference's CLI
 refuses them: they train through the library
@@ -69,7 +72,7 @@ from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.io import CheckpointManager
 from repro_torch.kernels import sr
-from repro_torch.models import Transformer, init_model, param_axes
+from repro_torch.models import Transformer, init_model, named_params, param_axes
 from repro_torch.train.train_loop import (
     TrainState,
     build_train_step,
@@ -208,6 +211,18 @@ def _setup(args):
     return cfg, opt, sr_key
 
 
+def _split_counts(cfg, shape):
+    """(leaves that compute tensor-parallel on the model axis, leaves
+    gathered whole) of ``cfg`` on a (data, model) ``shape``
+    (``sharding.tensor_parallel.placement``)."""
+    from repro_torch.sharding.tensor_parallel import placement
+
+    shapes = {k: tuple(p.shape) for k, p in named_params(init_model(cfg, device="meta")).items()}
+    split = placement(shapes, param_axes(cfg), {"data": shape[0], "model": shape[1]})
+    n = sum(d is not None for d in split.values())
+    return n, len(split) - n
+
+
 def _main_mesh(args, argv, device, cfg, opt) -> Dict:
     """``--mesh DxM``: D*M processes, rank 0's summary returned."""
     import torch.multiprocessing as mp
@@ -220,8 +235,9 @@ def _main_mesh(args, argv, device, cfg, opt) -> Dict:
     where = ("one card per rank" if own_card else
              f"ranks share {device}; collectives copy through host memory"
              if device.type == "cuda" else "cpu")
-    print(f"mesh data={shape[0]} model={shape[1]}: {world} processes, backend={backend} ({where})",
-          flush=True)
+    split = _split_counts(cfg, shape)
+    print(f"mesh data={shape[0]} model={shape[1]}: {world} processes, backend={backend} ({where}); "
+          f"tensor-parallel leaves {split[0]}, gathered whole {split[1]}", flush=True)
     # absolute: a relative path would read as the host of the file:// URL
     run_dir = os.path.abspath(args.run_dir or tempfile.mkdtemp(prefix="repro_mesh_"))
     os.makedirs(run_dir, exist_ok=True)

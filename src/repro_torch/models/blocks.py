@@ -43,6 +43,7 @@ from repro_torch.models.layers import (
     rope_half,
 )
 from repro_torch.models.moe import moe_apply
+from repro_torch.sharding import tensor_parallel as tp_lib
 
 __all__ = ["LayerSpec", "DenseStack", "MoEStack", "MLSTMStack", "SLSTMStack", "HymbaStack",
            "EncStack", "DecStack", "STACKS", "RECURRENT", "unstack", "norm_params",
@@ -290,15 +291,38 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = 
     its K/V from ``kv_source`` (no rotary on them) and keeps no cache: every
     call, so every decode step, projects the whole source again, as the
     reference's decoder block does (its cross cache stays None).
+
+    Under ``sharding.tensor_parallel.use``, a ``wq`` narrower than
+    ``cfg.num_heads`` is this rank's heads ``[m·n, (m+1)·n)``: training
+    attention runs on them with the rank's own kv slice (``wk``/``wv``
+    shards) or, from whole kv weights, the kv heads its q heads read; the
+    inputs enter the split (their gradients summed over the model group),
+    as do the whole leaves used on the rank's heads only (``q_norm``,
+    ``k_norm``, whole kv weights), and ``wo``'s partial product is summed
+    over the group.
     """
+    tp = tp_lib.current()
+    split = tp is not None and p["wq"].shape[1] != cfg.num_heads
+    wk, wv = p["wk"], p["wv"]
+    q_norm, k_norm = (p[k] if k in p else None for k in ("q_norm", "k_norm"))
+    if split:
+        if cache is not None:
+            raise ValueError("tensor-parallel attention is the train step's: no cache")
+        x = tp_lib.enter(x, tp)
+        kv_source = None if kv_source is None else tp_lib.enter(kv_source, tp)
+        if wk.shape[1] == cfg.num_kv_heads:
+            n = p["wq"].shape[1]
+            idx = tp_lib.kv_heads(tp.index * n, n, cfg.num_heads, cfg.num_kv_heads)
+            wk, wv = tp_lib.enter(wk, tp)[:, idx], tp_lib.enter(wv, tp)[:, idx]
+        q_norm, k_norm = (None if t is None else tp_lib.enter(t, tp) for t in (q_norm, k_norm))
     src = x if kv_source is None else kv_source
     q = dense(x, p["wq"], "bsd,dhe->bshe")
-    if "q_norm" in p:
-        q = _qk_normalize(q, p["q_norm"])
-    k = dense(src, p["wk"], "bsd,dhe->bshe")
-    v = dense(src, p["wv"], "bsd,dhe->bshe")
-    if "k_norm" in p:
-        k = _qk_normalize(k, p["k_norm"])
+    if q_norm is not None:
+        q = _qk_normalize(q, q_norm)
+    k = dense(src, wk, "bsd,dhe->bshe")
+    v = dense(src, wv, "bsd,dhe->bshe")
+    if k_norm is not None:
+        k = _qk_normalize(k, k_norm)
     if positions is not None:
         q = _rope_apply(cfg, q, positions)
         if kv_source is None:
@@ -313,15 +337,27 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = 
                                        softcap_val=cfg.attn_softcap)
         if cache is not None and kv_lengths is not None:
             attn_lib.cache_prefill(cache, k, v, kv_lengths)
+    if split:
+        return tp_lib.row_parallel(out, p["wo"], "bshe,hed->bsd", tp, COMPUTE_DTYPE)
     return torch.einsum("bshe,hed->bsd", out.to(COMPUTE_DTYPE), p["wo"].to(COMPUTE_DTYPE))
 
 
-def apply_mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """(Gated) MLP. ``gelu`` is the tanh form: ``jax.nn.gelu``'s default."""
+def apply_mlp(p, x: torch.Tensor, act: str = "silu", width: int = 0) -> torch.Tensor:
+    """(Gated) MLP. ``gelu`` is the tanh form: ``jax.nn.gelu``'s default.
+    ``width`` is the whole hidden width: under
+    ``sharding.tensor_parallel.use`` a narrower ``w1`` is this rank's mlp
+    columns, and ``w2``'s partial product is summed over the model group
+    (the input enters the split)."""
+    tp = tp_lib.current()
+    split = tp is not None and 0 < width != p["w1"].shape[-1]
+    if split:
+        x = tp_lib.enter(x, tp)
     h = dense(x, p["w1"], "bsd,df->bsf")
     a = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
     if "w3" in p:
         a = a * dense(x, p["w3"], "bsd,df->bsf")
+    if split:
+        return tp_lib.row_parallel(a, p["w2"], "bsf,fd->bsd", tp, COMPUTE_DTYPE)
     return torch.einsum("bsf,fd->bsd", a, p["w2"].to(COMPUTE_DTYPE))
 
 
@@ -337,7 +373,7 @@ def apply_dense(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     if cfg.sandwich_norm:
         h = norm_apply(cfg, h, p["post1"])
     x = x + h
-    h2 = apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act)
+    h2 = apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act, cfg.d_ff)
     if cfg.sandwich_norm:
         h2 = norm_apply(cfg, h2, p["post2"])
     return x + h2
@@ -419,7 +455,8 @@ def apply_slstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
     hs, new = gla_lib.slstm_scan(gates_x, p["r_gates"], cfg.num_heads, init_state=cache,
                                  step_mask=step_mask)
     x = x + dense(hs, p["w_out"], "bsd,de->bse")
-    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act), new
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act,
+                         slstm_ff(cfg.d_model)), new
 
 
 def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
@@ -457,7 +494,8 @@ def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     s_out = dense(y, p["ssm_out"], "bse,ed->bsd")
     x = x + 0.5 * (a_out * p["scale_attn"].to(COMPUTE_DTYPE)
                    + s_out * p["scale_ssm"].to(COMPUTE_DTYPE))
-    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act), {"ssm": new}
+    x = x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act, cfg.d_ff)
+    return x, {"ssm": new}
 
 
 # the recurrent block kinds: apply(p, x, spec, cfg, ...) -> (x, new state)
@@ -469,7 +507,7 @@ def apply_enc(p, x: torch.Tensor, spec: LayerSpec, cfg) -> torch.Tensor:
     bidirectional self-attention without rotary, then the ungated MLP with
     the tanh gelu (hard-wired, as in the reference)."""
     x = x + apply_attention(p["attn"], norm_apply(cfg, x, p["norm1"]), cfg, causal=False)
-    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), act="gelu")
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), "gelu", cfg.d_ff)
 
 
 def apply_dec(p, x: torch.Tensor, spec: LayerSpec, cfg, *, enc_out: torch.Tensor,
@@ -485,7 +523,7 @@ def apply_dec(p, x: torch.Tensor, spec: LayerSpec, cfg, *, enc_out: torch.Tensor
                             cache=kv, cur_pos=cur_pos, kv_lengths=kv_lengths)
     x = x + apply_attention(p["cross"], norm_apply(cfg, x, p["norm2"]), cfg, causal=False,
                             kv_source=enc_out)
-    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm3"]), act="gelu")
+    return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm3"]), "gelu", cfg.d_ff)
 
 
 def init_block_cache(cfg, spec: LayerSpec, batch: int, s_max: int, *, device, layers: int):

@@ -1,6 +1,7 @@
 """Shared layers: rmsnorm, layernorm, embedding lookup, RoPE (full,
 half-dim and Qwen2-VL's M-RoPE), whisper's sinusoidal positions, softcap,
-chunked cross entropy.
+chunked cross entropy, and the vocab-parallel lookup and cross entropy of
+the mesh step's tensor-parallel compute (``sharding.tensor_parallel``).
 
 Port of ``repro/models/layers.py``. Compute is bf16 with fp32 master
 weights cast in (``COMPUTE_DTYPE``, as ``layers.py:34``); norms, RoPE, the
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import tensor_parallel as tp_lib
 
 __all__ = [
     "INIT_STD",
@@ -26,6 +29,8 @@ __all__ = [
     "sinusoidal_at",
     "softcap",
     "chunked_cross_entropy",
+    "vocab_parallel_lookup",
+    "vocab_parallel_cross_entropy",
 ]
 
 INIT_STD = 0.02
@@ -139,6 +144,55 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
             logits = logit_cap * torch.tanh(logits / logit_cap)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+        mask = (lc >= 0).to(torch.float32)
+        loss_sum = loss_sum + torch.sum((lse - gold) * mask)
+        count = count + torch.sum(mask)
+    return loss_sum / torch.clamp_min(count, 1.0)
+
+
+def vocab_parallel_lookup(table: torch.Tensor, ids: torch.Tensor, tp: "tp_lib.TPRun"
+                          ) -> torch.Tensor:
+    """``embed_lookup`` with this rank's rows of the table (its vocab shard
+    ``tp.index``): an id outside them gives a zero row, and the rows are
+    summed over the model group (exactly one rank's is not zero, so the sum
+    is the one-process lookup, bit for bit)."""
+    n = table.shape[0]
+    local = ids.long() - tp.index * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table.to(COMPUTE_DTYPE))
+    return tp_lib.leave(torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                       device=rows.device)), tp)
+
+
+def vocab_parallel_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                                 tp: "tp_lib.TPRun", *, logit_cap: float = 0.0,
+                                 chunk: int = 512) -> torch.Tensor:
+    """``chunked_cross_entropy`` with this rank's columns of the head (its
+    vocab shard ``tp.index``): per chunk the rank's logits (softcap
+    elementwise), their max, sum of ``exp`` and the gold logit merged over
+    the model group (the max, then sums in ascending model rank), and the
+    log-sum-exp formed from them; the mean over unmasked labels as there."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    n = head.shape[1]
+    x = tp_lib.enter(x, tp)
+    head_c = head.to(COMPUTE_DTYPE)
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    zero = x.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, chunk):
+        xc = x[:, s0:s0 + chunk].to(COMPUTE_DTYPE)
+        lc = labels[:, s0:s0 + chunk].long()
+        logits = torch.einsum("bcd,dv->bcv", xc, head_c).to(torch.float32)
+        if logit_cap > 0:
+            logits = logit_cap * torch.tanh(logits / logit_cap)
+        top = tp_lib.group_max(torch.amax(logits.detach(), dim=-1), tp)
+        sumexp = tp_lib.leave(torch.sum(torch.exp(logits - top[..., None]), dim=-1), tp)
+        lse = top + torch.log(sumexp)
+        local = lc - tp.index * n
+        mine = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = tp_lib.leave(torch.where(mine, gold, zero), tp)
         mask = (lc >= 0).to(torch.float32)
         loss_sum = loss_sum + torch.sum((lse - gold) * mask)
         count = count + torch.sum(mask)

@@ -62,7 +62,10 @@ from repro_torch.models.layers import (
     sinusoidal_at,
     sinusoidal_positions,
     softcap,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_lookup,
 )
+from repro_torch.sharding import tensor_parallel as tp_lib
 
 __all__ = ["ModelConfig", "ScanUnit", "plan_scan_units", "Transformer", "init_model",
            "forward_hidden", "loss_fn", "named_params", "init_serve_cache", "decode_step",
@@ -327,10 +330,17 @@ def params_loss(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     """``loss_fn`` over a ``{path: tensor}`` mapping; ``unit_layers(units,
     root)`` gives the layer loop its per-layer parameters (by default
     ``_unit_layers`` over ``params``; the mesh step passes its gather
-    hook)."""
+    hook). Under ``sharding.tensor_parallel.use``, an ``embed`` or head
+    narrower than the vocabulary is this rank's vocab shard: the lookup and
+    the cross entropy run vocab-parallel."""
     x, aux = _forward(params, cfg, batch, unit_layers)
-    loss = chunked_cross_entropy(x, _head(params, cfg), batch["labels"],
-                                 logit_cap=cfg.final_softcap, chunk=cfg.ce_chunk)
+    head, tp = _head(params, cfg), tp_lib.current()
+    if tp is not None and head.shape[1] != cfg.vocab_size:  # this rank's vocab shard
+        loss = vocab_parallel_cross_entropy(x, head, batch["labels"], tp,
+                                            logit_cap=cfg.final_softcap, chunk=cfg.ce_chunk)
+    else:
+        loss = chunked_cross_entropy(x, head, batch["labels"], logit_cap=cfg.final_softcap,
+                                     chunk=cfg.ce_chunk)
     total = loss + 0.01 * aux
     return total, {"ce_loss": loss.detach(), "aux_loss": aux.detach()}
 
@@ -376,8 +386,11 @@ def _inputs(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     (``batch["positions"]``, else three copies of ``arange(S)``), or None
     for ``rope_variant="none"``, which adds the bf16 sinusoids to the input
     instead."""
+    tp = tp_lib.current()
     if cfg.input_mode == "embeds":
         x = batch["embeds"].to(COMPUTE_DTYPE)
+    elif tp is not None and params["embed"].shape[0] != cfg.vocab_size:  # its vocab shard
+        x = vocab_parallel_lookup(params["embed"], batch["tokens"], tp)
     else:
         x = embed_lookup(params["embed"], batch["tokens"])
     B, S = x.shape[:2]

@@ -48,18 +48,26 @@ the MoE aux loss's backward); a further layer is a probe.
 * Decode: the tail (embedding, logits) and, per unit, one token through
   one layer with a single-layer cache (``blocks.init_block_cache(...,
   layers=1)``) times its repeat.
-* Mesh: the port splits no compute over ``model`` (``compute_split:
-  "data"``): each rank gathers whole layers and computes its data shard
-  (the global batch / the data size, ``batch_shardings``' rule). A train
-  cell on more than one rank walks the mesh step's own code with no world
-  (``train.mesh.MeshStep.reckon``): its gathers, gradient exchange, wire
-  format, the optimizer's update on the rank's tiles and its collectives.
-  The port serves on one device: on a mesh, serving ranks are
-  data-parallel replicas with no collectives.
+* Mesh: a train cell computes the rank's data shard (the global batch /
+  the data size, ``batch_shardings``' rule) at its tensor-parallel share
+  of the ``model`` axis (``compute_split: "data+model"`` where some leaf
+  is split, ``sharding.tensor_parallel.placement``): the model and its
+  probes run on the model shard of rank 0 of a model group (its heads,
+  mlp columns and vocab rows; every other leaf whole), inside
+  ``tensor_parallel.use`` with the collectives ``without_world``, so the
+  model group's sums (the all-gathers' empty results, the adds in model
+  rank order) are counted where they run. A train cell on more than one
+  rank walks the mesh step's own code with no world
+  (``train.mesh.MeshStep.reckon``): its gathers, gradient exchange, the
+  model group's sums, wire format, the optimizer's update on the rank's
+  tiles and its collectives. The port serves on one device: on a mesh,
+  serving ranks are data-parallel replicas with no collectives
+  (``compute_split: "data"``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -83,8 +91,11 @@ from repro_torch.models.model import (
     params_loss,
     prefill,
 )
+from repro_torch.comms.collectives import Ranks, without_world
+from repro_torch.models.axes import leaf_axes
 from repro_torch.roofline.analysis import H100, HW, collective_bytes, model_flops, roofline_terms
 from repro_torch.sharding import context
+from repro_torch.sharding import tensor_parallel as tp_lib
 from repro_torch.sharding.rules import dp_size, mesh_axis_sizes
 
 __all__ = ["measure", "measure_cell", "Counter", "Tally", "b1_update_bytes", "b1_stats_bytes",
@@ -301,16 +312,41 @@ def _cut(batch: Mapping[str, torch.Tensor], Bl: int) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _model_shard(params: Mapping[str, torch.Tensor], axes: Mapping[str, Tuple[str, ...]],
+                 sizes: Optional[Mapping[str, int]]) -> Dict[str, torch.Tensor]:
+    """``params`` as rank 0 of a model group computes on them: each leaf
+    that ``tensor_parallel.placement`` splits on ``sizes``' model axis as
+    its model shard (new ``meta`` leaves), every other one whole."""
+    if sizes is None:
+        return dict(params)
+    split = tp_lib.placement({k: tuple(p.shape) for k, p in params.items()}, axes, sizes)
+    out = {}
+    for k, p in params.items():
+        if split[k] is None:
+            out[k] = p
+            continue
+        shape = list(p.shape)
+        shape[split[k]] //= sizes["model"]
+        out[k] = torch.empty(shape, dtype=p.dtype, device=META).requires_grad_(p.requires_grad)
+    return out
+
+
 def _probe_params(cfg: ModelConfig, unit: ScanUnit, root: str, dtype, train: bool,
-                  layers: int = 1):
+                  layers: int = 1, sizes: Optional[Mapping[str, int]] = None):
     """``layers`` layers of ``unit``, as a stack of that many, under the
-    model's paths -> the layer loop's (units, per-layer dicts)."""
+    model's paths (each leaf its model shard on ``sizes``' model axis, where
+    given) -> the layer loop's (units, per-layer dicts)."""
     stacks = nn.ModuleDict({f"sub{si}": STACKS[spec.kind](cfg, layers, META)
                             for si, spec in enumerate(unit.pattern)})
-    params = {}
+    params, axes = {}, {}
     for k, p in stacks.named_parameters():
         t = p if dtype == torch.float32 else torch.empty(p.shape, dtype=dtype, device=META)
-        params[f"{root}/0/" + k.replace(".", "/")] = t.requires_grad_(train)
+        path = f"{root}/0/" + k.replace(".", "/")
+        sub, rel = k.split(".", 1)
+        params[path] = t.requires_grad_(train)
+        axes[path] = ("layers",) + leaf_axes(unit.pattern[int(sub[3:])].kind,
+                                             rel.replace(".", "/"))
+    params = _model_shard(params, axes, sizes)
     units = [ScanUnit(unit.pattern, layers)]
     return units, _unit_layers(params, units, root)
 
@@ -335,11 +371,12 @@ def _loop_cost(cfg, x, positions) -> Counter:
 
 
 def _seq_probe(cfg, unit, root, Bl, S, positions, train, dtype, layers=1,
-               S_enc=0) -> Tally:
-    """``layers`` layers of ``unit`` over (Bl, S); a unit that reads the
-    encoder's output reads (Bl, S_enc) of it. Every input is a new leaf, so
-    no gradient is summed into one that an earlier probe left."""
-    units, layers_ = _probe_params(cfg, unit, root, dtype, train, layers)
+               S_enc=0, sizes=None) -> Tally:
+    """``layers`` layers of ``unit`` over (Bl, S) (at the model shard on
+    ``sizes``, where given); a unit that reads the encoder's output reads
+    (Bl, S_enc) of it. Every input is a new leaf, so no gradient is summed
+    into one that an earlier probe left."""
+    units, layers_ = _probe_params(cfg, unit, root, dtype, train, layers, sizes)
     x = torch.empty((Bl, S, cfg.d_model), dtype=COMPUTE_DTYPE, device=META, requires_grad=train)
     enc = (torch.empty((Bl, S_enc, cfg.d_model), dtype=COMPUTE_DTYPE, device=META,
                        requires_grad=train) if unit.pattern[0].kind == "dec" else None)
@@ -386,11 +423,13 @@ def _one_layer_cfg(cfg: ModelConfig) -> ModelConfig:
                                encoder_blocks=one(cfg.encoder_blocks))
 
 
-def _model_count(cfg: ModelConfig, batch, train: bool, dtype) -> Counter:
-    """The whole of ``cfg``'s train forward+backward or prefill."""
+def _model_count(cfg: ModelConfig, batch, train: bool, dtype, sizes=None) -> Counter:
+    """The whole of ``cfg``'s train forward+backward or prefill (at the
+    model shard on ``sizes``, where given)."""
     params = named_params(init_model(cfg, device="meta"))
     if dtype != torch.float32:
         params = {k: torch.empty(p.shape, dtype=dtype, device=META) for k, p in params.items()}
+    params = _model_shard(params, param_axes(cfg) if sizes is not None else {}, sizes)
     with Counter() as c:
         if train:
             total, _ = params_loss(params, cfg, batch)
@@ -423,10 +462,11 @@ def _one_device_update(opt, params, key, state) -> Counter:
 
 
 def _mesh_train(meas, cfg, sizes, opt, params, meta_state, accum_steps, comms,
-                key) -> Tuple[Dict[str, float], List[str]]:
+                key, batch) -> Tuple[Dict[str, float], List[str]]:
     """A train cell on more than one rank: the mesh step's own code walked
     on rank 0's parts (every rank holds equal parts) with no world
-    (``MeshStep.reckon``): its exchange, and the optimizer's update on the
+    (``MeshStep.reckon``, the global ``batch`` giving the model group's
+    sums their shapes): its exchange, and the optimizer's update on the
     rank's tiles with its moves. Returns the collectives record and the
     leaves updated on row tiles."""
     from repro_torch.sharding.specs import local_slice, map_plan
@@ -446,7 +486,7 @@ def _mesh_train(meas, cfg, sizes, opt, params, meta_state, accum_steps, comms,
         update = Counter()
         with Counter() as c:
             result_bytes, calls = ms.reckon(local, state, opt, key, n, comms,
-                                            around_update=update)
+                                            around_update=update, batch=batch)
         walks.append((c - update, update, result_bytes, collective_bytes(calls)))
     (x1, update, b1, r1), (x2, _, b2, r2) = walks[0], walks[-1]
     extra = accum_steps - 1
@@ -490,8 +530,18 @@ def measure(cfg: ModelConfig, shape: ShapeSpec, mesh=None, hw: HW = H100,
         sections = [("encoder", cfg.encoder_blocks), ("decoder", cfg.blocks)]
     mult = accum_steps if train else 1
     what = "grad" if train else "fwd"
+    # a train cell's compute at the tensor-parallel share of rank 0 of a
+    # model group, its sums over the group run without a world
+    split = tp_lib.placement({k: tuple(p.shape) for k, p in params.items()}, axes, sizes)
+    tp_sizes = sizes if train and any(d is not None for d in split.values()) else None
+    tp = (tp_lib.TPRun(Ranks(range(sizes["model"])), 0, sizes["model"], world=n_chips)
+          if tp_sizes is not None else None)
+    splitting = contextlib.ExitStack()
+    if tp is not None:
+        splitting.enter_context(tp_lib.use(tp))
+        splitting.enter_context(without_world(n_chips))
 
-    with context.batch_shards(shards):
+    with context.batch_shards(shards), splitting:
         if kind == "decode":
             s_max = decode_cache_len(cfg, shape)
             pos = torch.empty((Bl,), dtype=torch.int32, device=META)
@@ -510,23 +560,23 @@ def measure(cfg: ModelConfig, shape: ShapeSpec, mesh=None, hw: HW = H100,
             n = S_dec // s1
             positions = _positions(cfg, batch, Bm, S_dec, "decoder")
             for ui, unit in enumerate(plan_scan_units(cfg.blocks)):
-                ys = [_seq_probe(cfg, unit, "decoder", Bm, i * s1, positions, train, dtype)
-                      for i in (2, 3, 4)]
+                ys = [_seq_probe(cfg, unit, "decoder", Bm, i * s1, positions, train, dtype,
+                                 sizes=tp_sizes) for i in (2, 3, 4)]
                 meas.add(f"decoder/unit{ui}/{what}", _extrapolate(*ys, n), unit.repeat * mult,
                          probe_len=[i * s1 for i in (2, 3, 4)],
                          probe_flops=[y.flops for y in ys], probe_bytes=[y.bytes for y in ys])
             meas.add("tail/embed_loss_grad" if train else "tail/logits",
-                     _model_count(_tail_cfg(cfg), batch, train, dtype), mult)
+                     _model_count(_tail_cfg(cfg), batch, train, dtype, tp_sizes), mult)
         else:
             meas.add("model/one_layer_a_unit",
-                     _model_count(_one_layer_cfg(cfg), batch, train, dtype), mult)
+                     _model_count(_one_layer_cfg(cfg), batch, train, dtype, tp_sizes), mult)
             for root, blocks in sections:
                 for ui, unit in enumerate(plan_scan_units(blocks)):
                     if unit.repeat == 1:
                         continue
                     probe = lambda n: _seq_probe(cfg, unit, root, Bm, S_dec,
                                                  _positions(cfg, batch, Bm, S_dec, root), train,
-                                                 dtype, n, S_dec)
+                                                 dtype, n, S_dec, tp_sizes)
                     # a further layer; where the layers read the encoder's
                     # output, its gradient's sum over them is the difference
                     layer = probe(2) - probe(1) if unit.pattern[0].kind == "dec" else probe(1)
@@ -548,7 +598,8 @@ def measure(cfg: ModelConfig, shape: ShapeSpec, mesh=None, hw: HW = H100,
             meas.add("tail/grad_accumulation", c)
         if n_chips > 1:
             collectives, row_tiles = _mesh_train(meas, cfg, sizes, opt, plain, meta_state,
-                                                 accum_steps, comms, key)
+                                                 accum_steps, comms, key,
+                                                 input_specs(cfg, shape))
         else:
             meas.add("tail/optimizer_update", _one_device_update(opt, plain, key, meta_state))
     if collectives is None:
@@ -567,7 +618,7 @@ def measure(cfg: ModelConfig, shape: ShapeSpec, mesh=None, hw: HW = H100,
         "mesh": dict(sizes),
         "method": "decomposed count on the meta device (one layer a unit whole, further "
                   "layers probed)",
-        "compute_split": "data",
+        "compute_split": "data" if tp is None else "data+model",
         "flops_counted": "matmul",
         "flops_by_dtype": dict(total.flops_by_dtype),
         "rank_batch": Bl,

@@ -7,8 +7,10 @@ port runs one process per rank, so each rank holds only its part of every
 tensor and the code that needs the whole leaf asks this module:
 
 * ``MeshRun``: the mesh, this rank's coordinate, and the process groups
-  (the world, and the data group of the ranks that share this rank's model
-  coordinate: gradients are summed over it);
+  (the world; the data group of the ranks that share this rank's model
+  coordinate: gradients are summed over it; and the model group of the
+  ranks that share its data coordinates, in model-rank order: the
+  tensor-parallel compute of ``sharding.tensor_parallel`` sums over it);
 * ``use(run, tiles)`` makes a run and its ``{path: Tile}`` map current;
   ``leaf(path)`` marks the leaf being updated, and ``current_tile()`` gives
   its ``Tile`` (the whole leaf's shape and this rank's box) or ``None``
@@ -93,14 +95,26 @@ class MeshRun:
         self.n_dp = 1
         for a in dps:
             self.n_dp *= self.sizes[a]
-        # one data group per model coordinate, every rank creating every group
+        self.n_tp = len(self.coords) // self.n_dp
+        # one data group per model coordinate and one model group per data
+        # coordinate, every rank creating every group (in one order); a
+        # model axis of 1 has no model groups
         self.data_group, self.data_ranks = None, None
-        for key in sorted({tuple(c[a] for a in self.names if a not in dps) for c in self.coords}):
-            ranks = [r for r, c in enumerate(self.coords)
-                     if tuple(c[a] for a in self.names if a not in dps) == key]
-            group = dist.new_group(ranks) if live else Ranks(ranks)
-            if self.rank in ranks:
-                self.data_group, self.data_ranks = group, ranks
+        self.model_group, self.model_ranks = None, [self.rank]
+        for is_data in (True, False):
+            if not is_data and self.n_tp == 1:
+                break
+            pick = lambda c: tuple(c[a] for a in self.names if (a in dps) != is_data)
+            for key in sorted({pick(c) for c in self.coords}):
+                ranks = [r for r, c in enumerate(self.coords) if pick(c) == key]
+                group = dist.new_group(ranks) if live else Ranks(ranks)
+                if self.rank in ranks and is_data:
+                    self.data_group, self.data_ranks = group, ranks
+                elif self.rank in ranks:
+                    self.model_group, self.model_ranks = group, ranks
+        # this rank's place in its model group: its shard of every leaf that
+        # computes tensor-parallel
+        self.model_index = self.model_ranks.index(self.rank)
 
 
 _RUN: contextvars.ContextVar[Optional[MeshRun]] = contextvars.ContextVar("repro_mesh_run",

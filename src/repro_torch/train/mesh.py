@@ -8,17 +8,28 @@ process that holds only its part of each tensor, as the plans say
 (``sharding.specs``): its tile of every parameter (``spec_for`` + ZeRO),
 of every fp32 moment, of the packed codes, and its part of the scales.
 
-* Forward: the ranks of one model group (one data coordinate) compute the
-  same batch shard. Top-level leaves (embed, head, final norms) are
-  all-gathered before the forward; a stacked leaf is gathered one layer at
-  a time, when the layer loop reaches that layer (``unit_layers``, the
-  hook of ``models.model._run_units``). Compute gathers what the ``model``
-  axis shards: tensor-parallel compute is not part of this step.
-* Backward: each gathered tensor's gradient goes straight to its owners
-  (``all_to_all`` inside the data group: every rank receives the gradient
-  of its own tile from each data shard) and is summed in ascending data
-  rank order, then divided by the data size; no rank holds a whole-model
-  gradient.
+* Forward: the ranks of one model group (one data coordinate) compute one
+  batch shard together, tensor-parallel on the ``model`` axis
+  (``sharding.tensor_parallel``, the reference's ``TP_RULES`` split): each
+  computes its heads of every attention, its columns of every MLP and its
+  vocab rows of the lookup and the cross entropy, where the plan cuts
+  those leaves on ``model`` (``placement``), and the partial results are
+  summed over the model group in ascending model rank. Such a leaf is
+  gathered over the rank's data group only, into its model shard (with
+  one data rank, the shard is the rank's own part: no collective); every
+  other leaf (norms, MoE experts, the recurrent blocks' own leaves, an
+  attention or MLP whose widths the axis does not divide) is gathered
+  whole over the world and computed alike on every rank of the group.
+  Top-level leaves (embed, head, final norms) are gathered before the
+  forward; a stacked leaf one layer at a time, when the layer loop
+  reaches that layer (``unit_layers``, the hook of
+  ``models.model._run_units``).
+* Backward: each gathered tensor's gradient (of the model shard, or of the
+  whole leaf, which every rank of the model group computes alike) goes
+  straight to its owners (``all_to_all`` inside the data group: every rank
+  receives the gradient of its own tile from each data shard) and is
+  summed in ascending data rank order, then divided by the data size; no
+  rank holds a whole-model gradient.
 * Update: the optimizer runs on the tiles inside ``sharding.context``, so
   the 4-bit statistics, the SR draws and the fused kernel's counters are
   the whole leaf's (``core.quantizer``, ``kernels.ops``). Moments whose
@@ -43,8 +54,10 @@ ranges), each stack's tile in the context under ``(path, field)``.
 
 ``MeshStep.reckon`` walks the same code with no world (a ``MeshRun`` made
 for one rank of an ``{axis: size}`` mesh, ``meta`` parts, the collectives
-``without_world``): it gives one step's collective bytes as ``STATS``
-counts them and the calls the roofline prices, for any mesh.
+``without_world``), and the model group's sums of the tensor-parallel
+compute per layer and microbatch (``tensor_parallel.reckon_sums``): it
+gives one step's collective bytes as ``STATS`` counts them and the calls
+the roofline prices, for any mesh.
 """
 
 from __future__ import annotations
@@ -52,18 +65,25 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.comms import CommsConfig, grad_comm_key, reduce_grads
-from repro_torch.comms.collectives import all_gather, all_to_all, recording, without_world
+from repro_torch.comms.collectives import (
+    STATS,
+    all_gather,
+    all_to_all,
+    recording,
+    timed,
+    without_world,
+)
 from repro_torch.core.optimizers.base import FactoredMoment
 from repro_torch.core.optimizers.transform import ChainState, PartitionState
 from repro_torch.core.quantizer import QuantizedTensor
 from repro_torch.kernels import sr
 from repro_torch.sharding import context
+from repro_torch.sharding import tensor_parallel as tp_lib
 from repro_torch.sharding.context import MeshRun, Tile
 from repro_torch.sharding.rules import P, spec_for, with_zero
 from repro_torch.sharding.specs import (
@@ -79,22 +99,11 @@ __all__ = ["MeshStep", "STATS"]
 
 Box = Tuple[Tuple[int, int], ...]
 
-# host seconds and bytes of the collectives since the last reset (read by the
-# CLI and the smoke's step-time split)
-STATS: Dict[str, float] = {"collective_s": 0.0, "bytes": 0}
 
 _LEAF_TYPES = (torch.Tensor, QuantizedTensor, FactoredMoment)
 # the metrics forward_backward averages over the data shards (params_loss's
 # two and the loss)
 _METRICS = ("aux_loss", "ce_loss", "loss")
-
-
-def _timed(fn, *args):
-    t0 = time.perf_counter()
-    out = fn(*args)
-    STATS["collective_s"] += time.perf_counter() - t0
-    STATS["bytes"] += out.numel() * out.element_size()
-    return out
 
 
 @functools.lru_cache(maxsize=4096)
@@ -132,11 +141,12 @@ def _whole(boxes: List[Box], shape) -> bool:
     return all(a == 0 and b == n for box in boxes for (a, b), n in zip(box, shape))
 
 
-def gather(local: torch.Tensor, boxes: List[Box], shape) -> torch.Tensor:
-    """The whole tensor from every rank's box (``boxes`` in rank order)."""
+def gather(local: torch.Tensor, boxes: List[Box], shape, group=None) -> torch.Tensor:
+    """The whole tensor from every rank's box (``boxes`` in the rank order
+    of ``group``, the world if None)."""
     if _whole(boxes, shape):
         return local
-    return _assemble(_timed(all_gather, local), boxes, shape)
+    return _assemble(timed(all_gather, local, group), boxes, shape)
 
 
 def reshard(x: torch.Tensor, shape, src: List[Box], dst: List[Box], rank: int) -> torch.Tensor:
@@ -259,6 +269,11 @@ class MeshStep:
             self.work_tiles[(k, f)] = Tile(_box_shape(boxes), boxes[run.rank], tuple(boxes))
         self._grads: Dict[str, torch.Tensor] = {}
         self._written: set = set()
+        # the leaves that compute tensor-parallel (their model-cut dim) and
+        # the rank's model group
+        self.split = tp_lib.placement(self.shapes, self.axes, sizes)
+        self.tp = (tp_lib.TPRun(run.model_group, run.model_index, run.n_tp)
+                   if any(d is not None for d in self.split.values()) else None)
 
     def _stack_work(self) -> Dict[Tuple[str, str], List[Box]]:
         """The block ranges of every state leaf whose shape is not its
@@ -381,11 +396,13 @@ class MeshStep:
     # -- forward / backward ---------------------------------------------------
 
     def _sink(self, path: str, r: Optional[int], boxes: List[Box]) -> Callable:
+        """The gradient's way to its owners: ``boxes`` are the data group's
+        boxes (in its order) inside the gathered tensor."""
         run = self.run
 
         def sink(g: torch.Tensor) -> None:
-            pieces = torch.stack([g[box_index(boxes[j])] for j in run.data_ranks])
-            recv = _timed(all_to_all, pieces, run.data_group)
+            pieces = torch.stack([g[box_index(b)] for b in boxes])
+            recv = timed(all_to_all, pieces, run.data_group)
             acc = recv[0].clone()
             for d in range(1, recv.shape[0]):  # ascending data rank
                 acc += recv[d]
@@ -402,17 +419,29 @@ class MeshStep:
         return sink
 
     def _layout(self, path: str, r: Optional[int]):
-        """(this rank's part, every rank's box, the whole shape) of a
-        top-level leaf (``r`` None) or of layer ``r`` of a stacked one."""
+        """What the forward gathers of a top-level leaf (``r`` None) or of
+        layer ``r`` of a stacked one: (this rank's part, the boxes of the
+        gather's group in its order, the gathered shape, the group (None:
+        the world), the data group's boxes inside the gathered tensor). A
+        leaf that computes tensor-parallel is gathered over the data group
+        into the rank's model shard, any other whole over the world."""
+        run = self.run
         local = self._params[path] if r is None else self._params[path][r]
         boxes = self.boxes[path] if r is None else [b[1:] for b in self.boxes[path]]
-        shape = self.shapes[path] if r is None else self.shapes[path][1:]
-        return local, boxes, shape
+        dim = self.split[path]
+        if dim is None:
+            shape = self.shapes[path] if r is None else self.shapes[path][1:]
+            return local, boxes, shape, None, [boxes[j] for j in run.data_ranks]
+        mbox = tp_lib.model_box(self.shapes[path], dim, run.model_index, run.n_tp)
+        mbox = mbox if r is None else mbox[1:]
+        rel = [tuple((a - m, b - m) for (a, b), (m, _) in zip(boxes[j], mbox))
+               for j in run.data_ranks]
+        return local, rel, tuple(b - a for a, b in mbox), run.data_group, rel
 
     def _gathered(self, path: str, r: Optional[int] = None) -> torch.Tensor:
-        local, boxes, shape = self._layout(path, r)
-        return _Gathered.apply(self._anchor, lambda: gather(local.detach(), boxes, shape),
-                               self._sink(path, r, boxes))
+        local, boxes, shape, group, sink_boxes = self._layout(path, r)
+        return _Gathered.apply(self._anchor, lambda: gather(local.detach(), boxes, shape, group),
+                               self._sink(path, r, sink_boxes))
 
     def unit_layers(self, units, root: str):
         out = []
@@ -431,10 +460,7 @@ class MeshStep:
         from repro_torch.models.model import params_loss
         from repro_torch.train.train_loop import _microbatch
 
-        run = self.run
-        plan = batch_shardings(batch, run.sizes)
-        local = {k: local_slice(v, plan[k], run.coord, run.sizes) for k, v in batch.items()}
-        shards = run.n_dp if any(any(e is not None for e in sp) for sp in plan.values()) else 1
+        local, shards = self._local_batch(batch)
         self._params = params
         self._grads = {k: torch.empty_like(p) for k, p in params.items()}
         self._written = set()
@@ -445,7 +471,7 @@ class MeshStep:
             self._anchor = torch.zeros((), requires_grad=True)
             top = {k: self._gathered(k) for k in self.shapes
                    if not k.startswith(("decoder/", "encoder/"))}
-            with context.batch_shards(shards):
+            with context.batch_shards(shards), tp_lib.use(self.tp):
                 loss, m = params_loss(top, self.cfg, micro, self.unit_layers)
             loss.backward()
             del top
@@ -460,35 +486,59 @@ class MeshStep:
         metrics["loss"] = torch.stack(losses).mean()
         return grads, self._data_mean(metrics)
 
+    def _local_batch(self, batch):
+        """(this rank's data shard of the global batch, the number of data
+        shards: 1 where the batch is not cut)."""
+        run = self.run
+        plan = batch_shardings(batch, run.sizes)
+        local = {k: local_slice(v, plan[k], run.coord, run.sizes) for k, v in batch.items()}
+        shards = run.n_dp if any(any(e is not None for e in sp) for sp in plan.values()) else 1
+        return local, shards
+
     @torch.no_grad()
     def reckon(self, params: Mapping[str, torch.Tensor], opt_state, optimizer, key=None,
-               accum_steps: int = 1, comms=None,
-               around_update=None) -> Tuple[int, List[Tuple[str, int, int]]]:
+               accum_steps: int = 1, comms=None, around_update=None,
+               batch=None) -> Tuple[int, List[Tuple[str, int, int]]]:
         """One train step's collectives on this rank, walked with no world:
         ``params`` and ``opt_state`` are the rank's parts (``meta`` is
         enough), the run one made with ``MeshRun(mesh, rank=)``. Every
         gather and gradient exchange of ``forward_backward`` (each gathered
-        tensor's gradient an empty tensor of its shape) and the metrics'
-        gather run as the step runs them; then ``finish`` at step 0 with
+        tensor's gradient an empty tensor of its shape), the model group's
+        sums of the tensor-parallel compute (``batch``, the global batch,
+        ``meta`` is enough, gives their shapes; needed where the step
+        splits compute) and the metrics' gather run as the step runs them;
+        then ``finish`` at step 0 with
         ``optimizer``, ``key`` and the wire format ``comms`` (fp32 if None),
         inside ``around_update`` (a context manager) if given. On ``meta`` it
         runs inside a ``roofline.measured.Counter``, which stands in for B1's
         passes and for masks that depend on values. Returns (the bytes
         ``STATS["bytes"]`` counts, the calls ``collectives.recording``
         records); ``STATS`` is left as it was."""
+        from repro_torch.models import layers
+        from repro_torch.train.train_loop import _microbatch
+
+        if self.tp is not None and batch is None:
+            raise ValueError("the step splits compute over the model axis: reckon needs the batch")
         saved = dict(STATS)
         STATS["collective_s"], STATS["bytes"] = 0.0, 0
         try:
             with without_world(self.run.world), recording() as calls:
                 self._params, self._written = params, set()
                 self._grads = {k: torch.empty_like(p) for k, p in params.items()}
-                for _ in range(accum_steps):
+                local_batch = self._local_batch(batch)[0] if self.tp is not None else None
+                for i in range(accum_steps):
                     for k, shape in self.shapes.items():
                         stacked = k.startswith(("decoder/", "encoder/"))
                         for r in range(shape[0]) if stacked else (None,):
-                            local, boxes, whole = self._layout(k, r)
-                            full = gather(local, boxes, whole)
-                            self._sink(k, r, boxes)(torch.empty_like(full))
+                            local, boxes, whole, group, sink_boxes = self._layout(k, r)
+                            full = gather(local, boxes, whole, group)
+                            self._sink(k, r, sink_boxes)(torch.empty_like(full))
+                    if self.tp is not None:
+                        micro = {k: _microbatch(v, i, accum_steps)
+                                 for k, v in local_batch.items()}
+                        for t in tp_lib.reckon_sums(self.cfg, self.split, self.shapes, micro,
+                                                    layers.COMPUTE_DTYPE):
+                            timed(all_gather, t, self.run.model_group)
                 grads, self._grads, self._params = self._grads, {}, None
                 dev = next(iter(params.values())).device
                 self._data_mean({k: torch.zeros((), device=dev) for k in _METRICS})
@@ -519,7 +569,7 @@ class MeshStep:
         """Each metric averaged over the data shards, in data rank order."""
         names = sorted(metrics)
         vec = torch.stack([metrics[k].to(torch.float32) for k in names])
-        allv = _timed(all_gather, vec)[self.run.data_ranks]
+        allv = timed(all_gather, vec)[self.run.data_ranks]
         mean = allv.sum(dim=0) / len(self.run.data_ranks)
         return {k: mean[i] for i, k in enumerate(names)}
 
@@ -533,7 +583,7 @@ class MeshStep:
             first = boxes.index(boxes[rank]) == rank
             sq = torch.sum(g.to(torch.float32) ** 2)
             parts.append(sq if first else torch.zeros_like(sq))
-        allp = _timed(all_gather, torch.stack(parts))
+        allp = timed(all_gather, torch.stack(parts))
         return torch.sqrt(allp.sum(dim=0).sum())
 
 

@@ -14,8 +14,10 @@ ranks) the step is the mesh step of ``train.mesh``: ``shard_train_state``
 first cuts a whole state to this rank's part of every tensor under
 ``train_state_shardings`` (the plans of ``sharding.specs``, with ZeRO on
 the data axes by default), and the step gathers each layer's parameters
-when the layer loop reaches it, sends each gradient tile to its owner,
-and updates the tiles. The one-device path is unchanged.
+when the layer loop reaches it (a leaf that computes tensor-parallel on
+the model axis as the rank's model shard, ``sharding.tensor_parallel``),
+sends each gradient tile to its owner, and updates the tiles. The
+one-device path is unchanged.
 """
 
 from __future__ import annotations

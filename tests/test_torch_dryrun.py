@@ -163,7 +163,7 @@ def test_state_bytes_equal_reference_addressable_shards(opt_name):
     assert rec["status"] == "ok"
     assert rec["memory"]["state_bytes"] == max(per_device.values())
     assert rec["n_chips"] == 8 and rec["rank_batch"] == 4
-    assert rec["collectives"]["result_bytes"] > 0 and rec["compute_split"] == "data"
+    assert rec["collectives"]["result_bytes"] > 0 and rec["compute_split"] == "data+model"
 
 
 def test_refusals_carry_the_mesh_steps_message():

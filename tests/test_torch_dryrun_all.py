@@ -127,6 +127,9 @@ def test_measure_on_a_mesh_records_the_reckoning():
     assert rec["rank_batch"] == 4 and rec["n_chips"] == 4
     assert rec["roofline"]["collective_bytes"] == link["total"]
     one = measured.measure(cfg, shape, optimizer="production4bit")
-    # data-split compute: a rank of 2 data shards does half the one-device products
-    assert rec["roofline"]["flops"] * 2 == one["roofline"]["flops"]
+    # data- and model-split compute: a rank of 2 data shards computes half the
+    # batch on half the heads, mlp columns and vocab rows: a quarter of the
+    # one-device products (every product of the arch is split)
+    assert rec["compute_split"] == "data+model"
+    assert rec["roofline"]["flops"] * 4 == one["roofline"]["flops"]
     assert rec["row_tile_leaves"] == []

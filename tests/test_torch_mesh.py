@@ -14,7 +14,9 @@ SR, the reference's params and its gradients of two batches. Held to:
   ``tests/test_torch_optim.py``: torch's CPU ``sqrt``), and every leaf
   bit-equal to the port's one-process update;
 * run end to end for 2 steps, losses within 2e-3 of the reference's jitted
-  (2, 4) step and within 1e-5 of the port's one-process run;
+  (2, 4) step and within 1e-5 of the port's one-process run (3e-5 where
+  the compute is split over a model axis, whose sums of bf16 gradients
+  reach the 4-bit update; in fp32 compute those runs hold 1e-5);
 * each rank holds only its plan's tiles (shapes) and its plan's state bytes;
 * a MoE arch (reduced phi3.5-moe, (2, 1)) forms its token groups over the
   global batch: losses and aux within 1e-5 of one process.
@@ -173,7 +175,11 @@ def one_process(inputs, worlds):
     for b in inputs["batches"]:
         st, m = fn(st, {k: torch.from_numpy(v) for k, v in b.items()})
         losses.append(float(m["loss"]))
-    return {"params": params, "state": state.opt_state, "losses": losses}
+    with worker._compute_dtype(torch.float32):
+        model, opt, st = fresh()
+        losses_fp32 = worker._run_losses(build_train_step(model, opt), st, inputs["batches"])
+    return {"params": params, "state": state.opt_state, "losses": losses,
+            "losses_fp32": losses_fp32}
 
 
 @pytest.fixture(scope="module")
@@ -252,7 +258,14 @@ def test_mesh_step_losses_and_rank_layout(mesh, results, reference, one_process,
     for r in ranks:
         res = r
         np.testing.assert_allclose(res["losses"], reference["losses"], atol=2e-3)
-        np.testing.assert_allclose(res["losses"], one_process["losses"], rtol=1e-5)
+        # a model-split mesh sums the bf16 gradients of its column-parallel
+        # inputs over the model group, and that rounding reaches the 4-bit
+        # update and the second loss; in fp32 compute the same run holds 1e-5
+        np.testing.assert_allclose(res["losses"], one_process["losses"],
+                                   rtol=1e-5 if mesh[1] == 1 else 3e-5)
+        if mesh[1] > 1:
+            np.testing.assert_allclose(res["losses_fp32"], one_process["losses_fp32"],
+                                       rtol=1e-5)
         assert res["tile_shapes"] == res["want_shapes"]
         assert res["state_bytes"] == res["plan_bytes"]
     whole = sum(v.nbytes for v in inputs["params0"].values())

@@ -203,10 +203,14 @@ def _reckon(layout, rank):
     cut = lambda t, spec: local_slice(t, spec, run.coord, mesh).clone()  # as the step holds them
     local = {k: cut(p, ms.param_plan[k]) for k, p in params.items()}
     parts = map_plan(cut, state, ms.state_plan)
+    # the real step's batch, as shapes: the model group's sums follow them
+    batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
+             for k, v in _batch().items()}
     out = []
     for mode, accum in RUNS:
         with measured.Counter():
-            out.append(ms.reckon(local, parts, opt, sr.PRNGKey(0), accum, CommsConfig(mode=mode)))
+            out.append(ms.reckon(local, parts, opt, sr.PRNGKey(0), accum, CommsConfig(mode=mode),
+                                 batch=batch))
     return out
 
 

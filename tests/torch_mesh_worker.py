@@ -5,6 +5,7 @@ through a ``FileStore`` in ``tmp`` (never a fixed port), runs every task
 in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
 ``kind`` (``allreduce``, ``reduce``, ``step``, ``optim``, ``optim_one``, ``losses``,
+``tp_step``, ``tp_blocks``,
 ``collectives``, and the checkpoint kinds ``save``, ``restore``, ``resume``, ``mesh_ckpt``,
 ``protocol``) and its inputs; a task
 with ``after`` waits until that file exists (the caller writes its inputs
@@ -122,6 +123,11 @@ def _step(task, rank):
         state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         losses.append(float(metrics["loss"]))
     out["losses"] = losses
+    if task["mesh"][1] > 1:  # the compute split over model: also in fp32 compute
+        with _compute_dtype(torch.float32):
+            model, opt, state = fresh()
+            out["losses_fp32"] = _run_losses(build_train_step(model, opt, mesh, axes), state,
+                                             task["batches"])
     return out
 
 
@@ -222,7 +228,7 @@ def _optim(task, rank):
         model, opt, state = fresh()
         res["losses"] = _run_losses(build_train_step(model, opt, mesh, axes), state,
                                     task["batches"])
-        if shape[0] > 1:  # the batch split over data: also in fp32 compute
+        if shape != (1, 1):  # the batch or the compute split: also in fp32 compute
             with _compute_dtype(torch.float32):
                 model, opt, state = fresh()
                 res["losses_fp32"] = _run_losses(build_train_step(model, opt, mesh, axes),
@@ -303,6 +309,165 @@ def _losses(task, rank):
     for batch in task["batches"]:
         state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         out.append((float(metrics["loss"]), float(metrics["aux_loss"])))
+    return out
+
+
+def _tp_step(task, rank):
+    """The mesh step from the task's whole ``params`` (the reference's) on
+    each of ``task["meshes"]``: the gradient of the first batch, gathered
+    whole (``forward_backward``); 2 steps end to end with each step's
+    ``STATS`` bytes and recorded calls, and ``MeshStep.reckon`` of the same
+    step on this rank's ``meta`` parts; the leaves the step splits; with
+    ``fp32``, the steps' (loss, aux) in fp32 compute; ``partial: "bf16"``
+    keeps the row-parallel partials in bf16. ``{mesh: result}``."""
+    import dataclasses
+
+    from repro_torch.comms import CommsConfig
+    from repro_torch.comms.collectives import recording
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import load_params
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.kernels import sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Transformer, init_model, named_params, param_axes
+    from repro_torch.roofline.measured import Counter
+    from repro_torch.sharding.context import MeshRun
+    from repro_torch.sharding.specs import local_slice, map_plan
+    from repro_torch.train.mesh import MeshStep, gather
+    from repro_torch.train.train_loop import (
+        build_train_step,
+        make_train_state,
+        shard_train_state,
+    )
+
+    from repro_torch.sharding import tensor_parallel as T
+
+    cfg = dataclasses.replace(reduced_config(task["arch"]), **task.get("overrides", {}))
+    axes = param_axes(cfg)
+    key = sr.PRNGKey(task["sr_seed"])
+    params = {k: torch.from_numpy(v) for k, v in task["params"].items()}
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in task["batches"]]
+    # the row-parallel partials' type (bf16: the other choice, measured)
+    T.PARTIAL_DTYPE = torch.bfloat16 if task.get("partial") == "bf16" else torch.float32
+    out = {}
+    for shape in task["meshes"]:
+        mesh = make_mesh(shape, ("data", "model"))
+
+        def fresh():
+            model = Transformer(cfg, device="cpu")
+            load_params(model, params)
+            opt = make_optimizer("production4bit", task["lr"])
+            state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
+            return opt, state, build_train_step(model, opt, mesh, axes)
+
+        opt, state, fn = fresh()
+        ms = fn.mesh_step
+        res = {"split": {k: d for k, d in ms.split.items() if d is not None},
+               "model_ranks": ms.run.model_ranks}
+        g, _ = ms.forward_backward(state.params, batches[0], 1)
+        res["grads"] = {k: gather(v, ms.boxes[k], ms.shapes[k]) for k, v in g.items()}
+        del g
+        opt, state, fn = fresh()
+        losses, aux, stats, recorded = [], [], [], []
+        for b in batches:
+            with recording() as rec:
+                state, metrics = fn(state, b)
+            losses.append(float(metrics["loss"]))
+            aux.append(float(metrics["aux_loss"]))
+            stats.append(fn.times["collective_bytes"])
+            recorded.append(list(rec))
+        res.update(losses=losses, aux=aux, stats_bytes=stats, recorded=recorded)
+        if task.get("fp32"):  # the same steps in fp32 compute
+            with _compute_dtype(torch.float32):
+                opt, state, fn = fresh()
+                res["fp32"] = []
+                for b in batches:
+                    state, metrics = fn(state, b)
+                    res["fp32"].append((float(metrics["loss"]), float(metrics["aux_loss"])))
+        # the same step reckoned with no world on this rank's meta parts
+        meta = {k: p.detach() for k, p in named_params(init_model(cfg, device="meta")).items()}
+        with torch.no_grad():
+            meta_state = opt.init(meta)
+        run = MeshRun(dict(zip(("data", "model"), shape)), rank=rank)
+        dry = MeshStep(run, cfg, {k: tuple(p.shape) for k, p in meta.items()}, axes, meta,
+                       meta_state)
+        cut = lambda t, spec: local_slice(t, spec, run.coord, run.sizes).clone()
+        local = {k: cut(p, dry.param_plan[k]) for k, p in meta.items()}
+        parts = map_plan(cut, meta_state, dry.state_plan)
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batches[0].items()}
+        with Counter():
+            res["reckoned"] = dry.reckon(local, parts, opt, key, 1, CommsConfig(),
+                                         batch=shapes)
+        out[tuple(shape)] = res
+    return out
+
+
+def _block_shards(block, p, rank, world, cfg):
+    """A rank's model shard of a block's whole leaves (the placement rule:
+    attention heads, kv heads where the world divides them, mlp columns,
+    vocab rows), as new leaves."""
+    cut = {"attention": {"wq": 1, "wo": 0, "wk": 1, "wv": 1},
+           "mlp": {"w1": 1, "w3": 1, "w2": 0}, "vocab": {"embed": 0}}[block]
+    if block == "attention" and cfg.num_kv_heads % world:
+        cut = {k: d for k, d in cut.items() if k not in ("wk", "wv")}
+    out = {}
+    for k, v in p.items():
+        if k in cut:
+            n = v.shape[cut[k]] // world
+            v = v.narrow(cut[k], rank * n, n)
+        out[k] = v.clone().requires_grad_()
+    return out
+
+
+def _tp_blocks(task, rank):
+    """Each case's block on this rank's model shard (a world of ``M`` ranks,
+    one model group), forward and backward against the case's cotangent:
+    head-parallel attention, mlp-parallel MLP, the vocab-parallel lookup
+    and cross entropy; in the case's compute type and partial type. Returns
+    per case the output, the input's gradient and each leaf's gradient (of
+    the rank's shard)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.blocks import apply_attention, apply_mlp
+    from repro_torch.models.layers import vocab_parallel_cross_entropy, vocab_parallel_lookup
+    from repro_torch.sharding import tensor_parallel as T
+
+    world = dist.get_world_size()
+    tp = T.TPRun(None, rank, world)
+    out = []
+    for case in task["cases"]:
+        dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
+        T.PARTIAL_DTYPE = torch.float32 if case.get("partial", "fp32") == "fp32" else torch.bfloat16
+        try:
+            with _compute_dtype(dtype), T.use(tp):
+                cfg = dataclasses.replace(reduced_config(case["arch"]), **case.get("cfg", {}))
+                p = _block_shards(case["block"], {k: torch.from_numpy(v)
+                                                  for k, v in case["params"].items()},
+                                  rank, world, cfg)
+                x = torch.from_numpy(case["x"]).to(dtype).requires_grad_()
+                cot = torch.from_numpy(case["cot"])
+                if case["block"] == "attention":
+                    pos = torch.arange(x.shape[1])[None].expand(x.shape[0], -1)
+                    y = apply_attention(p, x, cfg, window=case["window"], positions=pos)
+                    total = (y.float() * cot).sum()
+                elif case["block"] == "mlp":
+                    y = apply_mlp(p, x, case["act"], case["width"])
+                    total = (y.float() * cot).sum()
+                else:
+                    ids = torch.from_numpy(case["ids"])
+                    rows = vocab_parallel_lookup(p["embed"], ids, tp)
+                    labels = torch.from_numpy(case["labels"])
+                    loss = vocab_parallel_cross_entropy(x, p["embed"].t(), labels, tp,
+                                                        logit_cap=cfg.final_softcap, chunk=8)
+                    y = {"rows": rows.detach(), "loss": loss.detach()}
+                    total = loss + (rows.float() * cot).sum()
+                total.backward()
+        finally:
+            T.PARTIAL_DTYPE = torch.float32
+        out.append({"y": y.detach() if torch.is_tensor(y) else y, "x_grad": x.grad,
+                    "grads": {k: v.grad for k, v in p.items()}})
     return out
 
 
@@ -580,7 +745,7 @@ def _protocol(task, rank):
 
 
 TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "optim": _optim,
-         "optim_one": _optim_one, "losses": _losses,
+         "optim_one": _optim_one, "losses": _losses, "tp_step": _tp_step, "tp_blocks": _tp_blocks,
          "collectives": _collectives, "slots": _slots,
          "save": _save, "restore": _restore, "resume": _resume, "mesh_ckpt": _mesh_ckpt,
          "protocol": _protocol}
