@@ -331,6 +331,21 @@ Phases, each failing the run on error:
     (11,334,660,216 B a step a rank) beside the new one, and the fp32 and
     bf16 row-parallel partial products of ``wo`` and ``w2`` timed on the
     card.
+41. the recompute (``models.remat``): (a) internlm2-1.8b at full width and
+    4 of its 24 layers, batch 8 x seq 128, through the library on the card:
+    the loss and every parameter's gradient with ``remat`` on bit-equal to
+    off (a gradient that an op's CUDA backward parts is named and held
+    within the gap two remat-off runs open), and each one's
+    forward+backward peak and ms; (b) the blockwise training attention at
+    internlm2-1.8b's train_4k layout (1, 4096, 16 / 8 heads, 128) in fp32,
+    causal, then with a window of 1024 and a softcap of 50: output and
+    q/k/v gradients within 1e-5 of the largest magnitude of a float64
+    whole-score softmax's, its forward+backward ms (CUDA events) and peak
+    beside an fp32 whole-score softmax's.
+
+Every training phase runs with the configs' ``remat=True`` (the reference's
+default): each layer is recomputed in the backward, and on the mesh (phases
+35, 37, 39, 40) gathered again for it.
 
 Each phase's seconds are printed as it ends (``phase clock:``) and kept in
 ``chiprun_out/chip_smoke.json``.
@@ -343,7 +358,7 @@ just before it (a spawned rank's counts start at 0 with its process); phase
 Prints the kernel table as a JSON line, then the device line as the last
 line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
 phases 10, 34-37 and 40 alone (no result lines); ``--mesh-optim-phases`` runs phases 11
-and 39 alone. Needs a CUDA card and the repository
+and 39 alone; ``--recompute-phases`` runs phases 41 and 6 alone. Needs a CUDA card and the repository
 beside it; without either it
 exits non-zero and prints no result.
 """
@@ -646,6 +661,14 @@ MESH_OPTIM_RANK_BYTES = {"sm3": 884_913_384, "adafactor": 888_425_488,
 
 
 # each phase's seconds, as main's laps record them
+# phase 41: internlm2-1.8b at full width and RECOMPUTE_LAYERS of its 24
+# layers, batch 8 x 128, remat on against off; the training attention at
+# internlm2-1.8b's train_4k head layout (B, S, heads, kv heads, head dim),
+# causal, then with a window and a softcap, against a float64 whole-score
+# softmax
+RECOMPUTE_LAYERS = 4
+RECOMPUTE_ATTN = ((1, 4096, 16, 8, 128, 0, 0.0), (1, 4096, 16, 8, 128, 1024, 50.0))
+ATTN_REL = 1e-5
 PHASE_SECONDS = {}
 _LAP = [0.0]
 
@@ -3769,6 +3792,180 @@ def phase_mesh_optimizers(new_optimizers):
     return {"runs": runs, "seconds": seconds}
 
 
+def _remat_grads(cfg, batch, dev):
+    """One forward+backward of ``cfg`` from seed 0 through the library:
+    (loss, every parameter's gradient, the peak bytes from just before the
+    loss to just after the backward above what was allocated before the
+    model, its ms by CUDA events)."""
+    import torch
+
+    from repro_torch.models import init_model, named_params
+    from repro_torch.models.model import params_loss
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    params = named_params(init_model(cfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss, _ = params_loss(params, cfg, batch)
+    loss.backward()
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return loss.detach(), {k: p.grad for k, p in params.items()}, peak, start.elapsed_time(end)
+
+
+def _whole_attention(q, k, v, causal, window, cap):
+    """The training attention as one softmax over every key, in the
+    inputs' dtype: the oracle of the blockwise version."""
+    import torch
+
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bqhgk", q.reshape(B, S, -1, G, D), k) / math.sqrt(D)
+    if cap > 0:
+        s = cap * torch.tanh(s / cap)
+    i = torch.arange(S, device=q.device)
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= i[None, :] <= i[:, None]
+    if window > 0:
+        ok &= i[None, :] > i[:, None] - window
+    s = s.masked_fill(~ok[None, :, None, None, :], float("-inf"))
+    out = torch.einsum("bqhgk,bkhd->bqhgd", torch.softmax(s, dim=-1), v)
+    return out.reshape(B, S, H, D)
+
+
+def _attention_run(fn, q, k, v, w, dev, reps=5):
+    """``fn``'s output and q/k/v gradients against the cotangent ``w``, the
+    median ms of its forward+backward by CUDA events and its peak bytes
+    above what was allocated before it."""
+    import torch
+
+    grads, times = None, []
+    for _ in range(reps):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*leaves)
+        (out * w).sum().backward()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        grads = (out.detach(), *(t.grad for t in leaves))
+        del out, leaves
+    return grads, _median(times), peak
+
+
+def phase_recompute(dev):
+    """Phase 41: (a) internlm2-1.8b at full width and RECOMPUTE_LAYERS of
+    its 24 layers, batch 8 x 128, through the library on the card
+    (``params_loss`` and its backward): the loss and every parameter's
+    gradient with ``remat`` on bit-equal to off (where an op's CUDA
+    backward parts two runs, the parted gradients are named and held within
+    the gap that two remat-off runs open on the same inputs); the
+    forward+backward peak (above what was allocated before the model) and
+    ms of each, after a warm-up run, in turns (off, on, on, off). (b) the blockwise training
+    attention (``models.attention.train_attention``, the config's 512 /
+    1024 chunks) at each RECOMPUTE_ATTN layout, fp32 inputs: its output and
+    q/k/v gradients within ATTN_REL of the largest magnitude of a float64
+    whole-score softmax's; its forward+backward ms (CUDA events, median of
+    5) and peak beside the fp32 whole-score softmax's (the attention the
+    port ran before)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.attention import train_attention
+
+    out = {}
+    base = get_config("internlm2-1.8b")
+    base = dataclasses.replace(base, num_layers=RECOMPUTE_LAYERS,
+                               blocks=base.blocks[:RECOMPUTE_LAYERS])
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLM(DataConfig(base.vocab_size, 128, 8)).batch_at(0).items()}
+    _remat_grads(base, batch, dev)  # warm-up: the first products pick their algorithms
+    gc.collect()
+    # in turns, off, on, on, off, each run's gradients moved to the host before
+    # the next, so every run starts from the same allocator state
+    runs = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off"):
+        loss, grads, peak, ms = _remat_grads(dataclasses.replace(base, remat=name == "on"),
+                                             batch, dev)
+        runs[name].append((loss.cpu(), {k: g.cpu() for k, g in grads.items()}, peak, ms))
+        del loss, grads
+        gc.collect()
+    (l0, g0, p0, _), (l2, g2, _, _) = runs["off"]
+    l1, g1, p1, _ = runs["on"][0]
+    if not torch.equal(l0, l1) or not torch.equal(l0, l2):
+        fail(f"remat: loss {float(l1)!r} with it, {float(l0)!r} / {float(l2)!r} without")
+    parted = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    gaps = {}
+    for k in parted:  # an op's CUDA backward that parts two runs: the gap of two runs off
+        gap = float((g2[k] - g0[k]).abs().max())
+        got = float((g1[k] - g0[k]).abs().max())
+        gaps[k] = (got, gap)
+        if got > gap:
+            fail(f"remat: {k}'s gradient {got!r} from remat off, beyond the {gap!r} "
+                 f"that two runs without it open")
+    ms_off, ms_on = ([r[3] for r in runs[n]] for n in ("off", "on"))
+    out["model"] = {"layers": RECOMPUTE_LAYERS, "loss": float(l0), "leaves": len(g0),
+                    "parted": gaps, "peak_off": p0, "peak_on": p1, "ms_off": ms_off,
+                    "ms_on": ms_on}
+    print(f"recompute: internlm2-1.8b at {RECOMPUTE_LAYERS} of 24 layers, 8 x 128: loss "
+          f"{float(l0):.6f} and {len(g0) - len(parted)} of {len(g0)} gradients bit-equal with "
+          f"remat on and off (parted at an op's CUDA backward, within two runs' gap: "
+          f"{gaps or 'none'}); forward+backward peak {p0:,} B off, {p1:,} B on "
+          f"({(p0 - p1) / 1e9:.3f} GB less), ms off {ms_off[0]:.1f} / {ms_off[1]:.1f}, on "
+          f"{ms_on[0]:.1f} / {ms_on[1]:.1f} (in turns: off, on, on, off)")
+    del runs, g0, g1, g2, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["attention"] = []
+    for B, S, H, Hkv, D, window, cap in RECOMPUTE_ATTN:
+        gen = torch.Generator(device=dev).manual_seed(41)
+        q = torch.randn((B, S, H, D), generator=gen, device=dev)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+        w = torch.randn((B, S, H, D), generator=gen, device=dev)
+        what = (f"train_attention ({B}, {S}, {H} / {Hkv}, {D}) causal"
+                + (f", window {window}" if window else "") + (f", softcap {cap:g}" if cap else ""))
+        blockwise = lambda a, b, c: train_attention(a, b, c, causal=True, window=window,
+                                                    softcap_val=cap)
+        whole = lambda a, b, c: _whole_attention(a, b, c, True, window, cap)
+        got, ms, peak = _attention_run(blockwise, q, k, v, w, dev)
+        _, whole_ms, whole_peak = _attention_run(whole, q, k, v, w, dev)
+        want = _attention_run(whole, *(t.double() for t in (q, k, v, w)), dev, reps=1)[0]
+        errs = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            scale = float(b.abs().max())
+            errs[name] = float((a.double() - b).abs().max()) / scale
+            if not errs[name] <= ATTN_REL:
+                fail(f"{what}: {name} {errs[name]:.3e} of the largest magnitude from the "
+                     f"float64 softmax, above {ATTN_REL:g}")
+        rec = {"shape": [B, S, H, Hkv, D], "window": window, "softcap": cap, "rel_err": errs,
+               "ms": ms, "peak_bytes": peak, "whole_fp32_ms": whole_ms,
+               "whole_fp32_peak_bytes": whole_peak}
+        out["attention"].append(rec)
+        print(f"recompute: {what}: fwd+bwd {ms:.2f} ms, peak {peak:,} B (the fp32 whole-score "
+              f"softmax: {whole_ms:.2f} ms, {whole_peak:,} B); from the float64 softmax "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+        del q, k, v, w, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     global HBM_BYTES_PER_S, FP32_FLOPS_PER_S
     sys.path.insert(0, str(ROOT / "src"))
@@ -3818,6 +4015,13 @@ def main():
     if sys.argv[1:] == ["--mesh-optim-phases"]:  # phases 11 and 39 alone
         phase_mesh_optimizers(phase_new_optimizers(counters, dev))
         print(f"chip_smoke: phases 11 and 39 passed in {time.perf_counter() - t_start:.1f} s")
+        return
+    if sys.argv[1:] == ["--recompute-phases"]:  # phases 41 and 6 alone
+        phase_recompute(dev)
+        _lap("41 recompute")
+        phase_main_path(counters)
+        _lap("6 main path")
+        print(f"chip_smoke: phases 41 and 6 passed in {time.perf_counter() - t_start:.1f} s")
         return
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.split()
@@ -3903,6 +4107,8 @@ def main():
     _lap("38 roofline")
     mesh_optim = phase_mesh_optimizers(new_optimizers)
     _lap("39 mesh optimizers")
+    recompute = phase_recompute(dev)
+    _lap("41 recompute")
     # launches: every path run of the slices, each counted from 0 just before
     # it and read just after (phases 6, 15, 21, 25, 30, 35, 37, 40 train; 8,
     # 17, 23, 27, 32 serve)
@@ -4008,7 +4214,7 @@ def main():
          "mesh_checkpoint": mesh_checkpoint, "roofline": roofline["roofline"],
          "dryrun": roofline["dryrun"], "roofline_mesh_collectives":
              roofline["mesh_collectives"], "roofline_seconds": roofline["seconds"],
-         "mesh_optimizers": mesh_optim, "path_launches": launches,
+         "mesh_optimizers": mesh_optim, "recompute": recompute, "path_launches": launches,
          "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

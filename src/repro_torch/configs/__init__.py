@@ -288,7 +288,8 @@ def reduced_config(name: str) -> ModelConfig:
     its (16, 0) pattern) and <= 2 encoder layers, d_model 64, <= 4 heads of
     16, d_ff 256 (kernel-eligible mlp and expert leaves), vocab 512, <= 4
     experts in groups of 64 tokens, ssm_state <= 8, GLA chunks of 16, M-RoPE
-    sections (4, 2, 2); every feature flag kept."""
+    sections (4, 2, 2), no layer remat (as the reference's); every other
+    feature flag kept."""
     cfg = get_config(name)
     L = min(cfg.num_layers, 4)
     blocks = tuple(LayerSpec(b.kind, min(b.window, 16) if b.window else 0) for b in cfg.blocks[:L])
@@ -301,5 +302,5 @@ def reduced_config(name: str) -> ModelConfig:
         cfg, num_layers=L, blocks=blocks, encoder_blocks=enc_blocks, d_model=64,
         num_heads=heads, num_kv_heads=kv, head_dim=16, d_ff=256 if cfg.d_ff else 0,
         vocab_size=512, num_experts=min(cfg.num_experts, 4), moe_group_size=64,
-        ssm_state=min(cfg.ssm_state, 8), gla_chunk=16, mrope_sections=(4, 2, 2),
+        ssm_state=min(cfg.ssm_state, 8), gla_chunk=16, mrope_sections=(4, 2, 2), remat=False,
     )

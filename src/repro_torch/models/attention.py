@@ -1,15 +1,23 @@
 """Attention with GQA: training attention, and the serving KV cache with
 one-query decode attention (port of ``repro/models/attention.py``).
 
-``train_attention``: the reference runs an online-softmax scan over
-(q-chunk, k-chunk) pairs in fp32 (k-chunks of ``attn_k_chunk`` = 1024, so
-whisper's 1500 encoder frames take two); the port computes the one masked
-softmax over all keys, ``exp(s - max) @ v / sum``, fp32 inside, output in
-the input dtype. The two differ by fp32 rounding only (the online softmax
-rescales its partial sums per chunk). Self-attention is causal; cross- and
-encoder attention (``causal=False``) may have ``Sq != Sk``. q heads are
-grouped per kv head, as in the reference (head ``h`` reads kv head
-``h // G``).
+``train_attention`` is the reference's blockwise online softmax: q and k/v
+are padded to multiples of the chunks (``attn_q_chunk`` = 512 queries,
+``attn_k_chunk`` = 1024 keys, each at most the sequence), and only the
+(q-chunk, k-chunk) pairs that ``_block_pairs`` keeps are computed: a pair
+wholly in the future (causal) or wholly behind the window is never formed
+(at S = 4096, causal, 20 of the 32 pairs). Each q chunk carries its own
+running max, sum and fp32 accumulator over its pairs in ascending k chunk;
+a pair scales its scores, caps them (``softcap_val``), masks them with
+``NEG_INF`` (causal, window, keys past ``Sk``) and folds them in; a q chunk
+with no pair is zeros; the output is ``acc / max(l, 1e-30)``, cropped and
+cast to the input dtype. Each pair is recomputed in the backward
+(``remat.recomputed``, the reference's ``jax.checkpoint`` of its scan
+body), so only the carry is saved, never a pair's probabilities.
+Self-attention is causal; cross- and encoder attention (``causal=False``)
+may have ``Sq != Sk`` (whisper's 1500 frames pad to 1536 x 2048: 3 x 2
+pairs). q heads are grouped per kv head, as in the reference (head ``h``
+reads kv head ``h // G``).
 
 Serving: ``KVCache`` is the reference's circular cache; ``cache_prefill``
 writes a whole right-padded prompt batch at once (a gather), and
@@ -23,9 +31,12 @@ softmax in fp32, masked by each slot's stored position.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.models.remat import recomputed
 
 __all__ = ["train_attention", "decode_attention", "KVCache", "make_cache",
            "cache_prefill", "cache_update"]
@@ -33,32 +44,92 @@ __all__ = ["train_attention", "decode_attention", "KVCache", "make_cache",
 NEG_INF = -1e30
 
 
+def _block_pairs(nq: int, nk: int, qc: int, kc: int, causal: bool,
+                 window: int) -> List[Tuple[int, int]]:
+    """The (iq, jk) chunk pairs that can hold an unmasked entry, in the
+    reference's order (positions 0..S-1: the training layout)."""
+    pairs = []
+    for iq in range(nq):
+        q_lo, q_hi = iq * qc, (iq + 1) * qc - 1
+        for jk in range(nk):
+            k_lo, k_hi = jk * kc, (jk + 1) * kc - 1
+            if causal and k_lo > q_hi:
+                continue  # entirely in the future
+            if window > 0 and k_hi < q_lo - window + 1:
+                continue  # entirely behind the window
+            pairs.append((iq, jk))
+    return pairs
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, H, D) padded with ``n`` zero rows on S."""
+    return F.pad(x, (0, 0, 0, 0, 0, n)) if n else x
+
+
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap_val: float = 0.0) -> torch.Tensor:
-    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D). A positive
+                    causal: bool = True, window: int = 0, softcap_val: float = 0.0,
+                    q_chunk: int = 512, k_chunk: int = 1024) -> torch.Tensor:
+    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D), over the
+    (``q_chunk``, ``k_chunk``) block pairs left after pruning. A positive
     ``softcap_val`` caps the scaled scores (``cap * tanh(s / cap)``) before
     the mask, as the reference does."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    qg = q.to(torch.float32).reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.to(torch.float32)) * (1.0 / math.sqrt(D))
-    if softcap_val > 0:
-        s = softcap_val * torch.tanh(s / softcap_val)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= k_pos <= q_pos
-    if window > 0:
-        ok &= k_pos > q_pos - window
-    s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(torch.float32))
-    out = out / torch.clamp_min(torch.sum(p, dim=-1), 1e-30)[..., None]
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    scale = 1.0 / math.sqrt(D)
+    qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
+    qp, kp, vp = _pad_seq(q, (-Sq) % qc), _pad_seq(k, (-Sk) % kc), _pad_seq(v, (-Sk) % kc)
+    nq, nk = qp.shape[1] // qc, kp.shape[1] // kc
+    qg = qp.reshape(B, nq * qc, Hkv, G, D)
+    pairs = _block_pairs(nq, nk, qc, kc, causal, window)
+    dev = q.device
+
+    def step(iq: int, jk: int):
+        """The online-softmax step of pair (iq, jk) on a chunk-local carry."""
+        q_lo, q_hi, k_lo, k_hi = iq * qc, (iq + 1) * qc - 1, jk * kc, (jk + 1) * kc - 1
+        # a pair with no masked entry skips the mask (where(True, s, .) is s)
+        whole = (k_hi < Sk and (not causal or k_hi <= q_lo)
+                 and (window <= 0 or k_lo > q_hi - window))
+
+        def body(m, l, acc, qs, ks, vs):
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qs.to(torch.float32),
+                             ks.to(torch.float32)) * scale
+            if softcap_val > 0:
+                s = softcap_val * torch.tanh(s / softcap_val)
+            if not whole:
+                q_pos = q_lo + torch.arange(qc, device=dev)
+                k_pos = k_lo + torch.arange(kc, device=dev)
+                ok = (k_pos < Sk)[None, :].expand(qc, kc)  # padding mask
+                if causal:
+                    ok = ok & (k_pos[None, :] <= q_pos[:, None])
+                if window > 0:
+                    ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+                s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_new = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bqhgk,bkhd->bqhgd", p, vs.to(torch.float32))
+            return m_new, l_new, acc * corr[..., None] + pv
+
+        return body
+
+    outs = []
+    for iq in range(nq):
+        jks = [jk for i, jk in pairs if i == iq]
+        if not jks:
+            outs.append(torch.zeros((B, qc, Hkv, G, D), dtype=torch.float32, device=dev))
+            continue
+        qs = qg[:, iq * qc:(iq + 1) * qc]
+        m = torch.full((B, qc, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, qc, Hkv, G), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, qc, Hkv, G, D), dtype=torch.float32, device=dev)
+        for jk in jks:
+            ks, vs = kp[:, jk * kc:(jk + 1) * kc], vp[:, jk * kc:(jk + 1) * kc]
+            m, l, acc = recomputed(step(iq, jk), m, l, acc, qs, ks, vs)
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.cat(outs, dim=1).reshape(B, nq * qc, Hq, D)[:, :Sq]
+    return out.to(q.dtype)
 
 
 class KVCache(NamedTuple):

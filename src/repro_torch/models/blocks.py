@@ -334,7 +334,8 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = 
                                         k_chunk=cfg.decode_k_chunk)
     else:
         out = attn_lib.train_attention(q, k, v, causal=causal, window=window,
-                                       softcap_val=cfg.attn_softcap)
+                                       softcap_val=cfg.attn_softcap,
+                                       q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
         if cache is not None and kv_lengths is not None:
             attn_lib.cache_prefill(cache, k, v, kv_lengths)
     if split:

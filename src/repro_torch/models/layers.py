@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.remat import recomputed
 from repro_torch.sharding import tensor_parallel as tp_lib
 
 __all__ = [
@@ -130,23 +131,29 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
                           logit_cap: float = 0.0, chunk: int = 512) -> torch.Tensor:
     """Mean causal-LM cross entropy over unmasked labels (-1 = masked),
-    computing logits for ``chunk`` positions at a time."""
+    computing logits for ``chunk`` positions at a time. Each chunk is
+    recomputed in the backward (``remat.recomputed``, as the reference's
+    ``jax.checkpoint`` of its chunk body), so its fp32 logits ``(B, chunk,
+    V)`` are never saved: only the running sums and the chunk's inputs."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     head_c = head.to(COMPUTE_DTYPE)
-    loss_sum = x.new_zeros((), dtype=torch.float32)
-    count = x.new_zeros((), dtype=torch.float32)
-    for s0 in range(0, S, chunk):
-        xc = x[:, s0:s0 + chunk].to(COMPUTE_DTYPE)
-        lc = labels[:, s0:s0 + chunk].long()
+
+    def body(loss_sum, count, xc, lc):
+        xc, lc = xc.to(COMPUTE_DTYPE), lc.long()
         logits = torch.einsum("bcd,dv->bcv", xc, head_c).to(torch.float32)
         if logit_cap > 0:
             logits = logit_cap * torch.tanh(logits / logit_cap)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
         mask = (lc >= 0).to(torch.float32)
-        loss_sum = loss_sum + torch.sum((lse - gold) * mask)
-        count = count + torch.sum(mask)
+        return loss_sum + torch.sum((lse - gold) * mask), count + torch.sum(mask)
+
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, chunk):
+        loss_sum, count = recomputed(body, loss_sum, count, x[:, s0:s0 + chunk],
+                                     labels[:, s0:s0 + chunk])
     return loss_sum / torch.clamp_min(count, 1.0)
 
 
@@ -171,18 +178,19 @@ def vocab_parallel_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: to
     vocab shard ``tp.index``): per chunk the rank's logits (softcap
     elementwise), their max, sum of ``exp`` and the gold logit merged over
     the model group (the max, then sums in ascending model rank), and the
-    log-sum-exp formed from them; the mean over unmasked labels as there."""
+    log-sum-exp formed from them; the mean over unmasked labels as there.
+    Each chunk is recomputed in the backward, its three merges with it, on
+    every rank of the group (as the reference's checkpointed chunk body
+    runs its collectives again under GSPMD)."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     n = head.shape[1]
     x = tp_lib.enter(x, tp)
     head_c = head.to(COMPUTE_DTYPE)
-    loss_sum = x.new_zeros((), dtype=torch.float32)
-    count = x.new_zeros((), dtype=torch.float32)
     zero = x.new_zeros((), dtype=torch.float32)
-    for s0 in range(0, S, chunk):
-        xc = x[:, s0:s0 + chunk].to(COMPUTE_DTYPE)
-        lc = labels[:, s0:s0 + chunk].long()
+
+    def body(loss_sum, count, xc, lc):
+        xc, lc = xc.to(COMPUTE_DTYPE), lc.long()
         logits = torch.einsum("bcd,dv->bcv", xc, head_c).to(torch.float32)
         if logit_cap > 0:
             logits = logit_cap * torch.tanh(logits / logit_cap)
@@ -194,6 +202,11 @@ def vocab_parallel_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: to
         gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
         gold = tp_lib.leave(torch.where(mine, gold, zero), tp)
         mask = (lc >= 0).to(torch.float32)
-        loss_sum = loss_sum + torch.sum((lse - gold) * mask)
-        count = count + torch.sum(mask)
+        return loss_sum + torch.sum((lse - gold) * mask), count + torch.sum(mask)
+
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, chunk):
+        loss_sum, count = recomputed(body, loss_sum, count, x[:, s0:s0 + chunk],
+                                     labels[:, s0:s0 + chunk])
     return loss_sum / torch.clamp_min(count, 1.0)

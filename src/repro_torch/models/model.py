@@ -35,6 +35,7 @@ place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -65,6 +66,7 @@ from repro_torch.models.layers import (
     vocab_parallel_cross_entropy,
     vocab_parallel_lookup,
 )
+from repro_torch.models.remat import recomputed
 from repro_torch.sharding import tensor_parallel as tp_lib
 
 __all__ = ["ModelConfig", "ScanUnit", "plan_scan_units", "Transformer", "init_model",
@@ -74,6 +76,16 @@ __all__ = ["ModelConfig", "ScanUnit", "plan_scan_units", "Transformer", "init_mo
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """The reference's ``ModelConfig`` field for field, less ``unroll_scans``:
+    an XLA scan knob (the roofline's probes unroll its scans) with no eager
+    counterpart, since the port's layer, attention-pair and loss-chunk
+    loops are Python loops already. ``remat`` recomputes each repeat of a
+    scan unit's pattern in the backward (``_run_units``), as the
+    reference's ``jax.checkpoint`` of its scan body does; turn it off as the
+    reference does, ``dataclasses.replace(cfg, remat=False)``.
+    ``attn_q_chunk`` / ``attn_k_chunk`` size the training attention's
+    (q, k) block pairs."""
+
     name: str
     num_layers: int
     d_model: int
@@ -102,8 +114,11 @@ class ModelConfig:
     moe_group_size: int = 2048
     input_mode: str = "tokens"   # tokens | embeds (modality-stub archs)
     family: str = "decoder"      # decoder | encdec
-    ce_chunk: int = 512
+    remat: bool = True           # recompute each layer repeat in the backward
+    attn_q_chunk: int = 512      # training attention's (q, k) block pairs
+    attn_k_chunk: int = 1024
     decode_k_chunk: int = 1024
+    ce_chunk: int = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,6 +292,34 @@ def _write_back(view, new) -> None:
         a.copy_(b)
 
 
+def _repeat(cfg: ModelConfig, unit: ScanUnit, stacks, r: int, x: torch.Tensor,
+            aux: torch.Tensor, positions, caches: Optional[Dict[str, Any]],
+            cur_pos: Optional[torch.Tensor], kv_lengths: Optional[torch.Tensor],
+            enc_out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Repeat ``r`` of ``unit``'s pattern, ``sub0[r], sub1[r], ...`` (the
+    reference's scan body), each layer's parameters fetched here
+    (``stacks[si][r]``) -> (x, aux plus its MoE layers' aux losses)."""
+    for si, spec in enumerate(unit.pattern):
+        c = None if caches is None else cache_map(lambda t: t[r], caches[f"sub{si}"])
+        kw = dict(positions=positions, cache=c, cur_pos=cur_pos, kv_lengths=kv_lengths)
+        p = stacks[si][r]
+        if spec.kind == "moe":
+            x, a = apply_moe(p, x, spec, cfg, **kw)
+            aux = aux + a
+        elif spec.kind == "dense":
+            x = apply_dense(p, x, spec, cfg, **kw)
+        elif spec.kind == "enc":
+            x = apply_enc(p, x, spec, cfg)
+        elif spec.kind == "dec":
+            x = apply_dec(p, x, spec, cfg, enc_out=enc_out, cache=c, cur_pos=cur_pos,
+                          kv_lengths=kv_lengths)
+        else:
+            x, state = RECURRENT[spec.kind](p, x, spec, cfg, **kw)
+            if c is not None:
+                _write_back(c, state)
+    return x, aux
+
+
 def _run_units(cfg: ModelConfig, units: List[ScanUnit], layers: UnitLayers, x: torch.Tensor,
                positions, caches: Optional[List[Dict[str, Any]]] = None,
                cur_pos: Optional[torch.Tensor] = None,
@@ -287,29 +330,28 @@ def _run_units(cfg: ModelConfig, units: List[ScanUnit], layers: UnitLayers, x: t
     ``caches[u]["sub{i}"]`` is that stack's ``(repeat, ...)`` cache: layer
     ``r`` reads and writes its views (K/V in place inside attention, a
     recurrent block's new state copied back here). Decoder blocks
-    cross-attend to ``enc_out``. Returns (x, the fp32 sum of the MoE
-    layers' aux losses in that order)."""
+    cross-attend to ``enc_out``. With ``cfg.remat`` and autograd on, each
+    repeat is one recomputed region (``remat.recomputed``): the backward
+    runs it again, fetching its layers' parameters again (a mesh step
+    gathers them again), and saves only its input and the aux sum. Serving
+    (``caches``, or no autograd) runs as it is; a cache under autograd with
+    ``cfg.remat`` is refused. Returns (x, the fp32 sum of the MoE layers'
+    aux losses in that order)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and caches is not None:
+        if x.requires_grad:  # the serving input: embedded tokens
+            raise ValueError(f"{cfg.name}: remat recomputes the training forward, which keeps "
+                             "no cache: serve under torch.no_grad() or with remat=False")
+        remat = False
     for ui, unit in enumerate(units):
         for r in range(unit.repeat):
-            for si, spec in enumerate(unit.pattern):
-                c = None if caches is None else cache_map(lambda t: t[r], caches[ui][f"sub{si}"])
-                kw = dict(positions=positions, cache=c, cur_pos=cur_pos, kv_lengths=kv_lengths)
-                p = layers[ui][si][r]
-                if spec.kind == "moe":
-                    x, a = apply_moe(p, x, spec, cfg, **kw)
-                    aux = aux + a
-                elif spec.kind == "dense":
-                    x = apply_dense(p, x, spec, cfg, **kw)
-                elif spec.kind == "enc":
-                    x = apply_enc(p, x, spec, cfg)
-                elif spec.kind == "dec":
-                    x = apply_dec(p, x, spec, cfg, enc_out=enc_out, cache=c, cur_pos=cur_pos,
-                                  kv_lengths=kv_lengths)
-                else:
-                    x, state = RECURRENT[spec.kind](p, x, spec, cfg, **kw)
-                    if c is not None:
-                        _write_back(c, state)
+            run = functools.partial(_repeat, cfg, unit, layers[ui], r)
+            if remat:
+                x, aux = recomputed(run, x, aux, positions, None, None, None, enc_out)
+            else:
+                x, aux = run(x, aux, positions, None if caches is None else caches[ui],
+                             cur_pos, kv_lengths, enc_out)
     return x, aux
 
 

@@ -33,10 +33,12 @@ the MoE aux loss's backward); a further layer is a probe.
   probe of one; for a unit that reads the encoder's output it is a probe of
   two less a probe of one, since that output's gradient is summed over the
   decoder's layers.
-* The port's training attention is not chunked: every (q, k) pair is
-  computed and masked afterwards, so causal attention costs the full square
-  and a windowed unit is quadratic in S. Only pure mLSTM/sLSTM units are
-  linear in their products. A token-input decoder of such units only, at
+* The port's training attention is blockwise, as the reference's: only
+  the (q-chunk, k-chunk) pairs left after pruning are formed (at S = 4096,
+  causal, 20 of the 32 (512, 1024) pairs), padded to whole chunks, so the
+  count holds the pairs the port runs and their padding. A windowed unit
+  is counted whole, at its length. Only pure mLSTM/sLSTM units are
+  extrapolated: a token-input decoder of such units only, at
   ``S`` beyond four GLA chunks (``S1``, a divisor of S), is counted from
   its tails at ``S`` (``_tail_cfg``) and probes of each unit at 2, 3 and 4
   chunks, extrapolated to ``n = S / S1`` chunks as a quadratic: the first
@@ -44,7 +46,13 @@ the MoE aux loss's backward); a further layer is a probe.
   per-chunk slice writes a gradient of the whole length, so the eager
   port's bytes grow as ``n²``; from the second chunk on, each chunk's count
   is linear in its index, and the fit is exact.
-* The port keeps activations (no remat), so a train layer is one probe.
+* The recompute is counted where it runs: the probes and the model run
+  the port's own recomputed regions (``models.remat``) under the counting
+  modes, so a train layer under ``remat`` counts its forward twice (the
+  forward, and again in the backward before its gradients), each
+  attention pair's forward once more (the pair's own recompute), and each
+  cross-entropy chunk's forward twice; the reference adds the same as a
+  ``remat_fwd`` term. A train layer is still one probe.
 * Decode: the tail (embedding, logits) and, per unit, one token through
   one layer with a single-layer cache (``blocks.init_block_cache(...,
   layers=1)``) times its repeat.
@@ -276,9 +284,8 @@ class CellMeasurement:
 
 
 def _unit_is_linear(unit: ScanUnit) -> bool:
-    """Products linear in S: pure mLSTM/sLSTM units. A windowed attention
-    unit is quadratic in the port (its training attention computes every
-    (q, k) pair before the mask)."""
+    """Products linear in S: pure mLSTM/sLSTM units, the ones extrapolated
+    (a windowed attention unit is counted whole, at its length)."""
     return all(spec.kind in LINEAR_KINDS for spec in unit.pattern)
 
 

@@ -228,11 +228,14 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
     cross-attention) and the gradients of the whole leaves it uses on its
     heads; per split MLP, the partial of ``w2`` and the input's gradient;
     the vocab-parallel lookup's rows; the cross entropy's input gradient and
-    per chunk the max, the sum of ``exp`` and the gold logit."""
+    per chunk the max, the sum of ``exp`` and the gold logit. A layer's
+    partials (under ``cfg.remat``) and a chunk's merges (always) are summed
+    twice: their regions run again in the backward."""
     from repro_torch.models.model import plan_scan_units
 
     B, S = batch["labels"].shape
     D = cfg.d_model
+    forwards = 2 if cfg.remat else 1  # a layer's sums run again in its recompute
     act = lambda s, dt=dtype: torch.empty((B, s, D), dtype=dt, device="meta")
     Se = batch["frames"].shape[1] if cfg.family == "encdec" else 0
     out: List[torch.Tensor] = []
@@ -247,7 +250,7 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
                     wq = f"{prefix}{sub}/wq"
                     if split.get(wq) is None:
                         continue
-                    layer += [act(s, PARTIAL_DTYPE), act(s)]
+                    layer += [act(s, PARTIAL_DTYPE)] * forwards + [act(s)]
                     if sub == "cross":
                         layer.append(act(Se))
                     for n in ("wk", "wv", "q_norm", "k_norm"):
@@ -256,7 +259,7 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
                             layer.append(torch.empty(shapes[k][1:], dtype=torch.float32,
                                                      device="meta"))
                 if split.get(f"{prefix}mlp/w1") is not None:
-                    layer += [act(s, PARTIAL_DTYPE), act(s)]
+                    layer += [act(s, PARTIAL_DTYPE)] * forwards + [act(s)]
             out += layer * unit.repeat
     head = "embed" if cfg.tie_embeddings else "head"
     if split.get(head) is not None:
@@ -264,5 +267,6 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
         chunk = min(cfg.ce_chunk, S)
         for s0 in range(0, S, chunk):
             c = min(chunk, S - s0)
-            out += [torch.empty((B, c), dtype=torch.float32, device="meta")] * 3
+            # the chunk's merges, in its forward and again in its recompute
+            out += [torch.empty((B, c), dtype=torch.float32, device="meta")] * 6
     return out

@@ -23,7 +23,9 @@ of every fp32 moment, of the packed codes, and its part of the scales.
   Top-level leaves (embed, head, final norms) are gathered before the
   forward; a stacked leaf one layer at a time, when the layer loop
   reaches that layer (``unit_layers``, the hook of
-  ``models.model._run_units``).
+  ``models.model._run_units``), and under ``cfg.remat`` once more when the
+  backward recomputes that layer, so a rank holds one gathered layer at a
+  time, as a ZeRO layer under ``jax.checkpoint`` does.
 * Backward: each gathered tensor's gradient (of the model shard, or of the
   whole leaf, which every rank of the model group computes alike) goes
   straight to its owners (``all_to_all`` inside the data group: every rank
@@ -503,7 +505,8 @@ class MeshStep:
         ``params`` and ``opt_state`` are the rank's parts (``meta`` is
         enough), the run one made with ``MeshRun(mesh, rank=)``. Every
         gather and gradient exchange of ``forward_backward`` (each gathered
-        tensor's gradient an empty tensor of its shape), the model group's
+        tensor's gradient an empty tensor of its shape; under ``cfg.remat``
+        each layer's gather twice, the recompute's too), the model group's
         sums of the tensor-parallel compute (``batch``, the global batch,
         ``meta`` is enough, gives their shapes; needed where the step
         splits compute) and the metrics' gather run as the step runs them;
@@ -531,7 +534,9 @@ class MeshStep:
                         stacked = k.startswith(("decoder/", "encoder/"))
                         for r in range(shape[0]) if stacked else (None,):
                             local, boxes, whole, group, sink_boxes = self._layout(k, r)
-                            full = gather(local, boxes, whole, group)
+                            # under remat the backward gathers each layer again
+                            for _ in range(2 if stacked and self.cfg.remat else 1):
+                                full = gather(local, boxes, whole, group)
                             self._sink(k, r, sink_boxes)(torch.empty_like(full))
                     if self.tp is not None:
                         micro = {k: _microbatch(v, i, accum_steps)

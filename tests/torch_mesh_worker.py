@@ -319,7 +319,9 @@ def _tp_step(task, rank):
     ``STATS`` bytes and recorded calls, and ``MeshStep.reckon`` of the same
     step on this rank's ``meta`` parts; the leaves the step splits; with
     ``fp32``, the steps' (loss, aux) in fp32 compute; ``partial: "bf16"``
-    keeps the row-parallel partials in bf16. ``{mesh: result}``."""
+    keeps the row-parallel partials in bf16; ``overrides`` replaces fields
+    of the reduced config (``remat``); ``whole_params`` returns the
+    parameters after the steps, whole. ``{mesh: result}``."""
     import dataclasses
 
     from repro_torch.comms import CommsConfig
@@ -377,6 +379,8 @@ def _tp_step(task, rank):
             stats.append(fn.times["collective_bytes"])
             recorded.append(list(rec))
         res.update(losses=losses, aux=aux, stats_bytes=stats, recorded=recorded)
+        if task.get("whole_params"):  # the parameters after the steps, whole
+            res["params"] = ms.whole_params(state.params)
         if task.get("fp32"):  # the same steps in fp32 compute
             with _compute_dtype(torch.float32):
                 opt, state, fn = fresh()
@@ -426,10 +430,13 @@ def _tp_blocks(task, rank):
     head-parallel attention, mlp-parallel MLP, the vocab-parallel lookup
     and cross entropy; in the case's compute type and partial type. Returns
     per case the output, the input's gradient and each leaf's gradient (of
-    the rank's shard)."""
+    the rank's shard). With ``unrecomputed``, the cross entropy's chunks
+    run once and are saved, not recomputed in the backward (the
+    recompute's oracle)."""
     import dataclasses
 
     from repro_torch.configs import reduced_config
+    from repro_torch.models import layers as L
     from repro_torch.models.blocks import apply_attention, apply_mlp
     from repro_torch.models.layers import vocab_parallel_cross_entropy, vocab_parallel_lookup
     from repro_torch.sharding import tensor_parallel as T
@@ -437,37 +444,45 @@ def _tp_blocks(task, rank):
     world = dist.get_world_size()
     tp = T.TPRun(None, rank, world)
     out = []
-    for case in task["cases"]:
-        dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
-        T.PARTIAL_DTYPE = torch.float32 if case.get("partial", "fp32") == "fp32" else torch.bfloat16
-        try:
-            with _compute_dtype(dtype), T.use(tp):
-                cfg = dataclasses.replace(reduced_config(case["arch"]), **case.get("cfg", {}))
-                p = _block_shards(case["block"], {k: torch.from_numpy(v)
-                                                  for k, v in case["params"].items()},
-                                  rank, world, cfg)
-                x = torch.from_numpy(case["x"]).to(dtype).requires_grad_()
-                cot = torch.from_numpy(case["cot"])
-                if case["block"] == "attention":
-                    pos = torch.arange(x.shape[1])[None].expand(x.shape[0], -1)
-                    y = apply_attention(p, x, cfg, window=case["window"], positions=pos)
-                    total = (y.float() * cot).sum()
-                elif case["block"] == "mlp":
-                    y = apply_mlp(p, x, case["act"], case["width"])
-                    total = (y.float() * cot).sum()
-                else:
-                    ids = torch.from_numpy(case["ids"])
-                    rows = vocab_parallel_lookup(p["embed"], ids, tp)
-                    labels = torch.from_numpy(case["labels"])
-                    loss = vocab_parallel_cross_entropy(x, p["embed"].t(), labels, tp,
-                                                        logit_cap=cfg.final_softcap, chunk=8)
-                    y = {"rows": rows.detach(), "loss": loss.detach()}
-                    total = loss + (rows.float() * cot).sum()
-                total.backward()
-        finally:
-            T.PARTIAL_DTYPE = torch.float32
-        out.append({"y": y.detach() if torch.is_tensor(y) else y, "x_grad": x.grad,
-                    "grads": {k: v.grad for k, v in p.items()}})
+    recomputed = L.recomputed
+    if task.get("unrecomputed"):
+        L.recomputed = lambda fn, *args: fn(*args)
+    try:
+        for case in task["cases"]:
+            dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
+            T.PARTIAL_DTYPE = (torch.float32 if case.get("partial", "fp32") == "fp32"
+                               else torch.bfloat16)
+            try:
+                with _compute_dtype(dtype), T.use(tp):
+                    cfg = dataclasses.replace(reduced_config(case["arch"]),
+                                              **case.get("cfg", {}))
+                    p = _block_shards(case["block"], {k: torch.from_numpy(v)
+                                                      for k, v in case["params"].items()},
+                                      rank, world, cfg)
+                    x = torch.from_numpy(case["x"]).to(dtype).requires_grad_()
+                    cot = torch.from_numpy(case["cot"])
+                    if case["block"] == "attention":
+                        pos = torch.arange(x.shape[1])[None].expand(x.shape[0], -1)
+                        y = apply_attention(p, x, cfg, window=case["window"], positions=pos)
+                        total = (y.float() * cot).sum()
+                    elif case["block"] == "mlp":
+                        y = apply_mlp(p, x, case["act"], case["width"])
+                        total = (y.float() * cot).sum()
+                    else:
+                        ids = torch.from_numpy(case["ids"])
+                        rows = vocab_parallel_lookup(p["embed"], ids, tp)
+                        labels = torch.from_numpy(case["labels"])
+                        loss = vocab_parallel_cross_entropy(x, p["embed"].t(), labels, tp,
+                                                            logit_cap=cfg.final_softcap, chunk=8)
+                        y = {"rows": rows.detach(), "loss": loss.detach()}
+                        total = loss + (rows.float() * cot).sum()
+                    total.backward()
+            finally:
+                T.PARTIAL_DTYPE = torch.float32
+            out.append({"y": y.detach() if torch.is_tensor(y) else y, "x_grad": x.grad,
+                        "grads": {k: v.grad for k, v in p.items()}})
+    finally:
+        L.recomputed = recomputed
     return out
 
 
@@ -789,10 +804,17 @@ def start(world, tasks, tmp):
     return ctx, world, tmp
 
 
-def collect(started):
+def collect(started, timeout=None):
+    """Each rank's results; with ``timeout`` (seconds), a world still
+    running then is killed and ``TimeoutError`` raised (a deadlock)."""
     ctx, world, tmp = started
-    while not ctx.join():
-        pass
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while not ctx.join(timeout=None if deadline is None else 1.0):
+        if deadline is not None and time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"the world of {world} ranks ran past {timeout} s")
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
