@@ -128,13 +128,14 @@ Phases, each failing the run on error:
     steps from the same weights, losses within 3e-4 relative and a gap the
     steps must open five times over, 4-bit m code agreement printed;
 17. serve each arch at full depth with q4 weights through
-    ``repro_torch.launch.serve``: phase 8's mix, counts set to 0 just before
-    and read just after; check weight bytes and q4 leaves (the reference's
+    ``repro_torch.launch.serve``: phase 8's mix with 16 new tokens a
+    request (``ARCH_SERVE_NEW_TOKENS``; phases 18, 23, 27 and 32 too), counts
+    set to 0 just before and read just after; check weight bytes and q4 leaves (the reference's
     ``weight_report``), one B2 launch per q4 leaf, one B3 launch per q4 leaf
     and materialize, no B1, every stream complete; report prefill and
     decode ms, tok/s and peak memory;
 18. gemma2-2b, one request alone (``--max-batch 1``, ``--s-max`` 8192): a
-    prompt of 4,100 tokens and 64 new ones, so the windowed layers'
+    prompt of 4,100 tokens and 16 new ones, so the windowed layers'
     4096-slot circular cache wraps. Its greedy tokens must equal a decode of
     the same weights with windowed caches, and where a decode with 8192
     slots in every layer (the window masking the older ones) picks another
@@ -232,10 +233,10 @@ Phases, each failing the run on error:
     of both full trees (27 and 10 leaves, every one with a view: whisper's
     stacked LayerNorm scales and biases (32, 1280) among them), timed; then
     serve each with q4 weights at full size through the library: whisper
-    encodes 4 x 1,500 frames once and decodes 64 greedy tokens of 4 rows
+    encodes 4 x 1,500 frames once and decodes 16 greedy tokens of 4 rows
     over a 448-position cache (every step projects the cross K/V of all
     1,500 frames again, as the reference does); qwen2-vl prefills the 4 x
-    1,024 image prompt and decodes 64 greedy steps over a 1,024-position
+    1,024 image prompt and decodes 16 greedy steps over a 1,024-position
     cache. Check weight bytes (the reference's), one B2 launch per q4
     leaf, B3 per leaf and materialize, no B1, finite logits; report the
     encode / prefill ms, the decode step and peak memory;
@@ -342,25 +343,52 @@ Phases, each failing the run on error:
     q/k/v gradients within 1e-5 of the largest magnitude of a float64
     whole-score softmax's, its forward+backward ms (CUDA events) and peak
     beside an fp32 whole-score softmax's.
+42. MoE layers on the mesh as the reference's rules cut them (slice 17),
+    in phase 35's two processes after phase 40: phi3.5-moe at full width
+    (d 4096, 16 experts, d_ff 6400, vocab 32064) and 2 of its 32 layers,
+    production4bit with SR, 2 steps of batch 8 x seq 128, on (data=2,
+    model=1) (one group of 1024 tokens split over the two data shards: the
+    routing's counts gathered over the data group) and on (1, 2) (8 of the
+    16 experts a rank, their outputs gathered over the pair); the oracle is
+    the same run in one process on the card, made before the ranks start
+    and freed. Each rank's state bytes equal to its plan's, the collective
+    bytes each step recorded equal to ``MeshStep.reckon``'s (on ``meta``),
+    the logged losses equal on both ranks and within 1e-4 relative of the
+    oracle's, each B1 pass launched as often as in the oracle (every fused
+    leaf, on the rank's tiles) and no B2/B3; each rank takes the oracle's
+    expert choice wherever its own parts from it at a near tie (phase 22's
+    rule; any other parting fails; the partings are counted), and at (2, 1)
+    its shard's slots equal the oracle's; each rank's largest |logit|
+    difference from the oracle in any call and its share of parted
+    assignments printed and held under ``MOE_MESH_DLOGIT`` and
+    ``MOE_MESH_PARTED`` (the drift a wrong input to the router would show);
+    B1 on the (1, 2) tiles of the
+    ``moe/w1`` stack bit-equal to the whole leaf's launch (phase 34's check) and timed.
+    Prints each step's split into compute, collective and update, each
+    rank's gathered layer and peak, and the launches.
+    ``python3 chip_smoke.py --moe-mesh-phase`` runs the build and this phase
+    alone.
 
 Every training phase runs with the configs' ``remat=True`` (the reference's
 default): each layer is recomputed in the backward, and on the mesh (phases
-35, 37, 39, 40) gathered again for it.
+35, 37, 39, 40, 42) gathered again for it.
 
 Each phase's seconds are printed as it ends (``phase clock:``) and kept in
 ``chiprun_out/chip_smoke.json``.
 
 The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
-30, 35, 37 and 40 for B1; 8, 17, 23, 27 and 32 for B2/B3), each counted from 0
+30, 35, 37, 40 and 42 (its one-process oracle and both layouts) for B1; 8,
+17, 23, 27 and 32 for B2/B3), each counted from 0
 just before it (a spawned rank's counts start at 0 with its process); phase
 39's runs count none.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
-phases 10, 34-37 and 40 alone (no result lines); ``--mesh-optim-phases`` runs phases 11
-and 39 alone; ``--recompute-phases`` runs phases 41 and 6 alone. Needs a CUDA card and the repository
-beside it; without either it
-exits non-zero and prints no result.
+phases 10, 34-37, 40 and 42 alone (no result lines); ``--mesh-optim-phases``
+runs phases 11 and 39 alone; ``--recompute-phases`` runs phases 41 and 6
+alone; ``--moe-mesh-phase`` runs phase 42 alone. Needs a CUDA card and the
+repository beside it; without either it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -419,6 +447,10 @@ WEIGHT_BYTES_Q4 = 1_003_596_800
 VOCAB = 92544
 SERVE_ATOL = 2e-2
 SERVE_REQUESTS, SERVE_NEW_TOKENS, SERVE_DRAIN = 8, 64, 8
+# the other archs' serving phases (17, 18, 23, 27 and 32) decode two drains
+# of new tokens a request: 64 before phase 42 came, which the smoke's clock
+# could not hold beside it (the decode steps are host-held, 32-212 ms each)
+ARCH_SERVE_NEW_TOKENS = 16
 # phase 11: the optimizers without a kernel route at full width, 3 steps,
 # with their learning rates. At the CLI's 1e-3 the loss of adafactor (11.83
 # -> 12.94 on an H100 80GB HBM3 at 700 W) and of factor4bit rose over the 4
@@ -632,6 +664,23 @@ ALL_REDUCE_LEAVES = (("wq", (2048, 16, 128)), ("wo", (16, 128, 2048)), ("w1", (2
 # compute was split (every fp32 layer gathered over the model axis)
 TP_SHAPE, TP_STEPS = (1, 2), 2
 TP_RECKON_BEFORE = 11_334_660_216
+# phase 42 (slice 17): phi3.5-moe at full width and MOE_MESH_LAYERS of its 32
+# layers on the mesh, in phase 35's two processes: one group of 1024 tokens
+# split over the data shards at (2, 1), 8 of the 16 experts a rank at (1, 2);
+# the one-process run of the same steps and batches as the oracle; the expert
+# stack B1 is held on tile by tile under the (1, 2) plan (phase 34's check)
+MOE_MESH_ARCH, MOE_MESH_LAYERS, MOE_MESH_STEPS = "phi3.5-moe-42b-a6.6b", 2, 2
+MOE_MESH_LAYOUTS = ((2, 1), (1, 2))
+MOE_MESH_BATCH, MOE_MESH_SEQ = 8, 128
+MOE_MESH_RTOL = 1e-4
+# the routing's drift from the one-process run a rank may show, each about
+# twice its layout's reading on an H100 (PERF.md): its largest |logit|
+# difference in any call (read 0.07812 / 0.15625) and the share of its
+# assignments that part at near ties (0.977% / 1.831%)
+MOE_MESH_DLOGIT = {(2, 1): 0.16, (1, 2): 0.32}
+MOE_MESH_PARTED = {(2, 1): 0.02, (1, 2): 0.04}
+MOE_TILE_LEAVES = (("moe/w1", (MOE_MESH_LAYERS, 16, 4096, 6400),
+                    ("layers", "experts", "embed", "mlp")),)
 # phases 10 and 37 (slices 5 and 12): the checkpoint runs, all with the same
 # --steps (the CLI's schedule spans them) and the step saved, at 2 of the 24
 # layers: an even depth, so the stacked leaves' layer dim splits over data=2
@@ -1382,9 +1431,10 @@ def phase_small_serving(dev):
                 greedy_agreement=greedy, sampled_agreement=sampled)
 
 
-def _serve_requests(vocab):
+def _serve_requests(vocab, new_tokens=SERVE_NEW_TOKENS):
     """The serving mix: prompt lengths from seed 0 in 32..384, random
-    tokens, even request ids greedy, odd ones T 0.8 top-k 40."""
+    tokens, even request ids greedy, odd ones T 0.8 top-k 40, ``new_tokens``
+    each."""
     import numpy as np
 
     from repro_torch.serve import Request
@@ -1392,7 +1442,7 @@ def _serve_requests(vocab):
     rng = np.random.default_rng(0)
     lengths = rng.integers(32, 385, size=SERVE_REQUESTS)
     return [Request(rid=i, prompt=rng.integers(0, vocab, size=int(n)).tolist(),
-                    max_new_tokens=SERVE_NEW_TOKENS,
+                    max_new_tokens=new_tokens,
                     **({} if i % 2 == 0 else dict(temperature=0.8, top_k=40)))
             for i, n in enumerate(lengths)]
 
@@ -1685,84 +1735,129 @@ def phase_new_optimizers(counters, dev):
     return runs
 
 
-class _Routes:
-    """The MoE routing of a CPU run, recorded call by call, and a card run
-    held to it: where the card's expert choice parts from the CPU's, the
-    parting must sit at a near tie, and the card then takes the CPU's
-    choice, so both runs follow one discrete path. A near tie: the logits of
-    the two experts at the first place the choices differ lie within two
-    bf16 ulps on one of the two devices, or within twice the largest logit
-    difference between the two runs in that call (phase 18's rule: after
-    the first step the runs' weights differ by their steps' roundings, and
-    the logits with them)."""
+def _route_logits(router, xg):
+    """The router's bf16 logits of grouped tokens, on the host in fp32."""
+    import torch
 
-    def __init__(self):
-        self.cpu, self.parted, self.assignments = [], [], 0
-        self.dlogit = []  # per call: the largest |logit| difference card - CPU
+    return torch.einsum("gtd,de->gte", xg.detach(),
+                        router.detach().to(torch.bfloat16)).float().cpu()
+
+
+def _near_ties(c_logits, c_idx, d_logits, d_idx, what):
+    """The assignments whose expert choice parts between two runs (``c``
+    the recorded one, ``d`` the one held to it); fails unless each parting
+    sits at a near tie: the two experts' logits at the first place the
+    choices differ lie within two bf16 ulps in one of the runs, or within
+    twice the call's largest logit difference between them."""
+    ulp = lambda v: 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+    dlogit = float((c_logits - d_logits).abs().max())
+    differs = (c_idx != d_idx).any(dim=-1)
+    for g, t in differs.nonzero().tolist():
+        j = int((c_idx[g, t] != d_idx[g, t]).nonzero()[0])
+        a, b = int(c_idx[g, t, j]), int(d_idx[g, t, j])
+        gaps = [abs(float(lg[g, t, a] - lg[g, t, b])) for lg in (c_logits, d_logits)]
+        ulps = [gap / ulp(max(abs(float(lg[g, t, a])), abs(float(lg[g, t, b]))))
+                for gap, lg in zip(gaps, (c_logits, d_logits))]
+        if min(ulps) > 2 and min(gaps) > 2 * dlogit:
+            fail(f"{what} away from a tie (max |dlogit| {dlogit:.3g}): group {g} token {t}, "
+                 f"experts {c_idx[g, t].tolist()} / {d_idx[g, t].tolist()}, logits "
+                 f"{c_logits[g, t].tolist()} / {d_logits[g, t].tolist()}")
+    return int((c_idx != d_idx).sum()), dlogit
+
+
+class _Routes:
+    """The MoE routing of one run (a CPU run, phase 42's one-process oracle),
+    recorded call by call, and another run held to it: where the second's
+    expert choice parts from the first's, the parting must sit at a near
+    tie, and the second then takes the first's choice, so both runs follow
+    one discrete path. A near tie: the logits of the two experts at the
+    first place the choices differ lie within two bf16 ulps in one of the
+    runs, or within twice the largest logit difference between the two
+    runs in that call (phase 18's rule: after the first step the runs'
+    weights differ by their steps' roundings, and the logits with them).
+    Data shard ``index`` of ``shards`` holds only its own tokens to the
+    recording, and the slots it computes (the lower shards' counts added)
+    to the recorded ones, exactly."""
+
+    def __init__(self, calls=None, index=0, shards=1, what="card"):
+        self.calls = [] if calls is None else calls
+        self.index, self.shards, self.what = index, shards, what
+        self.parted, self.dlogit = [], []  # per call held: choices parted, largest |dlogit|
+        self.assignments = self.slots_held = 0
 
     @staticmethod
     @contextlib.contextmanager
-    def _patch(spy):
-        """``moe_apply`` calls ``spy(real moe_route, *args)`` while inside."""
+    def _patched(choose, slots):
+        """``moe_apply`` calls ``choose(real moe_choose, *args)`` and
+        ``slots(real moe_slots, *args, **kwargs)`` while inside."""
         import repro_torch.models.moe as moe
 
-        real = moe.moe_route
-        moe.moe_route = lambda *a: spy(real, *a)
+        real = moe.moe_choose, moe.moe_slots
+        moe.moe_choose = lambda *a: choose(real[0], *a)
+        moe.moe_slots = lambda *a, **k: slots(real[1], *a, **k)
         try:
             yield
         finally:
-            moe.moe_route = real
-
-    @staticmethod
-    def _logits(router, xg):
-        import torch
-
-        return torch.einsum("gtd,de->gte", xg.detach(),
-                            router.detach().to(torch.bfloat16)).float().cpu()
+            moe.moe_choose, moe.moe_slots = real
 
     def record(self):
-        def spy(real, router, xg, top_k, capacity):
-            out = real(router, xg, top_k, capacity)
-            self.cpu.append((self._logits(router, xg), out[2].cpu()))
+        def choose(real, router, xg, top_k):
+            out = real(router, xg, top_k)
+            self.calls.append({"logits": _route_logits(router, xg), "idx": out[2].cpu()})
             return out
 
-        return self._patch(spy)
+        def slots(real, *a, **k):
+            out = real(*a, **k)
+            self.calls[-1]["slot"] = out.cpu()
+            return out
+
+        return self._patched(choose, slots)
 
     def follow(self):
         import torch
 
-        def ulp(v):
-            return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+        def mine(n):
+            per = n // self.shards
+            return slice(self.index * per, (self.index + 1) * per)
 
-        def spy(real, router, xg, top_k, capacity):
-            from repro_torch.models.moe import moe_slots
-
-            probs, top_vals, top_idx, slot = real(router, xg, top_k, capacity)
-            c_logits, c_idx = self.cpu[len(self.parted)]
-            d_logits, d_idx = self._logits(router, xg), top_idx.cpu()
+        def choose(real, router, xg, top_k):
+            probs, top_vals, top_idx = real(router, xg, top_k)
+            call = len(self.parted)
+            if call >= len(self.calls):
+                fail(f"MoE routing: the {self.what} routed more calls than the recording's "
+                     f"{len(self.calls)}")
+            want = self.calls[call]
+            own = mine(want["idx"].shape[1])
+            c_idx = want["idx"][:, own]
             self.assignments += c_idx.numel()
-            self.dlogit.append(float((c_logits - d_logits).abs().max()))
-            differs = (c_idx != d_idx).any(dim=-1)
-            for g, t in differs.nonzero().tolist():
-                j = int((c_idx[g, t] != d_idx[g, t]).nonzero()[0])
-                a, b = int(c_idx[g, t, j]), int(d_idx[g, t, j])
-                gaps = [abs(float(lg[g, t, a] - lg[g, t, b])) for lg in (c_logits, d_logits)]
-                ulps = [gap / ulp(max(abs(float(lg[g, t, a])), abs(float(lg[g, t, b]))))
-                        for gap, lg in zip(gaps, (c_logits, d_logits))]
-                if min(ulps) > 2 and min(gaps) > 2 * self.dlogit[-1]:
-                    fail(f"MoE routing parts card from CPU away from a tie: call "
-                         f"{len(self.parted)} (max |dlogit| {self.dlogit[-1]:.3g}), group {g} token "
-                         f"{t}, experts CPU {c_idx[g, t].tolist()} card {d_idx[g, t].tolist()}, "
-                         f"logits CPU {c_logits[g, t].tolist()} card {d_logits[g, t].tolist()}")
-            self.parted.append(int((c_idx != d_idx).sum()))
-            if self.parted[-1]:
-                top_idx = c_idx.to(probs.device)
+            parted, dlogit = _near_ties(
+                want["logits"][:, own], c_idx, _route_logits(router, xg)[:, own],
+                top_idx.cpu()[:, own],
+                f"MoE routing parts the {self.what} (second) from the recording (first): "
+                f"call {call}")
+            self.parted.append(parted)
+            self.dlogit.append(dlogit)
+            if parted:
+                top_idx = top_idx.clone()
+                top_idx[:, own] = c_idx.to(top_idx.device)
                 top_vals = torch.gather(probs, -1, top_idx)
                 top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
-                slot = moe_slots(top_idx, probs.shape[-1], capacity)
-            return probs, top_vals, top_idx, slot
+            return probs, top_vals, top_idx
 
-        return self._patch(spy)
+        def slots(real, *a, **k):
+            out = real(*a, **k)
+            if k.get("mine") is not None:
+                call = len(self.parted) - 1
+                want = self.calls[call]["slot"]
+                own = mine(want.shape[1])
+                if not torch.equal(out.cpu()[:, own], want[:, own]):
+                    n = int((out.cpu()[:, own] != want[:, own]).sum())
+                    fail(f"MoE mesh slots: call {call} of the {self.what}: {n} of the shard's "
+                         f"slots differ from the recording's")
+                self.slots_held += want[:, own].numel()
+            return out
+
+        return self._patched(choose, slots)
 
 
 def _small_pair(name, lr, mode, seed, dev, arch="internlm2-1.8b", routes=None):
@@ -2102,9 +2197,9 @@ def phase_arch_small(dev, archs=tuple(ARCH_TRAIN)):
         out[arch] = dict(card=card, cpu=cpu, without_steps=still, max_rel=rel, gap=gap,
                          m_code_agreement_min=min(agree.values()))
         if routes:
-            if len(routes.parted) != len(routes.cpu):
+            if len(routes.parted) != len(routes.calls):
                 fail(f"reduced {arch}: the card ran {len(routes.parted)} MoE layer calls, the "
-                     f"CPU {len(routes.cpu)}")
+                     f"CPU {len(routes.calls)}")
             out[arch].update(routing_parted=routes.parted, routing_assignments=routes.assignments,
                              routing_dlogit=routes.dlogit)
     return out
@@ -2178,7 +2273,8 @@ def phase_q4_arch_leaves(dev, table=RECURRENT_SERVE):
 
 def phase_arch_serve(counters, table=ARCH_SERVE):
     """Each arch of ``table`` with q4 weights through the serving CLI, at the
-    depth the table gives it (``None``: full depth): the mix of phase 8."""
+    depth the table gives it (``None``: full depth): the mix of phase 8 with
+    ``ARCH_SERVE_NEW_TOKENS`` new tokens a request."""
     import gc
 
     import torch
@@ -2190,12 +2286,12 @@ def phase_arch_serve(counters, table=ARCH_SERVE):
     out = {}
     for arch, (q4_bytes, q4_leaves, layers, kernel_leaves) in table.items():
         vocab = get_config(arch).vocab_size
-        reqs = _serve_requests(vocab)
+        reqs = _serve_requests(vocab, ARCH_SERVE_NEW_TOKENS)
         _reset(counters)
         with _Depth(layers):
             res = serve.main(["--arch", arch, "--weights", "q4", "--requests",
                               str(SERVE_REQUESTS), "--max-batch", "4", "--max-new-tokens",
-                              str(SERVE_NEW_TOKENS), "--drain-every", str(SERVE_DRAIN),
+                              str(ARCH_SERVE_NEW_TOKENS), "--drain-every", str(SERVE_DRAIN),
                               "--s-max", "1024", "--seed", "0", "--device", "cuda"],
                              requests=reqs)
         counts = _read(counters)
@@ -2234,7 +2330,7 @@ def phase_arch_serve(counters, table=ARCH_SERVE):
         if counts["fused_adamw4"] or counts["rank1_new_stats"]:
             fail(f"serve {arch} launched the optimizer kernels: {counts}")
         for r in reqs:
-            if not (r.done and len(r.output) == SERVE_NEW_TOKENS
+            if not (r.done and len(r.output) == ARCH_SERVE_NEW_TOKENS
                     and all(0 <= t < vocab for t in r.output)):
                 fail(f"serve {arch}: request {r.rid}: done={r.done}, {len(r.output)} tokens")
         out[arch] = row
@@ -2246,7 +2342,7 @@ def phase_arch_serve(counters, table=ARCH_SERVE):
 
 def phase_long_window(counters, dev):
     """gemma2-2b, one request alone: a prompt of LONG_PROMPT tokens and
-    SERVE_NEW_TOKENS new ones through the engine with s_max LONG_S_MAX, so
+    ARCH_SERVE_NEW_TOKENS new ones through the engine with s_max LONG_S_MAX, so
     the windowed subs' 4096-slot circular caches wrap. The engine's greedy
     tokens against the same request decoded from the same q4 weights with
     LONG_S_MAX slots in every layer (teacher-forced on the engine's tokens,
@@ -2263,13 +2359,14 @@ def phase_long_window(counters, dev):
     from repro_torch.models.model import plan_scan_units
     from repro_torch.serve import Request, materialize
 
+    NEW = ARCH_SERVE_NEW_TOKENS
     cfg = get_config("gemma2-2b")
     rng = np.random.default_rng(3)
     prompt = rng.integers(0, cfg.vocab_size, size=LONG_PROMPT).tolist()
-    req = Request(rid=0, prompt=prompt, max_new_tokens=SERVE_NEW_TOKENS)
+    req = Request(rid=0, prompt=prompt, max_new_tokens=NEW)
     _reset(counters)
     res = serve.main(["--arch", "gemma2-2b", "--weights", "q4", "--max-batch", "1",
-                      "--max-new-tokens", str(SERVE_NEW_TOKENS), "--drain-every",
+                      "--max-new-tokens", str(NEW), "--drain-every",
                       str(SERVE_DRAIN), "--s-max", str(LONG_S_MAX), "--seed", "0",
                       "--device", dev.type], requests=[req])
     counts = _read(counters)
@@ -2280,9 +2377,9 @@ def phase_long_window(counters, dev):
     window = cfg.blocks[0].window
     if slots["sub0"] != window or slots["sub1"] != LONG_S_MAX:
         fail(f"long request: cache slots {slots}, expected {window} (windowed) and {LONG_S_MAX}")
-    if not (req.done and len(req.output) == SERVE_NEW_TOKENS):
+    if not (req.done and len(req.output) == NEW):
         fail(f"long request: done={req.done}, {len(req.output)} tokens")
-    last = LONG_PROMPT + SERVE_NEW_TOKENS - 2  # the last position the engine wrote and kept
+    last = LONG_PROMPT + NEW - 2  # the last position the engine wrote and kept
     if top["sub0"] < last or top["sub0"] < window:
         fail(f"long request: the windowed cache holds positions up to {top['sub0']}")
     p = materialize(eng.params)
@@ -2304,7 +2401,7 @@ def phase_long_window(counters, dev):
         argmax_w, argmax_f = [int(lw.argmax())], [int(lf.argmax())]
         diffs = [float((lw - lf).abs().max())]
         gaps_f = [float(lf.max() - lf[0, req.output[0]])]
-        for t in range(SERVE_NEW_TOKENS - 1):
+        for t in range(NEW - 1):
             tok = torch.tensor([req.output[t]], device=dev)
             pos = torch.tensor([LONG_PROMPT + t], device=dev)
             lw, ref = decode_step(p, cfg, ref, tok, pos)
@@ -2322,10 +2419,10 @@ def phase_long_window(counters, dev):
     # their fp32 sums and the bf16 roundings after them differ
     parted = [dict(step=t, engine_token=req.output[t], full_token=argmax_f[t],
                    full_gap=gaps_f[t], dlogit=diffs[t])
-              for t in range(SERVE_NEW_TOKENS) if argmax_f[t] != req.output[t]]
-    print(f"long request (gemma2-2b q4): prompt {LONG_PROMPT} + {SERVE_NEW_TOKENS} new tokens, "
+              for t in range(NEW) if argmax_f[t] != req.output[t]]
+    print(f"long request (gemma2-2b q4): prompt {LONG_PROMPT} + {NEW} new tokens, "
           f"s_max {LONG_S_MAX}: cache slots {slots}, highest positions held {top}; engine "
-          f"tokens equal to a windowed-cache decode at {same_w} of {SERVE_NEW_TOKENS} steps and "
+          f"tokens equal to a windowed-cache decode at {same_w} of {NEW} steps and "
           f"to a decode with {LONG_S_MAX} slots in every layer at {same_f}; max |dlogit| "
           f"windowed vs full cache {max(diffs):.3g} (first decode step {diffs[1]:.3g}); parted "
           f"at {parted}; prefill "
@@ -2333,13 +2430,13 @@ def phase_long_window(counters, dev):
           f"{sum(eng.phase_ms['decode']) / max(1, len(eng.phase_ms['decode']) * SERVE_DRAIN):.2f} "
           f"ms a step; peak "
           f"{(res['peak_bytes'] or 0) / 1e9:.2f} GB; launches {counts}")
-    if same_w != SERVE_NEW_TOKENS:
+    if same_w != NEW:
         fail(f"long request: the engine's tokens differ from its own model's decode "
-             f"({same_w} of {SERVE_NEW_TOKENS})")
+             f"({same_w} of {NEW})")
     for d in parted:
         if not d["full_gap"] <= 2 * d["dlogit"]:
             fail(f"long request: the full-cache decode parts from the engine beyond rounding: {d}")
-    out = dict(prompt=LONG_PROMPT, new_tokens=SERVE_NEW_TOKENS, s_max=LONG_S_MAX, slots=slots,
+    out = dict(prompt=LONG_PROMPT, new_tokens=NEW, s_max=LONG_S_MAX, slots=slots,
                top_positions=top, same_windowed=same_w, same_full=same_f, parted=parted,
                max_dlogit_window_vs_full=max(diffs), dlogit_per_step=diffs,
                prefill_ms=eng.phase_ms["prefill"],
@@ -2701,10 +2798,10 @@ def phase_stub_serve(counters, dev):
     ``prefill``, ``decode_step``; the engine refuses them, as the
     reference's does), STUB_ROWS rows, counts set to 0 just before and read
     just after. whisper: WHISPER_FRAMES frames per row encoded once, then
-    SERVE_NEW_TOKENS greedy ``decode_step(enc_out=)`` over a cache of
+    ARCH_SERVE_NEW_TOKENS greedy ``decode_step(enc_out=)`` over a cache of
     WHISPER_TOKENS positions (each step projects the cross K/V of all
     frames again, as the reference does). qwen2-vl: ``prefill`` of the
-    VL_SEQ-position image prompt, then SERVE_NEW_TOKENS greedy steps over a
+    VL_SEQ-position image prompt, then ARCH_SERVE_NEW_TOKENS greedy steps over a
     cache of VL_SEQ positions from position 0 (the reference carries no
     embeds prompt into a decode cache). As the engine: one ``materialize``
     (B3 per q4 leaf) for the encode or prefill and one per chunk of
@@ -2764,7 +2861,7 @@ def phase_stub_serve(counters, dev):
             caches = init_serve_cache(cfg, B, s_max, device=dev)
             pos = torch.zeros((B,), dtype=torch.int64, device=dev)
             finite = torch.ones((), dtype=torch.bool, device=dev)
-            for _ in range(SERVE_NEW_TOKENS // SERVE_DRAIN):
+            for _ in range(ARCH_SERVE_NEW_TOKENS // SERVE_DRAIN):
                 start.record()
                 params = materialize(q4)
                 calls += 1
@@ -2782,7 +2879,7 @@ def phase_stub_serve(counters, dev):
         toks = torch.stack(toks).cpu()
         rep = weight_report(shapes, "q4")
         with_view = sum(1 for q in q4.values() if hasattr(q, "codes") and _has_kernel_view(q.shape))
-        step_ms = sum(chunk_ms) / SERVE_NEW_TOKENS
+        step_ms = sum(chunk_ms) / ARCH_SERVE_NEW_TOKENS
         what = (f"serve {arch} q4 ({cfg.num_layers} layers, {B} rows, "
                 + (f"{WHISPER_FRAMES} frames encoded" if enc_out is not None
                    else f"prefill of {VL_SEQ} embeds") + ")")
@@ -2924,13 +3021,14 @@ def _index(box):
     return tuple(slice(a, b) for a, b in box)
 
 
-def phase_b1_tiles(dev):
+def phase_b1_tiles(dev, leaves=MESH_LEAVES, meshes=TILE_MESHES):
     """Phase 34: B1 on the tiles of internlm2-1.8b's fused leaves under the
     (2, 1), (1, 2) and (2, 2) plans, in one process: pass 1 per tile, the
     per-dim maxima max-merged here, pass 2 per tile with the tile's offsets;
     params, codes, scales and stats bit-equal to one whole-leaf launch of
     each pass, RTN and SR; then the tiles' SR launches timed against the
-    whole leaf's."""
+    whole leaf's. Phase 42 runs it on phi3.5-moe's expert stack under the
+    (1, 2) plan (``leaves``, ``meshes``)."""
     import torch
 
     from repro_torch.kernels import ops, sr
@@ -2941,7 +3039,7 @@ def phase_b1_tiles(dev):
 
     hp = dict(lr=SCAL["lr"], bc1=SCAL["bc1"], bc2=SCAL["bc2"], **HP)
     rows = []
-    for name, shape, axes in MESH_LEAVES:
+    for name, shape, axes in leaves:
         C = shape[-1]
         for sr_on in (False, True):
             w, grad, m_q, v_q = _states(shape, sr_on, 2, dev)
@@ -2955,7 +3053,7 @@ def phase_b1_tiles(dev):
                 whole_ms = event_ms(lambda: ops.fused_adamw4_leaf(scratch, grad, m_q, v_q, **hp,
                                                                   key=key))
                 del scratch
-            for mesh in TILE_MESHES:
+            for mesh in meshes:
                 sizes = dict(zip(("data", "model"), mesh))
                 spec = wire_spec(shape, axes, sizes)
                 tiles = [Tile(shape, local_box(spec, shape, dict(zip(sizes, c)), sizes))
@@ -3008,10 +3106,10 @@ def phase_b1_tiles(dev):
                 del ops_in, merged
             del w, grad, m_q, v_q, whole_w, m2, v2, m2_codes, v2_codes
             torch.cuda.empty_cache()
-    for mesh in TILE_MESHES:
+    for mesh in meshes:
         t = sum(r["tiles_ms"] for r in rows if tuple(r["mesh"]) == mesh)
         whole = sum(r["whole_ms"] for r in rows if tuple(r["mesh"]) == mesh)
-        print(f"B1 tiles on {mesh[0]}x{mesh[1]}, the step's four leaves (wo, w1, w2, w3), SR: "
+        print(f"B1 tiles on {mesh[0]}x{mesh[1]}, {', '.join(n for n, _, _ in leaves)}, SR: "
               f"{t:.4f} ms over the tiles against {whole:.4f} ms whole ({t / whole - 1:+.1%})")
     return rows
 
@@ -3237,8 +3335,135 @@ def _mesh_all_reduce(rank, dev):
     return out
 
 
-def _mesh_child(rank, world, run_dir):
-    """One rank of phases 35, 36 and 40: ``cuda:0`` shared with the other rank, gloo
+def _moe_mesh_setup(dev):
+    """(config, optimizer, SR key, a batch source) of phase 42's runs."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sr
+
+    cfg = cut_depth(get_config(MOE_MESH_ARCH), MOE_MESH_LAYERS)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, MOE_MESH_SEQ, MOE_MESH_BATCH))
+    return cfg, make_optimizer("production4bit", 1e-3), sr.PRNGKey(0), data
+
+
+def _moe_mesh_oracle(dev, counters, run_dir):
+    """Phase 42's oracle in this process, before any rank holds the card:
+    the same model, steps and batches in one process; its routing recorded
+    for the ranks (``run_dir / moe_routes.pt``)."""
+    import torch
+
+    from repro_torch.models import init_model
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    cfg, opt, key, data = _moe_mesh_setup(dev)
+    model = init_model(cfg, seed=0, device=dev)
+    state = make_train_state(model, opt, key=key)
+    fn = build_train_step(model, opt)
+    routes = _Routes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    steps = []
+    for t in range(MOE_MESH_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(t).items()}
+        t0 = time.perf_counter()
+        with routes.record():
+            state, m = fn(state, batch)
+        steps.append({"loss": float(m["loss"]), "aux": float(m["aux_loss"]),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.save(routes.calls, run_dir / "moe_routes.pt")
+    del model, state, fn, m, batch
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches, "peak_bytes": peak, "calls": len(routes.calls),
+            "assignments": sum(c["idx"].numel() for c in routes.calls)}
+
+
+def _mesh_moe(rank, dev, counters, run_dir):
+    """Phase 42 in one rank: each layout of ``MOE_MESH_LAYOUTS`` in turn,
+    its steps counted from 0 just before and read just after, following the
+    one-process routing at near ties (and at (2, 1) holding its shard's
+    slots); each layout's collective bytes reckoned on ``meta``."""
+    import torch
+
+    from repro_torch.comms import CommsConfig
+    from repro_torch.core.optimizers import state_nbytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.roofline.measured import Counter
+    from repro_torch.sharding.context import MeshRun
+    from repro_torch.sharding.specs import local_slice, map_plan, plan_nbytes
+    from repro_torch.train.mesh import MeshStep
+    from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+
+    cfg, opt, key, data = _moe_mesh_setup(dev)
+    axes = param_axes(cfg)
+    calls = torch.load(run_dir / "moe_routes.pt", weights_only=False)
+    meta = named_params(init_model(cfg, device="meta"))
+    batches = [data.batch_at(t) for t in range(MOE_MESH_STEPS)]
+    out = {}
+    for layout in MOE_MESH_LAYOUTS:
+        mesh = make_mesh(layout, ("data", "model"))
+        # the whole model made on the card, then cut: its storage is freed
+        model = init_model(cfg, seed=0, device=dev)
+        state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
+        fn = build_train_step(model, opt, mesh, axes)
+        ms = fn.mesh_step
+        layer = "decoder/0/sub0/"
+        res = {"split": sorted(k for k, d in ms.split.items() if d is not None),
+               "state_bytes": state_nbytes(state.opt_state),
+               "plan_bytes": plan_nbytes(opt.init(meta), ms.state_plan, ms.run.coord,
+                                         ms.run.sizes),
+               "param_bytes": sum(p.numel() * 4 for p in state.params.values()),
+               # one layer as the rank gathers it: its model shard of a split
+               # leaf, any other leaf whole (fp32)
+               "gathered_layer_bytes": sum(
+                   math.prod(ms.shapes[k][1:]) * 4 // (ms.run.n_tp if ms.split[k] else 1)
+                   for k in ms.shapes if k.startswith(layer))}
+        index = ms.run.data_ranks.index(ms.run.rank)
+        routes = _Routes(calls, index, layout[0], f"data rank {index} at {layout}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset(counters)
+        steps = []
+        for t, b in enumerate(batches):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            t0 = time.perf_counter()
+            with routes.follow():
+                state, metrics = fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"step": t, "loss": loss, "aux": float(metrics["aux_loss"]),
+                          "ms": (time.perf_counter() - t0) * 1e3, **fn.times})
+        res.update(launches=_read(counters), steps=steps,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   state_bytes_after=state_nbytes(state.opt_state), parted=routes.parted,
+                   dlogit=routes.dlogit, assignments=routes.assignments,
+                   slots_held=routes.slots_held)
+        del model, state, fn, ms, metrics, batch
+        torch.cuda.empty_cache()
+        # the same step reckoned with no world on this rank's meta parts
+        with torch.no_grad():
+            meta_state = opt.init(meta)
+        run = MeshRun(dict(zip(("data", "model"), layout)), rank=rank)
+        dry = MeshStep(run, cfg, {k: tuple(p.shape) for k, p in meta.items()}, axes, meta,
+                       meta_state)
+        cut = lambda t, spec: local_slice(t, spec, run.coord, run.sizes).clone()
+        local = {k: cut(p, dry.param_plan[k]) for k, p in meta.items()}
+        parts = map_plan(cut, meta_state, dry.state_plan)
+        shapes = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
+                  for k, v in batches[0].items()}
+        with Counter():
+            res["reckoned"] = dry.reckon(local, parts, opt, key, 1, CommsConfig(),
+                                         batch=shapes)[0]
+        out[f"{layout[0]}x{layout[1]}"] = res
+    return out
+
+
+def _mesh_child(rank, world, run_dir, moe_only=False):
+    """One rank of phases 35, 36, 40 and 42: ``cuda:0`` shared with the other rank, gloo
     through a FileStore in ``run_dir``; results to ``rank<r>.json``."""
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -3256,37 +3481,54 @@ def _mesh_child(rank, world, run_dir):
 
         open_host_slots()
         counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
-        res = {"train": _mesh_train(rank, dev, counters),
-               "all_reduce": _mesh_all_reduce(rank, dev)}
-        torch.cuda.empty_cache()
-        res["tp"] = _mesh_tp_train(rank, dev, counters)
+        res = {}
+        if not moe_only:
+            res = {"train": _mesh_train(rank, dev, counters),
+                   "all_reduce": _mesh_all_reduce(rank, dev)}
+            torch.cuda.empty_cache()
+            res["tp"] = _mesh_tp_train(rank, dev, counters)
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["moe"] = _mesh_moe(rank, dev, counters, Path(run_dir))
+        res["moe_seconds"] = time.perf_counter() - t0
         with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_mesh():
-    """Phases 35, 36 and 40: two processes on ``cuda:0`` over gloo (NCCL
-    refuses two ranks on one device; gloo moves CUDA tensors through host
-    memory)."""
+def phase_mesh(moe_only=False):
+    """Phases 35, 36, 40 and 42 (``moe_only``: 42 alone): two processes on
+    ``cuda:0`` over gloo (NCCL refuses two ranks on one device; gloo moves
+    CUDA tensors through host memory). Phase 42's one-process oracle and
+    its B1 tiles run here first, while no rank holds the card."""
     import torch
     import torch.multiprocessing as mp
+
+    from repro_torch.kernels import adamw4bit, quant4
 
     run_dir = ROOT / "build" / "mesh_smoke"
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.mkdir(parents=True)
+    dev = torch.device("cuda", 0)
+    t42 = time.perf_counter()
+    oracle = _moe_mesh_oracle(dev, (adamw4bit.LAUNCHES, quant4.LAUNCHES), run_dir)
+    moe_tiles = phase_b1_tiles(dev, MOE_TILE_LEAVES, ((1, 2),))
+    t42 = time.perf_counter() - t42
     torch.cuda.empty_cache()
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     print(f"mesh data={MESH_SHAPE[0]} model={MESH_SHAPE[1]}: {world} processes on cuda:0, "
           "backend gloo (collectives copy CUDA tensors through host memory)")
     t0 = time.perf_counter()
     try:
-        mp.spawn(_mesh_child, args=(world, str(run_dir)), nprocs=world, join=True)
+        mp.spawn(_mesh_child, args=(world, str(run_dir), moe_only), nprocs=world, join=True)
     except Exception as e:  # a rank's failure, with its traceback
         fail(f"mesh phases: {e}")
     wall = time.perf_counter() - t0
     ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    moe = _check_mesh_moe(ranks, oracle, moe_tiles, t42)
+    if moe_only:
+        return {"moe": moe, "seconds": wall}
     # phase 35
     launches = {}
     for r, res in enumerate(ranks):
@@ -3377,11 +3619,91 @@ def phase_mesh():
     partial = _partial_times(torch.device("cuda", 0))
     print("row-parallel partial products of a (1, 2) rank, median of 21: " + ", ".join(
         f"{k} {v:.4f}" for k, v in partial.items()))
-    print(f"mesh phases (35, 36, 40): {wall:.1f} s with both processes' start")
-    return {"launches": launches, "ranks": ranks, "seconds": wall,
+    print(f"mesh phases (35, 36, 40, 42): {wall:.1f} s with both processes' start")
+    return {"launches": launches, "ranks": [{k: v for k, v in r.items() if k != "moe"}
+                                            for r in ranks],
+            "seconds": wall, "moe": moe,
             "tp": {"launches": tp_launches, "reckoned": reckoned, "recorded": recorded,
                    "link": cell["collectives"], "reckoned_before": TP_RECKON_BEFORE,
                    "partial_ms": partial}}
+
+
+def _check_mesh_moe(ranks, oracle, tiles, oracle_seconds):
+    """Phase 42's checks and prints: each layout's state bytes, collective
+    bytes against the reckoning, losses against the one-process oracle and
+    across the ranks, the held routing at (2, 1), B1's launches."""
+    one = [s["loss"] for s in oracle["steps"]]
+    print(f"MoE mesh oracle (one process, {MOE_MESH_ARCH} {MOE_MESH_LAYERS} layers, "
+          f"{MOE_MESH_BATCH} x {MOE_MESH_SEQ}): (loss, aux) "
+          f"{[(s['loss'], s['aux']) for s in oracle['steps']]}, steps "
+          f"{[round(s['ms'], 1) for s in oracle['steps']]} ms, peak {oracle['peak_bytes']:,} B, "
+          f"launches {oracle['launches']}")
+    launches = {}
+    out = {"oracle": oracle, "tiles": tiles, "layouts": {}}
+    for layout in MOE_MESH_LAYOUTS:
+        name = f"{layout[0]}x{layout[1]}"
+        rs = [r["moe"][name] for r in ranks]
+        for r, res in enumerate(rs):
+            what = f"MoE mesh {name} rank {r}"
+            if not res["state_bytes"] == res["state_bytes_after"] == res["plan_bytes"]:
+                fail(f"{what}: state bytes {res['state_bytes']} / {res['state_bytes_after']} != "
+                     f"the plan's {res['plan_bytes']}")
+            recorded = [s["collective_bytes"] for s in res["steps"]]
+            if any(b != res["reckoned"] for b in recorded):
+                fail(f"{what}: the steps moved {recorded} B, MeshStep.reckon {res['reckoned']} B")
+            losses = [s["loss"] for s in res["steps"]]
+            if losses != [s["loss"] for s in rs[0]["steps"]]:
+                fail(f"{what}: losses {losses} differ from rank 0's")
+            for a, b in zip(losses, one):
+                if not (math.isfinite(a) and abs(a - b) <= MOE_MESH_RTOL * abs(b)):
+                    fail(f"{what}: losses {losses} not within {MOE_MESH_RTOL} relative of the "
+                         f"one-process run's {one}")
+            for k in ("fused_adamw4", "rank1_new_stats"):
+                if not 0 < res["launches"][k] == oracle["launches"][k]:
+                    fail(f"{what}: {k} launched {res['launches'][k]} times, the one-process "
+                         f"run {oracle['launches'][k]} (every fused leaf, on the rank's tiles)")
+            if res["launches"]["quantize_blockwise_4bit"] or \
+                    res["launches"]["dequantize_blockwise_4bit"]:
+                fail(f"{what}: the training path launched the q4 kernels")
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            if len(res["parted"]) != oracle["calls"] or (layout[0] > 1) != (res["slots_held"] > 0):
+                fail(f"{what}: routing held on {len(res['parted'])} of {oracle['calls']} calls, "
+                     f"{res['slots_held']} slots")
+            for s in res["steps"]:
+                coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
+                print(f"{what} step {s['step']}: loss {s['loss']!r} aux {s['aux']!r}  "
+                      f"{s['ms']:.1f} ms (compute "
+                      f"{1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, collective "
+                      f"{1e3 * coll:.1f}, update "
+                      f"{1e3 * (s['update_s'] - s['collective_update_s']):.1f} ms; "
+                      f"{s['collective_bytes']:,} B through the collectives)")
+            print(f"{what}: {len(res['split'])} leaves split over model; gathered layer "
+                  f"{res['gathered_layer_bytes']:,} B; state_bytes {res['state_bytes']:,} (the "
+                  f"plan's {res['plan_bytes']:,}), param_bytes {res['param_bytes']:,}, peak "
+                  f"{res['peak_bytes']:,} B ({res['peak_bytes'] / 1e9:.2f} GB); launches "
+                  f"{res['launches']}")
+            parted, share = sum(res["parted"]), sum(res["parted"]) / res["assignments"]
+            print(f"{what} routing: {parted} of {res['assignments']:,} assignments ({share:.3%}) "
+                  f"parted from one process's at near ties and followed (per call "
+                  f"{res['parted']}); largest |dlogit| per call "
+                  f"{[round(x, 5) for x in res['dlogit']]}"
+                  + (f"; {res['slots_held']:,} of the shard's slots equal to one process's"
+                     if layout[0] > 1 else ""))
+            if max(res["dlogit"]) > MOE_MESH_DLOGIT[layout] or share > MOE_MESH_PARTED[layout]:
+                fail(f"{what}: the routing drifted from one process's: largest |dlogit| "
+                     f"{max(res['dlogit'])} (bar {MOE_MESH_DLOGIT[layout]}), {share:.3%} of the "
+                     f"assignments parted (bar {MOE_MESH_PARTED[layout]:.2%})")
+        out["layouts"][name] = rs
+    split, model = (out["layouts"][f"{a}x{b}"][0]["gathered_layer_bytes"]
+                    for a, b in MOE_MESH_LAYOUTS)
+    print(f"MoE mesh: gathered layer {model:,} B a rank at (1, 2) against {split:,} at (2, 1) "
+          f"({model / split:.1%}); B1 on the expert tiles of moe/w1 at (1, 2): "
+          f"{tiles[0]['tiles_ms']:.4f} ms over the tiles against {tiles[0]['whole_ms']:.4f} ms "
+          f"whole; phase 42: {oracle_seconds:.1f} s for the oracle and the tiles, "
+          f"{max(r['moe_seconds'] for r in ranks):.1f} s in the ranks")
+    out["launches"] = launches
+    return out
 
 
 def _one_process_manifest():
@@ -4006,11 +4328,16 @@ def main():
         phase_b1_tiles(dev)
         _lap("34 B1 tiles")
         phase_mesh()
-        _lap("35-36, 40 mesh")
+        _lap("35-36, 40, 42 mesh")
         phase_mesh_checkpoint(counters, checkpoint)
         _lap("37 mesh checkpoint")
         print(f"chip_smoke: phases 10, 34-37 and 40 passed in "
               f"{time.perf_counter() - t_start:.1f} s")
+        return
+    if sys.argv[1:] == ["--moe-mesh-phase"]:  # phase 42 alone
+        phase_mesh(moe_only=True)
+        _lap("42 MoE mesh")
+        print(f"chip_smoke: phase 42 passed in {time.perf_counter() - t_start:.1f} s")
         return
     if sys.argv[1:] == ["--mesh-optim-phases"]:  # phases 11 and 39 alone
         phase_mesh_optimizers(phase_new_optimizers(counters, dev))
@@ -4100,7 +4427,7 @@ def main():
     b1_tiles = phase_b1_tiles(dev)
     _lap("34 B1 tiles")
     mesh = phase_mesh()
-    _lap("35-36, 40 mesh")
+    _lap("35-36, 40, 42 mesh")
     mesh_checkpoint = phase_mesh_checkpoint(counters, checkpoint)
     _lap("37 mesh checkpoint")
     roofline = phase_roofline(card, main_steps, mesh)
@@ -4110,11 +4437,13 @@ def main():
     recompute = phase_recompute(dev)
     _lap("41 recompute")
     # launches: every path run of the slices, each counted from 0 just before
-    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37, 40 train; 8,
-    # 17, 23, 27, 32 serve)
+    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37, 40, 42 train;
+    # 8, 17, 23, 27, 32 serve)
     path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train,
                                                       stub_train)
                               for r in t.values()] + [mesh["launches"],
+                                                      mesh["moe"]["launches"],
+                                                      mesh["moe"]["oracle"]["launches"],
                                                       mesh_checkpoint["launches"],
                                                       mesh["tp"]["launches"]]
     serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,

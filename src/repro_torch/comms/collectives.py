@@ -57,9 +57,9 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["STATS", "timed", "through_host", "all_gather", "all_to_all", "merge_max", "merge_sum", "Ranks",
-           "recording", "without_world", "open_host_slots", "close_host_slots",
-           "HOST_MIN_BYTES", "HOST_SLOT_BYTES"]
+__all__ = ["STATS", "timed", "through_host", "all_gather", "timed_gather", "all_to_all",
+           "merge_max", "merge_sum", "Ranks", "recording", "without_world", "open_host_slots",
+           "close_host_slots", "HOST_MIN_BYTES", "HOST_SLOT_BYTES"]
 
 Call = Tuple[str, int, int]  # (kind, result bytes, group size)
 # the open recordings, innermost last: module state, not a context
@@ -268,6 +268,13 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
         dist.all_gather_into_tensor(out.reshape(-1), src.reshape(-1), group=group)
     _record("all-gather", out, n)
     return out.to(dev)
+
+
+def timed_gather(t: torch.Tensor, group, world: Optional[int] = None) -> torch.Tensor:
+    """``all_gather(t, group)`` through ``timed``, run ``without_world(world)``
+    where ``world`` is set (a split step reckoned or measured on ``meta``)."""
+    with without_world(world) if world is not None else contextlib.nullcontext():
+        return timed(all_gather, t, group)
 
 
 def all_to_all(pieces: torch.Tensor, group=None) -> torch.Tensor:

@@ -23,9 +23,11 @@ records per rank:
   at the rank's share, with the H100's constants.
 
 ``status`` is ``ok``, ``skipped`` (``cell_is_runnable``), ``refused`` (the
-port's mesh step would refuse the cell before its first step: a data shard
-that would split an MoE group, ``models.moe.moe_shard_groups``; the
-refusal's own message), or ``error`` with the traceback's tail. A fused
+port's mesh step would refuse the cell before its first step: a
+microbatch whose global tokens do not split into whole MoE groups,
+``models.moe.moe_capacity``; the refusal's own message; a group that spans
+data shards is no refusal, ``models.moe`` exchanges its routing counts over
+the data group), or ``error`` with the traceback's tail. A fused
 leaf whose tiles would cut B128 blocks, or a leaf whose tiles would cut a
 packed byte of its 4-bit moments' codes, is no refusal (the mesh step
 updates it on row tiles); such leaves are listed under
@@ -103,7 +105,7 @@ def _refusal(cfg: ModelConfig, shape: ShapeSpec, mesh, accum_steps: int) -> Opti
     try:
         if any(b.kind == "moe" for b in cfg.blocks):
             Bl, shards = rank_batch(shape.global_batch, dp_size(mesh))
-            moe_shard_groups(Bl // accum_steps * shape.seq_len, shards, cfg.top_k,
+            moe_shard_groups(Bl // accum_steps * shape.seq_len, shards, 0, cfg.top_k,
                              cfg.num_experts, group_size=cfg.moe_group_size)
     except ValueError as e:
         return str(e)

@@ -391,7 +391,7 @@ def apply_moe(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
                         positions=positions, cache=cache, cur_pos=cur_pos, kv_lengths=kv_lengths)
     x = x + h
     out, aux = moe_apply(p["moe"], norm_apply(cfg, x, p["norm2"]), top_k=cfg.top_k,
-                         group_size=cfg.moe_group_size)
+                         group_size=cfg.moe_group_size, width=cfg.d_ff)
     return x + out, aux
 
 

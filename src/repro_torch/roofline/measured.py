@@ -61,12 +61,15 @@ the MoE aux loss's backward); a further layer is a probe.
   of the ``model`` axis (``compute_split: "data+model"`` where some leaf
   is split, ``sharding.tensor_parallel.placement``): the model and its
   probes run on the model shard of rank 0 of a model group (its heads,
-  mlp columns and vocab rows; every other leaf whole), inside
-  ``tensor_parallel.use`` with the collectives ``without_world``, so the
-  model group's sums (the all-gathers' empty results, the adds in model
-  rank order) are counted where they run. A train cell on more than one
-  rank walks the mesh step's own code with no world
-  (``train.mesh.MeshStep.reckon``): its gathers, gradient exchange, the
+  mlp columns, experts or expert columns and vocab rows; every other leaf
+  whole), inside ``tensor_parallel.use`` with the collectives
+  ``without_world``, so the model group's sums and the expert outputs'
+  gathers (the all-gathers' empty results, the adds in model rank order)
+  are counted where they run. An MoE layer whose token groups span data
+  shards computes as data rank 0 does: its tokens placed in their groups,
+  the data group's gather of the routing's counts run without a world. A
+  train cell on more than one rank walks the mesh step's own code with no
+  world (``train.mesh.MeshStep.reckon``): its gathers, gradient exchange, the
   model group's sums, wire format, the optimizer's update on the rank's
   tiles and its collectives. The port serves on one device: on a mesh,
   serving ranks are data-parallel replicas with no collectives
@@ -548,7 +551,8 @@ def measure(cfg: ModelConfig, shape: ShapeSpec, mesh=None, hw: HW = H100,
         splitting.enter_context(tp_lib.use(tp))
         splitting.enter_context(without_world(n_chips))
 
-    with context.batch_shards(shards), splitting:
+    data_group = Ranks(range(shards))
+    with context.batch_shards(shards, 0, data_group, world=n_chips), splitting:
         if kind == "decode":
             s_max = decode_cache_len(cfg, shape)
             pos = torch.empty((Bl,), dtype=torch.int32, device=META)

@@ -18,8 +18,11 @@ tensor and the code that needs the whole leaf asks this module:
   a state leaf shaped otherwise than its parameter (Shampoo's factor
   stacks) has its own tile in the map under ``(path, field)``, current
   within ``field(name)``;
-* ``batch_shards(n)`` tells the model its batch is one of ``n`` data
-  shards (the MoE layer forms its token groups over the global batch).
+* ``batch_shards(n, index, group)`` tells the model its batch is shard
+  ``index`` of ``n`` data shards of the global batch, cut in data rank
+  order, and gives it the data group (the MoE layer forms its token groups
+  over the global batch, and exchanges the routing's counts over that
+  group where a group spans shards).
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ import contextlib
 import contextvars
 import dataclasses
 import itertools
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.sharding.rules import dp_axes, mesh_axis_sizes
 
 __all__ = ["Tile", "MeshRun", "use", "leaf", "field", "current_run", "current_tile", "leaf_tile",
-           "tile_of", "box_of", "rank_coord", "batch_shards", "current_batch_shards"]
+           "tile_of", "box_of", "rank_coord", "DataShards", "batch_shards",
+           "current_data_shards"]
 
 Box = Tuple[Tuple[int, int], ...]
 
@@ -125,22 +129,42 @@ _LEAF: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar("repro_mes
                                                                       default=None)
 _FIELD: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar("repro_mesh_field",
                                                                        default=None)
-_SHARDS: contextvars.ContextVar[int] = contextvars.ContextVar("repro_batch_shards", default=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShards:
+    """The global batch cut into ``size`` equal shards in data rank order:
+    this rank's ``index``, and the data group (a process group, a
+    ``collectives.Ranks`` with no world, or None where nothing is
+    exchanged); ``world`` is set where the collectives run
+    ``without_world`` (the roofline on ``meta``)."""
+
+    size: int = 1
+    index: int = 0
+    group: Any = None
+    world: Optional[int] = None
+
+
+_SHARDS: contextvars.ContextVar[DataShards] = contextvars.ContextVar("repro_batch_shards",
+                                                                     default=DataShards())
 
 
 @contextlib.contextmanager
-def batch_shards(n: int) -> Iterator[None]:
-    """Within it, the batch the model sees is one of ``n`` equal data shards
-    of the global batch (the mesh step's forward)."""
-    token = _SHARDS.set(n)
+def batch_shards(n: int, index: int = 0, group=None,
+                 world: Optional[int] = None) -> Iterator[None]:
+    """Within it, the batch the model sees is shard ``index`` of ``n`` equal
+    data shards of the global batch (the mesh step's forward), ``group``
+    the data group."""
+    token = _SHARDS.set(DataShards(int(n), int(index), group, world))
     try:
         yield
     finally:
         _SHARDS.reset(token)
 
 
-def current_batch_shards() -> int:
-    """How many data shards the global batch is cut into (1 off the mesh)."""
+def current_data_shards() -> DataShards:
+    """This rank's shard of the global batch (the one whole shard off the
+    mesh)."""
     return _SHARDS.get()
 
 

@@ -16,17 +16,26 @@ The placement rule (``placement``), per leaf, from the cut that
   is a partial summed over the model group;
 * an MLP is mlp-parallel where ``w1`` (and ``w3``) and ``w2`` are cut on
   ``mlp``; ``w2``'s product is a partial summed over the model group;
+* an MoE layer's experts are expert-parallel where ``w1``, ``w3`` and
+  ``w2`` are cut on ``experts``: the rank of model index ``m`` runs experts
+  ``[m·E/M, (m+1)·E/M)`` and the model group's expert outputs are gathered
+  (``collect``); else each expert's FFN is mlp-parallel where the three
+  are cut on ``mlp`` (``w2``'s partial summed), as mixtral's 8 experts on
+  a 16-way axis fall through to; the router stays whole
+  (``models.moe``);
 * ``embed`` cut on ``vocab`` gives a vocab-parallel lookup (an id outside
   the rank's rows gives a zero row; the rows are summed) and, as ``head``
   cut on ``vocab`` does, or a tied head, vocab-parallel cross entropy
   (``models.layers``);
 * every other leaf is gathered whole and computed the same on every rank
-  of the model group (norms, MoE experts and router, the recurrent blocks'
-  own leaves, an attention or MLP whose widths the axis does not divide).
+  of the model group (norms, the MoE router, the recurrent blocks' own
+  leaves, an attention, MLP or experts whose widths the axis does not
+  divide).
 
 A block knows it computes on a model shard by its leaves: inside ``use``,
 a ``wq`` narrower than the config's heads, a ``w1`` narrower than the MLP's
-width, an ``embed`` or head narrower than the vocabulary.
+width, an MoE ``w1`` with fewer experts than the router or narrower than
+the expert's width, an ``embed`` or head narrower than the vocabulary.
 
 The two functions of the split: ``enter`` (identity forward, model-group
 sum backward) at a column-parallel input, and ``leave`` (model-group sum
@@ -52,11 +61,11 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.comms.collectives import all_gather, timed, without_world
+from repro_torch.comms.collectives import timed_gather
 from repro_torch.sharding.rules import spec_for
 
 __all__ = ["TPRun", "PARTIAL_DTYPE", "use", "current", "placement", "model_box", "enter",
-           "leave", "group_max", "row_parallel", "kv_heads", "reckon_sums"]
+           "leave", "collect", "group_max", "row_parallel", "kv_heads", "reckon_sums"]
 
 # the type of a row-parallel partial and of its sum over the model group
 PARTIAL_DTYPE = torch.float32
@@ -125,6 +134,9 @@ def placement(shapes: Mapping[str, Tuple[int, ...]], axes: Mapping[str, Tuple[st
         elif (kind == "mlp" and cuts(leaf("w1"), "mlp") and cuts(leaf("w2"), "mlp")
               and (leaf("w3") not in shapes or cuts(leaf("w3"), "mlp"))):
             names = [n for n in ("w1", "w2", "w3") if leaf(n) in shapes]
+        elif kind == "moe" and any(all(cuts(leaf(n), axis) for n in ("w1", "w2", "w3"))
+                                   for axis in ("experts", "mlp")):
+            names = ["w1", "w2", "w3"]
         else:
             continue
         for n in names:
@@ -145,8 +157,7 @@ def model_box(shape: Sequence[int], dim: int, index: int, size: int
 
 def _sum(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
     """``x`` summed over the model group in ascending model rank."""
-    with without_world(tp.world) if tp.world is not None else contextlib.nullcontext():
-        every = timed(all_gather, x, tp.group)
+    every = timed_gather(x, tp.group, tp.world)
     out = every[0].clone()
     for i in range(1, every.shape[0]):
         out.add_(every[i])
@@ -178,6 +189,21 @@ class _Leave(torch.autograd.Function):
         return grad, None
 
 
+class _Collect(torch.autograd.Function):
+    """The model group's shards joined on dim 0 forward; the gradient of
+    the rank's own rows backward (what follows is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.n = tp, x.shape[0]
+        return timed_gather(x, tp.group, tp.world).reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.tp.index * ctx.n
+        return grad[start:start + ctx.n], None
+
+
 def enter(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
     """A replicated tensor as a column-parallel input: the same forward,
     its gradient summed over the model group."""
@@ -190,11 +216,15 @@ def leave(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
     return _Leave.apply(x, tp)
 
 
+def collect(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
+    """The ranks' dim-0 shards of one tensor, joined in model rank order
+    (the expert-parallel outputs); each rank keeps its rows' gradient."""
+    return _Collect.apply(x, tp)
+
+
 def group_max(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
     """Elementwise max over the model group (no gradient)."""
-    with without_world(tp.world) if tp.world is not None else contextlib.nullcontext():
-        every = timed(all_gather, x.detach().contiguous(), tp.group)
-    return torch.amax(every, dim=0)
+    return torch.amax(timed_gather(x.detach(), tp.group, tp.world), dim=0)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, spec: str, tp: TPRun,
@@ -220,53 +250,77 @@ def kv_heads(start: int, n: int, heads: int, kv: int) -> Union[slice, List[int]]
 
 
 def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tuple[int, ...]],
-                batch: Mapping[str, torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
-    """One microbatch's model-group collectives, forward and backward, as
-    empty ``meta`` tensors of what each gathers (``batch`` the rank's
-    microbatch; ``split`` the ``placement``): per split attention, the
-    partial of ``wo``, the input's gradient (and the encoder output's, for
+                batch: Mapping[str, torch.Tensor], dtype: torch.dtype, model: int = 1,
+                shards: Tuple[int, int] = (1, 0)) -> List[Tuple[torch.Tensor, str]]:
+    """One microbatch's collectives of the split compute, forward and
+    backward, as (an empty ``meta`` tensor of what each gathers, its group:
+    ``"model"`` or ``"data"``) (``batch`` the rank's microbatch; ``split``
+    the ``placement`` on a model axis of ``model``; ``shards`` the data
+    shards and this rank's index): per split attention, the partial of
+    ``wo``, the input's gradient (and the encoder output's, for
     cross-attention) and the gradients of the whole leaves it uses on its
     heads; per split MLP, the partial of ``w2`` and the input's gradient;
-    the vocab-parallel lookup's rows; the cross entropy's input gradient and
-    per chunk the max, the sum of ``exp`` and the gold logit. A layer's
-    partials (under ``cfg.remat``) and a chunk's merges (always) are summed
-    twice: their regions run again in the backward."""
+    per split MoE layer, the gathered expert outputs (or ``w2``'s partial)
+    and the expert input's gradient; per MoE layer whose groups span data
+    shards, the data group's gather of the routing's counts and
+    probability sums; the vocab-parallel lookup's rows; the cross
+    entropy's input gradient and per chunk the max, the sum of ``exp`` and
+    the gold logit. A layer's forward collectives (under ``cfg.remat``) and
+    a chunk's merges (always) run twice: their regions run again in the
+    backward."""
     from repro_torch.models.model import plan_scan_units
+    from repro_torch.models.moe import moe_shard_groups
 
     B, S = batch["labels"].shape
     D = cfg.d_model
     forwards = 2 if cfg.remat else 1  # a layer's sums run again in its recompute
     act = lambda s, dt=dtype: torch.empty((B, s, D), dtype=dt, device="meta")
+    meta = lambda shape, dt=dtype: torch.empty(shape, dtype=dt, device="meta")
     Se = batch["frames"].shape[1] if cfg.family == "encdec" else 0
-    out: List[torch.Tensor] = []
+    out: List[Tuple[torch.Tensor, str]] = []
+    on_model = lambda ts: [(t, "model") for t in ts]
     if cfg.input_mode == "tokens" and split.get("embed") is not None:
-        out.append(act(S))
+        out.append((act(S), "model"))
     for root, blocks, s in (("encoder", cfg.encoder_blocks, Se), ("decoder", cfg.blocks, S)):
         for ui, unit in enumerate(plan_scan_units(blocks) if blocks else []):
-            layer: List[torch.Tensor] = []
+            layer: List[Tuple[torch.Tensor, str]] = []
             for si in range(len(unit.pattern)):
                 prefix = f"{root}/{ui}/sub{si}/"
                 for sub in _ATTENTION:
                     wq = f"{prefix}{sub}/wq"
                     if split.get(wq) is None:
                         continue
-                    layer += [act(s, PARTIAL_DTYPE)] * forwards + [act(s)]
+                    layer += on_model([act(s, PARTIAL_DTYPE)] * forwards + [act(s)])
                     if sub == "cross":
-                        layer.append(act(Se))
+                        layer.append((act(Se), "model"))
                     for n in ("wk", "wv", "q_norm", "k_norm"):
                         k = f"{prefix}{sub}/{n}"
                         if k in shapes and split.get(k) is None:
-                            layer.append(torch.empty(shapes[k][1:], dtype=torch.float32,
-                                                     device="meta"))
+                            layer.append((meta(shapes[k][1:], torch.float32), "model"))
                 if split.get(f"{prefix}mlp/w1") is not None:
-                    layer += [act(s, PARTIAL_DTYPE)] * forwards + [act(s)]
+                    layer += on_model([act(s, PARTIAL_DTYPE)] * forwards + [act(s)])
+                router = f"{prefix}moe/router"
+                if router in shapes:
+                    E = shapes[router][-1]
+                    span = moe_shard_groups(B * s, shards[0], shards[1], cfg.top_k, E,
+                                            group_size=cfg.moe_group_size)
+                    G, T, C = span.count, span.T, span.C
+                    w1 = f"{prefix}moe/w1"
+                    if split.get(w1) == 1:  # (L, E, D, F) cut on its experts
+                        layer += on_model([meta((E // model, G, C, D))] * forwards)
+                    elif split.get(w1) is not None:
+                        layer += on_model([meta((E, G, C, D), PARTIAL_DTYPE)] * forwards)
+                    if split.get(w1) is not None:
+                        layer.append((meta((G, T, D)), "model"))
+                    if span.split:
+                        layer += [(meta((span.groups, 2, E), torch.float32), "data")] * forwards
             out += layer * unit.repeat
     head = "embed" if cfg.tie_embeddings else "head"
     if split.get(head) is not None:
-        out.append(act(S))
+        out.append((act(S), "model"))
         chunk = min(cfg.ce_chunk, S)
         for s0 in range(0, S, chunk):
             c = min(chunk, S - s0)
             # the chunk's merges, in its forward and again in its recompute
-            out += [torch.empty((B, c), dtype=torch.float32, device="meta")] * 6
+            out += on_model([meta((B, c), torch.float32)] * 6)
     return out

@@ -11,15 +11,19 @@ of every fp32 moment, of the packed codes, and its part of the scales.
 * Forward: the ranks of one model group (one data coordinate) compute one
   batch shard together, tensor-parallel on the ``model`` axis
   (``sharding.tensor_parallel``, the reference's ``TP_RULES`` split): each
-  computes its heads of every attention, its columns of every MLP and its
-  vocab rows of the lookup and the cross entropy, where the plan cuts
-  those leaves on ``model`` (``placement``), and the partial results are
-  summed over the model group in ascending model rank. Such a leaf is
-  gathered over the rank's data group only, into its model shard (with
-  one data rank, the shard is the rank's own part: no collective); every
-  other leaf (norms, MoE experts, the recurrent blocks' own leaves, an
-  attention or MLP whose widths the axis does not divide) is gathered
-  whole over the world and computed alike on every rank of the group.
+  computes its heads of every attention, its columns of every MLP, its
+  experts (or each expert's columns) of every MoE layer and its vocab rows
+  of the lookup and the cross entropy, where the plan cuts those leaves on
+  ``model`` (``placement``), and the partial results are summed (the
+  experts' outputs gathered) over the model group in ascending model rank.
+  Such a leaf is gathered over the rank's data group only, into its model
+  shard (with one data rank, the shard is the rank's own part: no
+  collective); every other leaf (norms, the MoE router, the recurrent
+  blocks' own leaves, an attention, MLP or experts whose widths the axis
+  does not divide) is gathered whole over the world and computed alike on
+  every rank of the group. An MoE layer groups the global batch's tokens:
+  where a group spans data shards, its routing counts are exchanged over
+  the data group (``models.moe``).
   Top-level leaves (embed, head, final norms) are gathered before the
   forward; a stacked leaf one layer at a time, when the layer loop
   reaches that layer (``unit_layers``, the hook of
@@ -57,7 +61,8 @@ ranges), each stack's tile in the context under ``(path, field)``.
 ``MeshStep.reckon`` walks the same code with no world (a ``MeshRun`` made
 for one rank of an ``{axis: size}`` mesh, ``meta`` parts, the collectives
 ``without_world``), and the model group's sums of the tensor-parallel
-compute per layer and microbatch (``tensor_parallel.reckon_sums``): it
+compute and the MoE layers' data-group exchanges per layer and
+microbatch (``tensor_parallel.reckon_sums``): it
 gives one step's collective bytes as ``STATS`` counts them and the calls
 the roofline prices, for any mesh.
 """
@@ -276,6 +281,11 @@ class MeshStep:
         self.split = tp_lib.placement(self.shapes, self.axes, sizes)
         self.tp = (tp_lib.TPRun(run.model_group, run.model_index, run.n_tp)
                    if any(d is not None for d in self.split.values()) else None)
+        # this rank's shard of the global batch, in data rank order; an MoE
+        # layer may exchange over the data group where its groups span shards
+        self._data_index = run.data_ranks.index(run.rank)
+        self._needs_batch = self.tp is not None or (
+            run.n_dp > 1 and any(k.endswith("/moe/router") for k in self.shapes))
 
     def _stack_work(self) -> Dict[Tuple[str, str], List[Box]]:
         """The block ranges of every state leaf whose shape is not its
@@ -473,7 +483,8 @@ class MeshStep:
             self._anchor = torch.zeros((), requires_grad=True)
             top = {k: self._gathered(k) for k in self.shapes
                    if not k.startswith(("decoder/", "encoder/"))}
-            with context.batch_shards(shards), tp_lib.use(self.tp):
+            with context.batch_shards(shards, self._data_index, self.run.data_group), \
+                    tp_lib.use(self.tp):
                 loss, m = params_loss(top, self.cfg, micro, self.unit_layers)
             loss.backward()
             del top
@@ -507,9 +518,10 @@ class MeshStep:
         gather and gradient exchange of ``forward_backward`` (each gathered
         tensor's gradient an empty tensor of its shape; under ``cfg.remat``
         each layer's gather twice, the recompute's too), the model group's
-        sums of the tensor-parallel compute (``batch``, the global batch,
-        ``meta`` is enough, gives their shapes; needed where the step
-        splits compute) and the metrics' gather run as the step runs them;
+        sums of the tensor-parallel compute and the MoE layers' data-group
+        exchanges (``batch``, the global batch, ``meta`` is enough, gives
+        their shapes; needed where the step splits compute or the model
+        has MoE layers) and the metrics' gather run as the step runs them;
         then ``finish`` at step 0 with
         ``optimizer``, ``key`` and the wire format ``comms`` (fp32 if None),
         inside ``around_update`` (a context manager) if given. On ``meta`` it
@@ -520,15 +532,17 @@ class MeshStep:
         from repro_torch.models import layers
         from repro_torch.train.train_loop import _microbatch
 
-        if self.tp is not None and batch is None:
-            raise ValueError("the step splits compute over the model axis: reckon needs the batch")
+        if self._needs_batch and batch is None:
+            raise ValueError("the step splits compute over the model axis or groups an MoE "
+                             "layer's tokens over the data shards: reckon needs the batch")
         saved = dict(STATS)
         STATS["collective_s"], STATS["bytes"] = 0.0, 0
         try:
             with without_world(self.run.world), recording() as calls:
                 self._params, self._written = params, set()
                 self._grads = {k: torch.empty_like(p) for k, p in params.items()}
-                local_batch = self._local_batch(batch)[0] if self.tp is not None else None
+                local_batch, shards = (self._local_batch(batch) if self._needs_batch
+                                       else (None, 1))
                 for i in range(accum_steps):
                     for k, shape in self.shapes.items():
                         stacked = k.startswith(("decoder/", "encoder/"))
@@ -538,12 +552,14 @@ class MeshStep:
                             for _ in range(2 if stacked and self.cfg.remat else 1):
                                 full = gather(local, boxes, whole, group)
                             self._sink(k, r, sink_boxes)(torch.empty_like(full))
-                    if self.tp is not None:
+                    if self._needs_batch:
                         micro = {k: _microbatch(v, i, accum_steps)
                                  for k, v in local_batch.items()}
-                        for t in tp_lib.reckon_sums(self.cfg, self.split, self.shapes, micro,
-                                                    layers.COMPUTE_DTYPE):
-                            timed(all_gather, t, self.run.model_group)
+                        groups = {"model": self.run.model_group, "data": self.run.data_group}
+                        for t, g in tp_lib.reckon_sums(self.cfg, self.split, self.shapes, micro,
+                                                       layers.COMPUTE_DTYPE, self.run.n_tp,
+                                                       (shards, self._data_index)):
+                            timed(all_gather, t, groups[g])
                 grads, self._grads, self._params = self._grads, {}, None
                 dev = next(iter(params.values())).device
                 self._data_mean({k: torch.zeros((), device=dev) for k in _METRICS})

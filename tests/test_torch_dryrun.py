@@ -172,8 +172,13 @@ def test_refusals_carry_the_mesh_steps_message():
     rec = dryrun.dry_run(reduced_config("internlm2-1.8b"), shape, {"data": 2, "model": 1},
                          "sm3", accum_steps=1)
     assert rec["status"] == "ok"
-    # 8 x 16 tokens of reduced phi3.5 (groups of 64) split over 4 data shards
-    rec = dryrun.dry_run(reduced_config("phi3.5-moe-42b-a6.6b"), ShapeSpec("small", 16, 8,
-                                                                         "train"),
-                         {"data": 4, "model": 1}, accum_steps=1)
-    assert rec["status"] == "refused" and "does not hold whole groups" in rec["reason"]
+    # 8 x 16 tokens of reduced phi3.5 (groups of 64) split over 4 data shards:
+    # the groups span shards, whose routing counts are gathered over the data
+    # group (no refusal); 8 x 12 tokens do not split into groups of 64
+    phi = reduced_config("phi3.5-moe-42b-a6.6b")
+    rec = dryrun.dry_run(phi, ShapeSpec("small", 16, 8, "train"), {"data": 4, "model": 1},
+                         accum_steps=1)
+    assert rec["status"] == "ok" and rec["collectives"]["result_bytes"] > 0
+    rec = dryrun.dry_run(phi, ShapeSpec("small", 12, 8, "train"), {"data": 4, "model": 1},
+                         accum_steps=1)
+    assert rec["status"] == "refused" and "do not split into groups of 64" in rec["reason"]

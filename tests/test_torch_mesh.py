@@ -18,8 +18,16 @@ SR, the reference's params and its gradients of two batches. Held to:
   the compute is split over a model axis, whose sums of bf16 gradients
   reach the 4-bit update; in fp32 compute those runs hold 1e-5);
 * each rank holds only its plan's tiles (shapes) and its plan's state bytes;
-* a MoE arch (reduced phi3.5-moe, (2, 1)) forms its token groups over the
-  global batch: losses and aux within 1e-5 of one process.
+* a MoE arch (reduced phi3.5-moe) forms its token groups over the global
+  batch: on (2, 1) with whole groups in each data shard, and on (2, 2) with
+  one group of 64 split over the two data shards and the experts split
+  over the two model ranks (the routing's counts gathered over the data
+  group, the experts' outputs over the model group), losses and aux within
+  1e-5 of one process: on (2, 2) the first step's and, in fp32 compute,
+  both steps'; in bf16 compute the model group's sums of bf16 gradients
+  reach the 4-bit update, so the second step's are held to 1e-4 (4.1e-5
+  measured on a CPU) (``tests/test_torch_moe_mesh.py`` holds the other
+  layouts against the reference).
 
 Also here: the logical-axes tree of all 10 archs against the
 reference's (``tests/test_torch_sharding.py``'s ``_ref_axes``).
@@ -52,7 +60,7 @@ from repro_torch.core.optimizers.base import _leaves  # noqa: E402
 from repro_torch.core.quantizer import QuantizedTensor  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import sr  # noqa: E402
-from repro_torch.models import init_model, named_params, param_axes, Transformer  # noqa: E402
+from repro_torch.models import init_model, param_axes, Transformer  # noqa: E402
 from repro_torch.train.train_loop import build_train_step, make_train_state  # noqa: E402
 from test_torch_sharding import _ref_axes as _ref_axes_of_arch  # noqa: E402
 import torch_mesh_worker as worker  # noqa: E402
@@ -93,8 +101,9 @@ def worlds(inputs, tmp_path_factory):
     """A world of 4 ranks ((2, 2), then (1, 4), whose tiles cut the fused
     ``mlp/w1``/``w3`` leaves' B128 blocks) and one of 2 ((2, 1)), started;
     they run while the reference and the one-process port compute."""
-    by_world = {4: {m: _step_task(inputs, m) for m in ((2, 2), (1, 4))},
-                2: {(2, 1): _step_task(inputs, (2, 1)), "moe": _moe_task()}}
+    by_world = {4: {**{m: _step_task(inputs, m) for m in ((2, 2), (1, 4))},
+                    "moe_split": dict(_moe_task((2, 2), 8), fp32=True)},
+                2: {(2, 1): _step_task(inputs, (2, 1)), "moe": _moe_task((2, 1), 16)}}
     return {n: worker.start(n, tasks, str(tmp_path_factory.mktemp(f"world{n}")))
             for n, tasks in by_world.items()}
 
@@ -102,16 +111,17 @@ def worlds(inputs, tmp_path_factory):
 MOE = "phi3.5-moe-42b-a6.6b"
 
 
-def _moe_batches():
-    """Two batches of 8 x 16: 128 tokens, two groups of 64 at the reduced
-    config, so each of two data shards holds one whole group."""
-    data = SyntheticLM(DataConfig(reduced_config(MOE).vocab_size, 16, 8))
+def _moe_batches(seq):
+    """Two batches of 8 x ``seq``: at 16, 128 tokens, two groups of 64 at the
+    reduced config, so each of two data shards holds one whole group; at 8,
+    one group of 64 that the two shards split."""
+    data = SyntheticLM(DataConfig(reduced_config(MOE).vocab_size, seq, 8))
     return [data.batch_at(t) for t in range(2)]
 
 
-def _moe_task():
-    return {"kind": "losses", "arch": MOE, "mesh": (2, 1), "optimizer": "production4bit",
-            "lr": LR, "sr_seed": SEED, "batches": _moe_batches()}
+def _moe_task(mesh, seq):
+    return {"kind": "losses", "arch": MOE, "mesh": mesh, "optimizer": "production4bit",
+            "lr": LR, "sr_seed": SEED, "batches": _moe_batches(seq)}
 
 
 @pytest.fixture(scope="module")
@@ -194,27 +204,33 @@ def results(worlds, reference, one_process):
 
 
 def test_moe_groups_of_the_global_batch(results):
-    """phi3.5-moe (reduced) on (2, 1): each data shard holds whole groups of
-    the global batch, so the losses (aux included) are the one-process
-    run's; a shard that would split a group is refused."""
-    from repro_torch.models.moe import moe_apply
-    from repro_torch.sharding.context import batch_shards
-
+    """phi3.5-moe (reduced): on (2, 1) each data shard holds whole groups of
+    the global batch, on (2, 2) the two data shards split one group while
+    each model rank runs two of the four experts; the losses (aux
+    included) are the one-process run's on the same batches."""
     cfg = reduced_config(MOE)
-    model = init_model(cfg, seed=0, device="cpu")
-    opt = make_optimizer("production4bit", LR)
-    fn = build_train_step(model, opt)
-    st = make_train_state(model, opt, key=sr.PRNGKey(SEED))
-    want = []
-    for b in _moe_batches():
-        st, m = fn(st, {k: torch.from_numpy(v) for k, v in b.items()})
-        want.append((float(m["loss"]), float(m["aux_loss"])))
+
+    def one_process(seq):
+        model = init_model(cfg, seed=0, device="cpu")
+        opt = make_optimizer("production4bit", LR)
+        return worker._run_steps(build_train_step(model, opt),
+                                 make_train_state(model, opt, key=sr.PRNGKey(SEED)),
+                                 _moe_batches(seq))
+
+    want = one_process(16)
     for r in results["moe"]:
         np.testing.assert_allclose(r, want, rtol=1e-5)
-    p = {k.split("/")[-1]: v[0] for k, v in named_params(model).items() if "/moe/" in k}
-    x = torch.randn(2, 16, cfg.d_model)  # 32 tokens: half a group of the global 64
-    with batch_shards(2), pytest.raises(ValueError, match="whole groups of 64"):
-        moe_apply(p, x, top_k=cfg.top_k, group_size=cfg.moe_group_size)
+    want = one_process(8)
+    with worker._compute_dtype(torch.float32):
+        want32 = one_process(8)
+    got = results["moe_split"][0]
+    print(f"(2, 2), a group split over the data shards: mesh {got}, one process {want}, fp32 "
+          f"compute {want32}")
+    for r in results["moe_split"]:
+        assert r == got
+    np.testing.assert_allclose(got["bf16"][0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got["bf16"][1], want[1], rtol=1e-4)
+    np.testing.assert_allclose(got["fp32"], want32, rtol=1e-5)
 
 
 def _torch_leaves(state):

@@ -63,7 +63,7 @@ from repro_torch.models import (  # noqa: E402
     prefill_with_cache,
 )
 from repro_torch.models.layers import COMPUTE_DTYPE  # noqa: E402
-from repro_torch.models.moe import moe_apply, moe_capacity, moe_route  # noqa: E402
+from repro_torch.models.moe import moe_apply, moe_capacity, moe_choose, moe_slots  # noqa: E402
 from torch_ref import ref_params  # noqa: E402
 
 torch.set_num_threads(1)
@@ -141,7 +141,8 @@ def test_moe_apply_matches_reference(case):
     tp = {n: torch.from_numpy(v.copy()).requires_grad_(True) for n, v in p.items()}
     tx = torch.from_numpy(x).to(COMPUTE_DTYPE).requires_grad_(True)
     xg = tx.detach().reshape(-1, T, D)
-    _, _, tidx, tslot = moe_route(tp["router"], xg, k, C)
+    _, _, tidx = moe_choose(tp["router"], xg, k)
+    tslot = moe_slots(tidx, tp["router"].shape[-1], C)
     t_logits = torch.einsum("gtd,de->gte", xg, tp["router"].detach().to(COMPUTE_DTYPE))
     tout, taux = moe_apply(tp, tx, top_k=k, group_size=gs)
     (torch.sum(tout.float() * torch.from_numpy(w)) + taux).backward()
@@ -287,10 +288,10 @@ def _follow_reference_routes(monkeypatch, j_rec):
     import repro_torch.models.moe as t_moe
 
     parted = []
-    real = t_moe.moe_route
+    real = t_moe.moe_choose
 
-    def spy(router, xg, top_k, capacity):
-        probs, top_vals, top_idx, slot = real(router, xg, top_k, capacity)
+    def spy(router, xg, top_k):
+        probs, top_vals, top_idx = real(router, xg, top_k)
         j_logits, j_idx = j_rec[len(parted)]
         t_logits = torch.einsum("gtd,de->gte", xg.detach(), router.detach().to(COMPUTE_DTYPE))
         differs = _assert_near_ties(j_logits, j_idx, t_logits.float().numpy(), top_idx.numpy())
@@ -299,10 +300,9 @@ def _follow_reference_routes(monkeypatch, j_rec):
             top_idx = torch.from_numpy(np.asarray(j_idx, np.int64))
             top_vals = torch.gather(probs, -1, top_idx)
             top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
-            slot = t_moe.moe_slots(top_idx, probs.shape[-1], capacity)
-        return probs, top_vals, top_idx, slot
+        return probs, top_vals, top_idx
 
-    monkeypatch.setattr(t_moe, "moe_route", spy)
+    monkeypatch.setattr(t_moe, "moe_choose", spy)
     return parted
 
 

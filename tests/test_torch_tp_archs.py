@@ -8,8 +8,9 @@ internlm2-1.8b):
 * reduced chatglm3-6b on (1, 4): 2 kv heads on 4 ranks, so ``wk``/``wv``
   are gathered whole and each rank slices the kv head its q head reads;
   2-D RoPE;
-* reduced phi3.5-moe on (1, 2): attention split, experts and router
-  gathered (8 x 16 tokens: two groups of 64).
+* reduced phi3.5-moe on (1, 2): attention split, the experts
+  expert-parallel (two of the four a rank), the router gathered (8 x 16
+  tokens: two groups of 64).
 
 Each: 2 steps of production4bit with SR from the reference's params
 (``torch_mesh_worker``'s ``tp_step``; a world of 2 for gemma2 and phi3.5,
@@ -127,8 +128,9 @@ def test_split_and_gathered_leaves(arch, results):
     assert "embed" in split and ("head" in split) == (arch != GEMMA)  # gemma2's head is embed.T
     assert {"attn/wq", "attn/wo"} <= names
     assert ("attn/wk" in names) == (arch != CHATGLM)  # chatglm3: 2 kv heads on 4
-    if arch == PHI:
-        assert not any("/moe/" in k for k in split) and "mlp/w1" not in names
+    if arch == PHI:  # the experts cut on their dim, the router whole
+        assert {k.rsplit("/", 1)[-1]: d for k, d in split.items() if "/moe/" in k} == {
+            "w1": 1, "w2": 1, "w3": 1} and "mlp/w1" not in names
     else:
         assert {"mlp/w1", "mlp/w2", "mlp/w3"} <= names
 

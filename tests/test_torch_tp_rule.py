@@ -8,9 +8,11 @@ gathered whole, every cut taken from the reference's ``spec_for``
 (``repro/sharding/rules.py``, given the mesh's axis sizes): an attention
 splits its heads where ``wq`` and ``wo`` are cut on ``heads`` (and ``wk``/
 ``wv`` where they are cut on ``kv_heads``), an MLP its columns where
-``w1``/``w3``/``w2`` are cut on ``mlp``, ``embed`` and ``head`` their
-vocabulary where cut on ``vocab``; everything else (norms, MoE experts and
-router, the recurrent blocks' own leaves) is gathered. Named cases:
+``w1``/``w3``/``w2`` are cut on ``mlp``, an MoE layer its experts where
+its ``w1``/``w3``/``w2`` are cut on ``experts`` and else each expert's
+columns where they are cut on ``mlp``, ``embed`` and ``head`` their
+vocabulary where cut on ``vocab``; everything else (norms, MoE routers,
+the recurrent blocks' own leaves) is gathered. Named cases:
 chatglm3-6b's 2 kv heads on 4 ranks and internlm2-1.8b's 8 on 16 (kv
 weights gathered, cut on ``embed`` by the reference), hymba-1.5b's 25 heads
 (its attention gathered, its MLP split), whisper-large-v3's 20 heads on 16.
@@ -74,6 +76,10 @@ def _expected(shapes, axes, mesh):
             names = [n for n in ("w1", "w3", "w2") if f"{parent}/{n}" in shapes]
             if all(on(f"{parent}/{n}", "mlp") for n in names):
                 want[k] = cut[k]
+        elif sub == "moe" and leaf != "router":
+            if any(all(on(f"{parent}/{n}", axis) for n in ("w1", "w3", "w2"))
+                   for axis in ("experts", "mlp")):
+                want[k] = cut[k]
         elif k in ("embed", "head") and on(k, "vocab"):
             want[k] = cut[k]
     return want
@@ -95,8 +101,9 @@ def test_placement_follows_the_references_cuts(arch):
         # a split leaf is cut on its model dim by the reference, its shard whole
         for k in split:
             assert shapes[k][got[k]] % mesh[1] == 0
-        # never split: norms, MoE, the recurrent blocks' own leaves
-        assert not any("/moe/" in k or "norm" in k.rsplit("/", 1)[-1] for k in split), split
+        # never split: norms, MoE routers, the recurrent blocks' own leaves
+        assert not any(k.endswith("/moe/router") or "norm" in k.rsplit("/", 1)[-1]
+                       for k in split), split
         print(f"{arch} {mesh}: {len(split)} leaves split, {len(got) - len(split)} gathered")
 
 

@@ -5,7 +5,7 @@ through a ``FileStore`` in ``tmp`` (never a fixed port), runs every task
 in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
 ``kind`` (``allreduce``, ``reduce``, ``step``, ``optim``, ``optim_one``, ``losses``,
-``tp_step``, ``tp_blocks``,
+``tp_step``, ``tp_blocks``, ``moe_blocks``,
 ``collectives``, and the checkpoint kinds ``save``, ``restore``, ``resume``, ``mesh_ckpt``,
 ``protocol``) and its inputs; a task
 with ``after`` waits until that file exists (the caller writes its inputs
@@ -147,6 +147,15 @@ def _compute_dtype(dtype):
             m.COMPUTE_DTYPE = d
 
 
+def _run_steps(fn, state, batches):
+    """(loss, aux) of each step over ``batches``."""
+    out = []
+    for batch in batches:
+        state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        out.append((float(metrics["loss"]), float(metrics["aux_loss"])))
+    return out
+
+
 def _run_losses(fn, state, batches):
     losses = []
     for batch in batches:
@@ -282,8 +291,10 @@ def _optim_one(task, rank):
 
 
 def _losses(task, rank):
-    """End-to-end losses of the mesh step from ``init_model(seed=0)`` (the
-    reduced config with the task's ``overrides``, if any)."""
+    """End-to-end (loss, aux) of the mesh step from ``init_model(seed=0)``
+    (the reduced config with the task's ``overrides``, if any); with
+    ``fp32``, ``{"bf16": ..., "fp32": ...}``, the same steps in fp32 compute
+    beside."""
     import dataclasses
 
     from repro_torch.configs import reduced_config
@@ -297,6 +308,9 @@ def _losses(task, rank):
         shard_train_state,
     )
 
+    if task.get("compute") == "fp32":
+        with _compute_dtype(torch.float32):
+            return _losses(dict(task, compute=None), rank)
     cfg = dataclasses.replace(reduced_config(task["arch"]), **task.get("overrides", {}))
     mesh = make_mesh(task["mesh"], ("data", "model"))
     axes = param_axes(cfg)
@@ -304,11 +318,9 @@ def _losses(task, rank):
     opt = make_optimizer(task["optimizer"], task["lr"])
     state = shard_train_state(make_train_state(model, opt, key=sr.PRNGKey(task["sr_seed"])),
                               mesh, axes)
-    fn = build_train_step(model, opt, mesh, axes)
-    out = []
-    for batch in task["batches"]:
-        state, metrics = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
-        out.append((float(metrics["loss"]), float(metrics["aux_loss"])))
+    out = _run_steps(build_train_step(model, opt, mesh, axes), state, task["batches"])
+    if task.get("fp32"):  # and the same steps in fp32 compute
+        return {"bf16": out, "fp32": _losses(dict(task, fp32=False, compute="fp32"), rank)}
     return out
 
 
@@ -483,6 +495,52 @@ def _tp_blocks(task, rank):
                         "grads": {k: v.grad for k, v in p.items()}})
     finally:
         L.recomputed = recomputed
+    return out
+
+
+def _moe_blocks(task, rank):
+    """Each case's MoE layer (``models.moe.moe_apply``) on this rank's part,
+    a world of ``N`` ranks: ``shards`` (the batch's rows cut into ``N``
+    data shards in rank order, the routing's counts exchanged over the
+    world), or one model group whose ranks hold their experts (``cut:
+    "experts"``) or each expert's columns (``"mlp"``); in the case's compute
+    type. The rank's loss is ``N`` times its output against its rows of the
+    cotangent, plus its aux (so the ranks' mean is the one-process loss
+    where the batch is cut, as the mesh step averages the data shards).
+    Returns per case the output, the aux, the input's gradient and each
+    leaf's gradient (of the rank's part)."""
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.sharding import tensor_parallel as T
+    from repro_torch.sharding.context import batch_shards
+
+    world = dist.get_world_size()
+    out = []
+    for case in task["cases"]:
+        dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
+        cut = {"experts": {"w1": 0, "w3": 0, "w2": 0},
+               "mlp": {"w1": 2, "w3": 2, "w2": 1}}.get(case.get("cut"), {})
+        p = {}
+        for k, v in case["params"].items():
+            v = torch.from_numpy(v)
+            if k in cut:
+                n = v.shape[cut[k]] // world
+                v = v.narrow(cut[k], rank * n, n)
+            p[k] = v.clone().requires_grad_()
+        x, cot = torch.from_numpy(case["x"]), torch.from_numpy(case["cot"])
+        if case.get("shards"):
+            rows = x.shape[0] // world
+            x, cot = x[rank * rows:(rank + 1) * rows], cot[rank * rows:(rank + 1) * rows]
+        with _compute_dtype(dtype):
+            x = x.to(dtype).requires_grad_()
+            split = (batch_shards(world, rank, None) if case.get("shards")
+                     else T.use(T.TPRun(None, rank, world) if cut else None))
+            with split:
+                y, aux = moe_apply(p, x, top_k=case["top_k"], group_size=case["group_size"],
+                                   width=case["params"]["w1"].shape[-1])
+                scale = world if case.get("shards") else 1
+                (scale * (y.float() * cot).sum() + aux).backward()
+        out.append({"y": y.detach(), "aux": aux.detach(), "x_grad": x.grad,
+                    "grads": {k: v.grad for k, v in p.items()}})
     return out
 
 
@@ -761,6 +819,7 @@ def _protocol(task, rank):
 
 TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "optim": _optim,
          "optim_one": _optim_one, "losses": _losses, "tp_step": _tp_step, "tp_blocks": _tp_blocks,
+         "moe_blocks": _moe_blocks,
          "collectives": _collectives, "slots": _slots,
          "save": _save, "restore": _restore, "resume": _resume, "mesh_ckpt": _mesh_ckpt,
          "protocol": _protocol}
