@@ -306,17 +306,20 @@ Phases, each failing the run on error:
     35's collective bytes, reckoned from the plan with no world
     (``MeshStep.reckon``), equal to the bytes each of its steps recorded,
     and likewise phase 40's (1, 2) cell.
-39. the rules that need whole-leaf statistics on the mesh, through the train
-    CLI: ``--mesh 2x1`` (two processes on ``cuda:0`` over gloo, as in phase
-    35), internlm2-1.8b at full width on phase 11's depth (1 of the 24
-    layers), phase 11's learning rates and steps, batch 8 x seq 128, for
-    sm3, adafactor, factor4bit and shampoo4bit: each rank's state bytes
+39. the rules that need whole-leaf statistics on the mesh, in phase 35's
+    two processes after phase 40 (through ``build_train_step(mesh=)`` as the
+    train CLI's ``--mesh 2x1`` runs it: its learning-rate schedule, data and
+    seeds; slice 14 ran it through the CLI, seven two-rank starts and stops
+    with phase 37): internlm2-1.8b at full width on phase 11's depth (1 of
+    the 24 layers), phase 11's learning rates and steps, batch 8 x seq 128,
+    for sm3, adafactor, factor4bit and shampoo4bit: each rank's state bytes
     equal to its plan's (``MESH_OPTIM_RANK_BYTES``, predicted from the plan
-    on ``meta``), all three losses within 1e-4 relative of phase 11's (the
-    third after the second update, Shampoo's on its stale roots), no
-    launch on either rank (none of these rules has a kernel route); prints
-    each step's split into compute, collective and update, and each rank's
-    eigh matrices and seconds on Shampoo's recompute step.
+    on ``meta``), all three losses equal on both ranks and within 1e-4
+    relative of phase 11's (the third after the second update, Shampoo's on
+    its stale roots), no launch on either rank (none of these rules has a
+    kernel route); prints each step's split into compute, collective and
+    update, and each rank's eigh matrices and seconds on Shampoo's
+    recompute step.
 40. the mesh step computing tensor-parallel on the model axis, in phase
     35's two processes after phase 36: internlm2-1.8b at full width and
     depth on a (data=1, model=2) mesh, production4bit with SR, 2 steps of
@@ -368,25 +371,44 @@ Phases, each failing the run on error:
     rank's gathered layer and peak, and the launches.
     ``python3 chip_smoke.py --moe-mesh-phase`` runs the build and this phase
     alone.
+43. the recurrent blocks on the mesh as the reference's rules cut them
+    (slice 18), in phase 35's two processes after phase 42, (data=1,
+    model=2), production4bit with SR, 2 steps of batch 8 x seq 128:
+    xlstm-125m whole (its mLSTM and sLSTM on 2 of the 4 heads a rank) and
+    hymba-1.5b at full width and 4 of its 32 layers (its SSM on 8 of the 16
+    states a rank, ``ssm_dt`` row-parallel; its attention whole: 25 heads);
+    the oracle is the same run in one process on the card, made before the
+    ranks start and freed. The logged losses equal on both ranks and within
+    1e-4 relative of the oracle's, each rank's state bytes equal to its
+    plan's, the collective bytes each step recorded equal to
+    ``MeshStep.reckon``'s (on ``meta``) and to the prediction
+    (``RECURRENT_MESH_RECKONED``), each B1 pass launched as often as in the
+    oracle (on the rank's tiles) and no B2/B3, the largest layer a rank
+    gathers equal to the prediction (``RECURRENT_MESH_GATHERED``). Prints
+    each step's split into compute, collective and update, each rank's
+    peak, and the gathered layer and collective bytes before the split.
+    ``python3 chip_smoke.py --recurrent-mesh-phase`` runs the build and this
+    phase alone.
 
 Every training phase runs with the configs' ``remat=True`` (the reference's
 default): each layer is recomputed in the backward, and on the mesh (phases
-35, 37, 39, 40, 42) gathered again for it.
+35, 37, 39, 40, 42, 43) gathered again for it.
 
 Each phase's seconds are printed as it ends (``phase clock:``) and kept in
 ``chiprun_out/chip_smoke.json``.
 
 The kernel table's launch counts sum the path runs (phases 6, 15, 21, 25,
-30, 35, 37, 40 and 42 (its one-process oracle and both layouts) for B1; 8,
+30, 35, 37, 40, 42 and 43 (their one-process oracles and the layouts) for B1; 8,
 17, 23, 27 and 32 for B2/B3), each counted from 0
 just before it (a spawned rank's counts start at 0 with its process); phase
 39's runs count none.
 
 Prints the kernel table as a JSON line, then the device line as the last
 line. ``python3 chip_smoke.py --mesh-phases`` builds the kernels and runs
-phases 10, 34-37, 40 and 42 alone (no result lines); ``--mesh-optim-phases``
-runs phases 11 and 39 alone; ``--recompute-phases`` runs phases 41 and 6
-alone; ``--moe-mesh-phase`` runs phase 42 alone. Needs a CUDA card and the
+phases 10, 34-37, 40, 42 and 43 alone (no result lines);
+``--mesh-optim-phases`` runs phases 11 and 39 alone; ``--recompute-phases``
+runs phases 41 and 6 alone; ``--moe-mesh-phase`` runs phase 42 alone,
+``--recurrent-mesh-phase`` phase 43. Needs a CUDA card and the
 repository beside it; without either it exits non-zero and prints no
 result.
 """
@@ -681,6 +703,25 @@ MOE_MESH_DLOGIT = {(2, 1): 0.16, (1, 2): 0.32}
 MOE_MESH_PARTED = {(2, 1): 0.02, (1, 2): 0.04}
 MOE_TILE_LEAVES = (("moe/w1", (MOE_MESH_LAYERS, 16, 4096, 6400),
                     ("layers", "experts", "embed", "mlp")),)
+# phase 43 (slice 18): the recurrent blocks on the mesh as the rules cut
+# them, in phase 35's two processes after phase 42: (arch, layers kept or
+# None for whole), each on (1, 2): xlstm-125m's mLSTM and sLSTM on 2 of the 4
+# heads a rank, hymba-1.5b's SSM on 8 of its 16 states a rank (ssm_dt on its
+# rows); the one-process run of the same steps and batches as the oracle
+RECURRENT_MESH = (("xlstm-125m", None), ("hymba-1.5b", 4))
+RECURRENT_MESH_LAYOUT, RECURRENT_MESH_STEPS = (1, 2), 2
+RECURRENT_MESH_BATCH, RECURRENT_MESH_SEQ = 8, 128
+RECURRENT_MESH_RTOL = 1e-4
+# the largest layer a rank gathers (fp32) and one step's collective bytes a
+# rank (MeshStep.reckon on meta, PERF.md section 6), and both before the
+# recurrent leaves split (every one gathered whole over the model axis)
+RECURRENT_MESH_GATHERED = {"xlstm-125m": 11_802_624, "hymba-1.5b": 95_440_300}
+RECURRENT_MESH_RECKONED = {"xlstm-125m": 610_551_232, "hymba-1.5b": 1_644_331_152}
+RECURRENT_MESH_BEFORE = {"xlstm-125m": (18_880_512, 647_563_264),
+                         "hymba-1.5b": (113_440_300, 1_562_871_952)}
+# the parts of the mesh phases that run in phase 35's two processes, in
+# order: phases 35, 36, 40, 39, 42 and 43
+MESH_PARTS = ("train", "all_reduce", "tp", "optim", "moe", "recurrent")
 # phases 10 and 37 (slices 5 and 12): the checkpoint runs, all with the same
 # --steps (the CLI's schedule spans them) and the step saved, at 2 of the 24
 # layers: an even depth, so the stacked leaves' layer dim splits over data=2
@@ -3388,14 +3429,10 @@ def _mesh_moe(rank, dev, counters, run_dir):
     slots); each layout's collective bytes reckoned on ``meta``."""
     import torch
 
-    from repro_torch.comms import CommsConfig
     from repro_torch.core.optimizers import state_nbytes
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_model, named_params, param_axes
-    from repro_torch.roofline.measured import Counter
-    from repro_torch.sharding.context import MeshRun
-    from repro_torch.sharding.specs import local_slice, map_plan, plan_nbytes
-    from repro_torch.train.mesh import MeshStep
+    from repro_torch.sharding.specs import plan_nbytes
     from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
 
     cfg, opt, key, data = _moe_mesh_setup(dev)
@@ -3411,17 +3448,12 @@ def _mesh_moe(rank, dev, counters, run_dir):
         state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
         fn = build_train_step(model, opt, mesh, axes)
         ms = fn.mesh_step
-        layer = "decoder/0/sub0/"
         res = {"split": sorted(k for k, d in ms.split.items() if d is not None),
                "state_bytes": state_nbytes(state.opt_state),
                "plan_bytes": plan_nbytes(opt.init(meta), ms.state_plan, ms.run.coord,
                                          ms.run.sizes),
                "param_bytes": sum(p.numel() * 4 for p in state.params.values()),
-               # one layer as the rank gathers it: its model shard of a split
-               # leaf, any other leaf whole (fp32)
-               "gathered_layer_bytes": sum(
-                   math.prod(ms.shapes[k][1:]) * 4 // (ms.run.n_tp if ms.split[k] else 1)
-                   for k in ms.shapes if k.startswith(layer))}
+               "gathered_layer_bytes": _gathered_layer(ms)}
         index = ms.run.data_ranks.index(ms.run.rank)
         routes = _Routes(calls, index, layout[0], f"data rank {index} at {layout}")
         torch.cuda.synchronize()
@@ -3444,27 +3476,206 @@ def _mesh_moe(rank, dev, counters, run_dir):
                    slots_held=routes.slots_held)
         del model, state, fn, ms, metrics, batch
         torch.cuda.empty_cache()
-        # the same step reckoned with no world on this rank's meta parts
-        with torch.no_grad():
-            meta_state = opt.init(meta)
-        run = MeshRun(dict(zip(("data", "model"), layout)), rank=rank)
-        dry = MeshStep(run, cfg, {k: tuple(p.shape) for k, p in meta.items()}, axes, meta,
-                       meta_state)
-        cut = lambda t, spec: local_slice(t, spec, run.coord, run.sizes).clone()
-        local = {k: cut(p, dry.param_plan[k]) for k, p in meta.items()}
-        parts = map_plan(cut, meta_state, dry.state_plan)
-        shapes = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
-                  for k, v in batches[0].items()}
-        with Counter():
-            res["reckoned"] = dry.reckon(local, parts, opt, key, 1, CommsConfig(),
-                                         batch=shapes)[0]
+        res["reckoned"] = _reckoned(cfg, opt, key, layout, rank, batches[0])
         out[f"{layout[0]}x{layout[1]}"] = res
     return out
 
 
-def _mesh_child(rank, world, run_dir, moe_only=False):
-    """One rank of phases 35, 36, 40 and 42: ``cuda:0`` shared with the other rank, gloo
-    through a FileStore in ``run_dir``; results to ``rank<r>.json``."""
+def _gathered_layer(ms):
+    """The largest layer a rank of the mesh step ``ms`` gathers (fp32): its
+    model shard of a split leaf, any other leaf whole."""
+    stacks = {}
+    for k, shape in ms.shapes.items():
+        if k.startswith(("decoder/", "encoder/")):
+            stack = "/".join(k.split("/")[:3])
+            stacks[stack] = stacks.get(stack, 0) + math.prod(shape[1:]) * 4 // (
+                ms.run.n_tp if ms.split[k] is not None else 1)
+    return max(stacks.values())
+
+
+def _reckoned(cfg, opt, key, layout, rank, batch):
+    """The collective bytes of one step of rank ``rank`` on ``layout``,
+    reckoned with no world on its ``meta`` parts (``MeshStep.reckon``;
+    ``batch``: one global batch of numpy arrays, for its shapes)."""
+    import torch
+
+    from repro_torch.comms import CommsConfig
+    from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.roofline.measured import Counter
+    from repro_torch.sharding.context import MeshRun
+    from repro_torch.sharding.specs import local_slice, map_plan
+    from repro_torch.train.mesh import MeshStep
+
+    meta = named_params(init_model(cfg, device="meta"))
+    with torch.no_grad():
+        meta_state = opt.init(meta)
+    run = MeshRun(dict(zip(("data", "model"), layout)), rank=rank)
+    dry = MeshStep(run, cfg, {k: tuple(p.shape) for k, p in meta.items()}, param_axes(cfg), meta,
+                   meta_state)
+    cut = lambda t, spec: local_slice(t, spec, run.coord, run.sizes).clone()
+    local = {k: cut(p, dry.param_plan[k]) for k, p in meta.items()}
+    parts = map_plan(cut, meta_state, dry.state_plan)
+    shapes = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype, device="meta")
+              for k, v in batch.items()}
+    with Counter():
+        return dry.reckon(local, parts, opt, key, 1, CommsConfig(), batch=shapes)[0]
+
+
+def _mesh_optim(rank, dev, counters):
+    """Phase 39 in one rank: each of ``NEW_OPTIMIZERS`` on the (data=2,
+    model=1) mesh through ``build_train_step``, as the train CLI's ``--mesh
+    2x1`` runs it at phase 11's depth, learning rates and steps; counts from
+    0 just before each run's steps and read just after."""
+    import torch
+
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.core.optimizers import (
+        linear_warmup_linear_decay,
+        make_optimizer,
+        state_nbytes,
+    )
+    from repro_torch.core.optimizers.transform import EIGH
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, param_axes
+    from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+
+    cfg = cut_depth(get_config("internlm2-1.8b"), SHAMPOO_LAYERS)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    axes = param_axes(cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 128, 8))
+    out = {}
+    for name, lr in NEW_OPTIMIZERS:
+        t_run = time.perf_counter()
+        # the CLI's schedule: warmup over a tenth of the steps, decay over all
+        opt = make_optimizer(name, linear_warmup_linear_decay(lr, max(1, NEW_STEPS // 10),
+                                                              NEW_STEPS))
+        model = init_model(cfg, seed=0, device=dev)
+        state = shard_train_state(make_train_state(model, opt), mesh, axes)
+        fn = build_train_step(model, opt, mesh, axes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset(counters)
+        steps, eigh = [], []
+        for t in range(NEW_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(t).items()}
+            e0 = dict(EIGH)
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"step": t, "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                          **fn.times})
+            eigh.append({k: EIGH[k] - e0[k] for k in EIGH})
+        out[name] = {"steps": steps, "eigh": eigh, "launches": _read(counters),
+                     "state_bytes": state_nbytes(state.opt_state),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del model, state, fn, metrics, batch
+        torch.cuda.empty_cache()
+        out[name]["seconds"] = time.perf_counter() - t_run
+    return out
+
+
+def _recurrent_mesh_setup(arch, layers):
+    """(config, optimizer, SR key, a batch source) of phase 43's runs of
+    ``arch`` (at its first ``layers`` layers, or whole)."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sr
+
+    cfg = get_config(arch) if layers is None else cut_depth(get_config(arch), layers)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, RECURRENT_MESH_SEQ, RECURRENT_MESH_BATCH))
+    return cfg, make_optimizer("production4bit", 1e-3), sr.PRNGKey(0), data
+
+
+def _recurrent_mesh_oracle(dev, counters):
+    """Phase 43's oracle in this process, before any rank holds the card:
+    each arch's same steps on the same batches in one process."""
+    import torch
+
+    from repro_torch.models import init_model
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    out = {}
+    for arch, layers in RECURRENT_MESH:
+        cfg, opt, key, data = _recurrent_mesh_setup(arch, layers)
+        model = init_model(cfg, seed=0, device=dev)
+        state = make_train_state(model, opt, key=key)
+        fn = build_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset(counters)
+        steps = []
+        for t in range(RECURRENT_MESH_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(t).items()}
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            steps.append({"loss": float(m["loss"]), "ms": (time.perf_counter() - t0) * 1e3})
+        out[arch] = {"steps": steps, "launches": _read(counters),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del model, state, fn, m, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_recurrent(rank, dev, counters):
+    """Phase 43 in one rank: each arch of ``RECURRENT_MESH`` on the
+    ``RECURRENT_MESH_LAYOUT`` mesh, its recurrent blocks on the rank's heads,
+    states or rows; its steps counted from 0 just before and read just
+    after; its collective bytes reckoned on ``meta``."""
+    import torch
+
+    from repro_torch.core.optimizers import state_nbytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.sharding.specs import plan_nbytes
+    from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
+
+    out = {}
+    for arch, layers in RECURRENT_MESH:
+        cfg, opt, key, data = _recurrent_mesh_setup(arch, layers)
+        axes = param_axes(cfg)
+        mesh = make_mesh(RECURRENT_MESH_LAYOUT, ("data", "model"))
+        model = init_model(cfg, seed=0, device=dev)
+        state = shard_train_state(make_train_state(model, opt, key=key), mesh, axes)
+        fn = build_train_step(model, opt, mesh, axes)
+        ms = fn.mesh_step
+        meta = named_params(init_model(cfg, device="meta"))
+        res = {"split": sum(d is not None for d in ms.split.values()),
+               "gathered": sum(d is None for d in ms.split.values()),
+               "state_bytes": state_nbytes(state.opt_state),
+               "plan_bytes": plan_nbytes(opt.init(meta), ms.state_plan, ms.run.coord,
+                                         ms.run.sizes),
+               "param_bytes": sum(p.numel() * 4 for p in state.params.values()),
+               "gathered_layer_bytes": _gathered_layer(ms)}
+        batches = [data.batch_at(t) for t in range(RECURRENT_MESH_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset(counters)
+        steps = []
+        for t, b in enumerate(batches):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"step": t, "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                          **fn.times})
+        res.update(launches=_read(counters), steps=steps,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   state_bytes_after=state_nbytes(state.opt_state))
+        del model, state, fn, ms, metrics, batch
+        torch.cuda.empty_cache()
+        res["reckoned"] = _reckoned(cfg, opt, key, RECURRENT_MESH_LAYOUT, rank, batches[0])
+        out[arch] = res
+    return out
+
+
+def _mesh_child(rank, world, run_dir, parts):
+    """One rank of the mesh phases (``parts`` of ``MESH_PARTS``, in order):
+    ``cuda:0`` shared with the other rank, gloo through a FileStore in
+    ``run_dir``; results to ``rank<r>.json``."""
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     import torch.distributed as dist
@@ -3481,27 +3692,32 @@ def _mesh_child(rank, world, run_dir, moe_only=False):
 
         open_host_slots()
         counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
-        res = {}
-        if not moe_only:
-            res = {"train": _mesh_train(rank, dev, counters),
-                   "all_reduce": _mesh_all_reduce(rank, dev)}
+        run = {"train": lambda: _mesh_train(rank, dev, counters),
+               "all_reduce": lambda: _mesh_all_reduce(rank, dev),
+               "tp": lambda: _mesh_tp_train(rank, dev, counters),
+               "optim": lambda: _mesh_optim(rank, dev, counters),
+               "moe": lambda: _mesh_moe(rank, dev, counters, Path(run_dir)),
+               "recurrent": lambda: _mesh_recurrent(rank, dev, counters)}
+        res = {"seconds": {}}
+        for part in parts:
+            t0 = time.perf_counter()
+            res[part] = run[part]()
+            res["seconds"][part] = time.perf_counter() - t0
             torch.cuda.empty_cache()
-            res["tp"] = _mesh_tp_train(rank, dev, counters)
-            torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        res["moe"] = _mesh_moe(rank, dev, counters, Path(run_dir))
-        res["moe_seconds"] = time.perf_counter() - t0
         with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_mesh(moe_only=False):
-    """Phases 35, 36, 40 and 42 (``moe_only``: 42 alone): two processes on
-    ``cuda:0`` over gloo (NCCL refuses two ranks on one device; gloo moves
-    CUDA tensors through host memory). Phase 42's one-process oracle and
-    its B1 tiles run here first, while no rank holds the card."""
+def phase_mesh(parts=MESH_PARTS, new_optimizers=None):
+    """The mesh phases that share phase 35's two processes on ``cuda:0``
+    over gloo (NCCL refuses two ranks on one device; gloo moves CUDA tensors
+    through host memory): 35 (``train``), 36 (``all_reduce``), 40
+    (``tp``), 39 (``optim``: held to phase 11's ``new_optimizers``), 42
+    (``moe``) and 43 (``recurrent``), those of ``parts``. The one-process
+    oracles of phases 42 and 43 and phase 42's B1 tiles run here first,
+    while no rank holds the card."""
     import torch
     import torch.multiprocessing as mp
 
@@ -3511,25 +3727,46 @@ def phase_mesh(moe_only=False):
     shutil.rmtree(run_dir, ignore_errors=True)
     run_dir.mkdir(parents=True)
     dev = torch.device("cuda", 0)
-    t42 = time.perf_counter()
-    oracle = _moe_mesh_oracle(dev, (adamw4bit.LAUNCHES, quant4.LAUNCHES), run_dir)
-    moe_tiles = phase_b1_tiles(dev, MOE_TILE_LEAVES, ((1, 2),))
-    t42 = time.perf_counter() - t42
+    counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
+    if "moe" in parts:
+        t42 = time.perf_counter()
+        oracle = _moe_mesh_oracle(dev, counters, run_dir)
+        moe_tiles = phase_b1_tiles(dev, MOE_TILE_LEAVES, ((1, 2),))
+        t42 = time.perf_counter() - t42
+    if "recurrent" in parts:
+        t43 = time.perf_counter()
+        rec_oracle = _recurrent_mesh_oracle(dev, counters)
+        t43 = time.perf_counter() - t43
     torch.cuda.empty_cache()
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     print(f"mesh data={MESH_SHAPE[0]} model={MESH_SHAPE[1]}: {world} processes on cuda:0, "
           "backend gloo (collectives copy CUDA tensors through host memory)")
     t0 = time.perf_counter()
     try:
-        mp.spawn(_mesh_child, args=(world, str(run_dir), moe_only), nprocs=world, join=True)
+        mp.spawn(_mesh_child, args=(world, str(run_dir), tuple(parts)), nprocs=world, join=True)
     except Exception as e:  # a rank's failure, with its traceback
         fail(f"mesh phases: {e}")
     wall = time.perf_counter() - t0
     ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(world)]
-    moe = _check_mesh_moe(ranks, oracle, moe_tiles, t42)
-    if moe_only:
-        return {"moe": moe, "seconds": wall}
-    # phase 35
+    seconds = {part: max(r["seconds"][part] for r in ranks) for part in parts}
+    out = {"seconds": wall, "part_seconds": seconds}
+    if "moe" in parts:
+        out["moe"] = _check_mesh_moe(ranks, oracle, moe_tiles, t42)
+    if "train" in parts:
+        out.update(_check_mesh_train(ranks))
+    if "tp" in parts:
+        out["tp"] = _check_mesh_tp(ranks)
+    if "optim" in parts:
+        out["optim"] = _check_mesh_optim(ranks, new_optimizers)
+    if "recurrent" in parts:
+        out["recurrent"] = _check_mesh_recurrent(ranks, rec_oracle, t43)
+    print(f"mesh phases ({', '.join(parts)}): {wall:.1f} s with both processes' start; in the "
+          "ranks: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return out
+
+
+def _check_mesh_train(ranks):
+    """Phases 35 and 36's checks and prints."""
     launches = {}
     for r, res in enumerate(ranks):
         tr = res["train"]
@@ -3559,9 +3796,9 @@ def phase_mesh(moe_only=False):
     print(f"mesh update fed one gradient tree: {ranks[0]['train']['update_leaves_equal']} "
           "params and state tensors bit-equal to the one-process update on the card")
     for name in ("fused_adamw4", "rank1_new_stats"):
-        if launches[name] != 4 * MESH_STEPS * world:
+        if launches[name] != 4 * MESH_STEPS * len(ranks):
             fail(f"mesh: {name} launched {launches[name]} times, expected "
-                 f"{4 * MESH_STEPS * world} (4 leaves a step on each rank's tiles)")
+                 f"{4 * MESH_STEPS * len(ranks)} (4 leaves a step on each rank's tiles)")
     if launches["quantize_blockwise_4bit"] or launches["dequantize_blockwise_4bit"]:
         fail(f"mesh: the training path launched the q4 kernels: {launches}")
     # phase 36
@@ -3571,7 +3808,14 @@ def phase_mesh(moe_only=False):
     for row in ranks[0]["all_reduce"]:
         print(f"quantized_all_reduce int4+SR {row['leaf']} {tuple(row['shape'])}: both ranks "
               f"bit-equal to the host oracle on the card, {row['ms']:.1f} ms on rank 0")
-    # phase 40
+    return {"launches": launches,
+            "ranks": [{k: r[k] for k in ("train", "all_reduce")} for r in ranks]}
+
+
+def _check_mesh_tp(ranks):
+    """Phase 40's checks and prints."""
+    import torch
+
     tp = [res["tp"] for res in ranks]
     tp_launches = {}
     for r, tr in enumerate(tp):
@@ -3619,13 +3863,122 @@ def phase_mesh(moe_only=False):
     partial = _partial_times(torch.device("cuda", 0))
     print("row-parallel partial products of a (1, 2) rank, median of 21: " + ", ".join(
         f"{k} {v:.4f}" for k, v in partial.items()))
-    print(f"mesh phases (35, 36, 40, 42): {wall:.1f} s with both processes' start")
-    return {"launches": launches, "ranks": [{k: v for k, v in r.items() if k != "moe"}
-                                            for r in ranks],
-            "seconds": wall, "moe": moe,
-            "tp": {"launches": tp_launches, "reckoned": reckoned, "recorded": recorded,
-                   "link": cell["collectives"], "reckoned_before": TP_RECKON_BEFORE,
-                   "partial_ms": partial}}
+    return {"launches": tp_launches, "reckoned": reckoned, "recorded": recorded,
+            "link": cell["collectives"], "reckoned_before": TP_RECKON_BEFORE,
+            "partial_ms": partial}
+
+
+def _check_mesh_optim(ranks, new_optimizers):
+    """Phase 39's checks and prints: each rule's state bytes a rank against
+    its plan, its losses on both ranks against phase 11's, no launch."""
+    runs = {}
+    for name, lr in NEW_OPTIMIZERS:
+        what = f"mesh 2x1 {name} lr {lr:g} ({SHAMPOO_LAYERS} of 24 layers)"
+        plan = _plan_rank_bytes(name, SHAMPOO_LAYERS)
+        if plan != [MESH_OPTIM_RANK_BYTES[name]] * len(plan):
+            fail(f"{what}: the plan gives {plan} B a rank, the prediction "
+                 f"{MESH_OPTIM_RANK_BYTES[name]:,}")
+        rs = [r["optim"][name] for r in ranks]
+        losses = [s["loss"] for s in rs[0]["steps"]]
+        want = new_optimizers[name]["losses"]
+        if len(losses) != NEW_STEPS or len(want) != NEW_STEPS or not all(
+                math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses, want)):
+            fail(f"{what}: losses {losses} not within 1e-4 relative of phase 11's {want}")
+        for r, res in enumerate(rs):
+            if [s["loss"] for s in res["steps"]] != losses:
+                fail(f"{what}: rank {r}'s losses differ from rank 0's")
+            if res["state_bytes"] != plan[r]:
+                fail(f"{what}: rank {r} holds {res['state_bytes']:,} B of state, its plan "
+                     f"{plan[r]:,}")
+            if any(res["launches"].values()):
+                fail(f"{what}: rank {r} launched a kernel no route of it has: {res['launches']}")
+        for s in rs[0]["steps"]:
+            coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
+            print(f"{what} step {s['step']}: loss {s['loss']:.4f} (phase 11: "
+                  f"{want[s['step']]:.4f})  {s['ms']:.1f} ms (compute "
+                  f"{1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, collective "
+                  f"{1e3 * coll:.1f}, update {1e3 * (s['update_s'] - s['collective_update_s']):.1f}"
+                  f" ms; {s['collective_bytes'] / 1e9:.2f} GB through the collectives)")
+        for r, res in enumerate(rs):
+            e0 = res["eigh"][0]
+            print(f"{what} rank {r}: state_bytes {res['state_bytes']:,} (the plan's), "
+                  f"peak {res['peak_bytes']:,} B ({res['peak_bytes'] / 1e9:.2f} GB), "
+                  f"{res['seconds']:.1f} s"
+                  + (f"; recompute step: {e0['blocks']:,} eigh matrices in {e0['s']:.2f} s "
+                     f"({e0['calls']} batched calls)" if e0["blocks"] else ""))
+        runs[name] = {"lr": lr, "losses": losses, "phase11_losses": want,
+                      "steps": rs[0]["steps"],
+                      "ranks": [{k: res[k] for k in ("state_bytes", "peak_bytes", "eigh",
+                                                     "seconds")} for res in rs]}
+    return {"runs": runs, "seconds": max(r["seconds"]["optim"] for r in ranks)}
+
+
+def _check_mesh_recurrent(ranks, oracle, oracle_seconds):
+    """Phase 43's checks and prints: each arch's losses equal on both ranks
+    and within ``RECURRENT_MESH_RTOL`` of the oracle's, state bytes equal
+    to the plan, the recorded collective bytes equal to the reckoning and
+    to the prediction, B1's launches equal to the oracle's, the gathered
+    layer equal to the prediction."""
+    launches, out = {}, {"oracle": oracle, "archs": {}}
+    for arch, layers in RECURRENT_MESH:
+        one = [s["loss"] for s in oracle[arch]["steps"]]
+        rs = [r["recurrent"][arch] for r in ranks]
+        name = f"{arch}{'' if layers is None else f' ({layers} layers)'}"
+        print(f"recurrent mesh oracle (one process, {name}, {RECURRENT_MESH_BATCH} x "
+              f"{RECURRENT_MESH_SEQ}): losses {one}, steps "
+              f"{[round(s['ms'], 1) for s in oracle[arch]['steps']]} ms, peak "
+              f"{oracle[arch]['peak_bytes']:,} B, launches {oracle[arch]['launches']}")
+        for r, res in enumerate(rs):
+            what = f"recurrent mesh {name} {RECURRENT_MESH_LAYOUT} rank {r}"
+            if not res["state_bytes"] == res["state_bytes_after"] == res["plan_bytes"]:
+                fail(f"{what}: state bytes {res['state_bytes']} / {res['state_bytes_after']} != "
+                     f"the plan's {res['plan_bytes']}")
+            recorded = [s["collective_bytes"] for s in res["steps"]]
+            if any(b != res["reckoned"] for b in recorded) or \
+                    res["reckoned"] != RECURRENT_MESH_RECKONED[arch]:
+                fail(f"{what}: the steps moved {recorded} B, MeshStep.reckon {res['reckoned']} B, "
+                     f"the prediction {RECURRENT_MESH_RECKONED[arch]} B")
+            if res["gathered_layer_bytes"] != RECURRENT_MESH_GATHERED[arch]:
+                fail(f"{what}: gathered layer {res['gathered_layer_bytes']:,} B, the prediction "
+                     f"{RECURRENT_MESH_GATHERED[arch]:,}")
+            losses = [s["loss"] for s in res["steps"]]
+            if losses != [s["loss"] for s in rs[0]["steps"]]:
+                fail(f"{what}: losses {losses} differ from rank 0's")
+            for a, b in zip(losses, one):
+                if not (math.isfinite(a) and abs(a - b) <= RECURRENT_MESH_RTOL * abs(b)):
+                    fail(f"{what}: losses {losses} not within {RECURRENT_MESH_RTOL} relative of "
+                         f"the one-process run's {one}")
+            for k in ("fused_adamw4", "rank1_new_stats"):
+                if res["launches"][k] != oracle[arch]["launches"][k]:
+                    fail(f"{what}: {k} launched {res['launches'][k]} times, the one-process "
+                         f"run {oracle[arch]['launches'][k]} (every fused leaf, on the rank's "
+                         "tiles)")
+            if res["launches"]["quantize_blockwise_4bit"] or \
+                    res["launches"]["dequantize_blockwise_4bit"]:
+                fail(f"{what}: the training path launched the q4 kernels")
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for s in res["steps"]:
+                coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
+                print(f"{what} step {s['step']}: loss {s['loss']!r}  {s['ms']:.1f} ms (compute "
+                      f"{1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, collective "
+                      f"{1e3 * coll:.1f}, update "
+                      f"{1e3 * (s['update_s'] - s['collective_update_s']):.1f} ms; "
+                      f"{s['collective_bytes']:,} B through the collectives)")
+            before_layer, before_bytes = RECURRENT_MESH_BEFORE[arch]
+            print(f"{what}: {res['split']} leaves split over model, {res['gathered']} gathered "
+                  f"whole; gathered layer {res['gathered_layer_bytes']:,} B (before the split "
+                  f"{before_layer:,}); collectives {res['reckoned']:,} B a step (before "
+                  f"{before_bytes:,}); state_bytes {res['state_bytes']:,} (the plan's), "
+                  f"param_bytes {res['param_bytes']:,}, peak {res['peak_bytes']:,} B "
+                  f"({res['peak_bytes'] / 1e9:.2f} GB); launches {res['launches']}")
+        out["archs"][arch] = rs
+    out["launches"] = launches
+    out["oracle_launches"] = {k: sum(o["launches"][k] for o in oracle.values())
+                              for k in next(iter(oracle.values()))["launches"]}
+    print(f"recurrent mesh (phase 43): {oracle_seconds:.1f} s for the oracles, "
+          f"{max(r['seconds']['recurrent'] for r in ranks):.1f} s in the ranks")
+    return out
 
 
 def _check_mesh_moe(ranks, oracle, tiles, oracle_seconds):
@@ -3701,7 +4054,7 @@ def _check_mesh_moe(ranks, oracle, tiles, oracle_seconds):
           f"({model / split:.1%}); B1 on the expert tiles of moe/w1 at (1, 2): "
           f"{tiles[0]['tiles_ms']:.4f} ms over the tiles against {tiles[0]['whole_ms']:.4f} ms "
           f"whole; phase 42: {oracle_seconds:.1f} s for the oracle and the tiles, "
-          f"{max(r['moe_seconds'] for r in ranks):.1f} s in the ranks")
+          f"{max(r['seconds']['moe'] for r in ranks):.1f} s in the ranks")
     out["launches"] = launches
     return out
 
@@ -4052,68 +4405,6 @@ def _plan_rank_bytes(name, layers):
     return [plan_nbytes(state, plan, c, mesh) for c in mesh_coords(mesh)]
 
 
-def phase_mesh_optimizers(new_optimizers):
-    """Phase 39: sm3, adafactor, factor4bit and shampoo4bit on ``--mesh
-    2x1`` through the CLI, at phase 11's depth and learning rates."""
-    import torch
-
-    from repro_torch.launch import train
-
-    run_dir = ROOT / "build" / "mesh_optim_smoke"
-    t_phase = time.perf_counter()
-    runs = {}
-    for name, lr in NEW_OPTIMIZERS:
-        shutil.rmtree(run_dir, ignore_errors=True)
-        torch.cuda.empty_cache()
-        args = NEW_ARGS + ["--optimizer", name, "--lr", str(lr), "--layers",
-                           str(SHAMPOO_LAYERS), "--mesh", "2x1", "--run-dir", str(run_dir)]
-        t0 = time.perf_counter()
-        try:
-            out = train.main(args)
-        except (Exception, SystemExit) as e:  # a rank's failure, with its traceback
-            fail(f"mesh {name}: {e!r}")
-        wall = time.perf_counter() - t0
-        what = f"mesh 2x1 {name} lr {lr:g} ({SHAMPOO_LAYERS} of 24 layers)"
-        plan = _plan_rank_bytes(name, SHAMPOO_LAYERS)
-        if plan != [MESH_OPTIM_RANK_BYTES[name]] * len(plan):
-            fail(f"{what}: the plan gives {plan} B a rank, the prediction "
-                 f"{MESH_OPTIM_RANK_BYTES[name]:,}")
-        losses = [r["loss"] for r in out["steps"]]
-        want = new_optimizers[name]["losses"]
-        if len(losses) != NEW_STEPS or len(want) != NEW_STEPS or not all(
-                math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses, want)):
-            fail(f"{what}: losses {losses} not within 1e-4 relative of phase 11's {want}")
-        for r in out["ranks"]:
-            if r["state_bytes"] != plan[r["rank"]]:
-                fail(f"{what}: rank {r['rank']} holds {r['state_bytes']:,} B of state, its "
-                     f"plan {plan[r['rank']]:,}")
-            if any(r["launches"].values()):
-                fail(f"{what}: rank {r['rank']} launched a kernel no route of it has: "
-                     f"{r['launches']}")
-        for s in out["steps"]:
-            coll = s["collective_fwd_bwd_s"] + s["collective_update_s"]
-            print(f"{what} step {s['step']}: loss {s['loss']:.4f} (phase 11: "
-                  f"{want[s['step']]:.4f})  {s['ms']:.1f} ms (compute "
-                  f"{1e3 * (s['fwd_bwd_s'] - s['collective_fwd_bwd_s']):.1f}, collective "
-                  f"{1e3 * coll:.1f}, update {1e3 * (s['update_s'] - s['collective_update_s']):.1f}"
-                  f" ms; {s['collective_bytes'] / 1e9:.2f} GB through the collectives)")
-        for r in out["ranks"]:
-            e0 = r["eigh"][0]
-            print(f"{what} rank {r['rank']}: state_bytes {r['state_bytes']:,} (the plan's), "
-                  f"peak {r['peak_bytes']:,} B ({r['peak_bytes'] / 1e9:.2f} GB)"
-                  + (f"; recompute step: {e0['blocks']:,} eigh matrices in {e0['s']:.2f} s "
-                     f"({e0['calls']} batched calls)" if e0["blocks"] else ""))
-        print(f"{what}: {wall:.1f} s with both processes' start")
-        runs[name] = {"lr": lr, "losses": losses, "phase11_losses": want, "wall_s": wall,
-                      "steps": out["steps"], "ranks": [
-                          {k: r[k] for k in ("rank", "state_bytes", "peak_bytes", "eigh")}
-                          for r in out["ranks"]]}
-    shutil.rmtree(run_dir, ignore_errors=True)
-    seconds = time.perf_counter() - t_phase
-    print(f"mesh optimizers (phase 39): {seconds:.1f} s")
-    return {"runs": runs, "seconds": seconds}
-
-
 def _remat_grads(cfg, batch, dev):
     """One forward+backward of ``cfg`` from seed 0 through the library:
     (loss, every parameter's gradient, the peak bytes from just before the
@@ -4322,25 +4613,33 @@ def main():
     counters = (adamw4bit.LAUNCHES, quant4.LAUNCHES)
     build_report = phase_build()
     _lap("1 build")
-    if sys.argv[1:] == ["--mesh-phases"]:  # phases 10, 34-37 and 40 alone, for work on them
+    if sys.argv[1:] == ["--mesh-phases"]:  # phases 10, 34-37, 40, 42 and 43 alone
         checkpoint = phase_checkpoint(counters)
         _lap("10 checkpoint")
         phase_b1_tiles(dev)
         _lap("34 B1 tiles")
-        phase_mesh()
-        _lap("35-36, 40, 42 mesh")
+        phase_mesh(tuple(p for p in MESH_PARTS if p != "optim"))
+        _lap("35-36, 40, 42, 43 mesh")
         phase_mesh_checkpoint(counters, checkpoint)
         _lap("37 mesh checkpoint")
-        print(f"chip_smoke: phases 10, 34-37 and 40 passed in "
+        print(f"chip_smoke: phases 10, 34-37, 40, 42 and 43 passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return
     if sys.argv[1:] == ["--moe-mesh-phase"]:  # phase 42 alone
-        phase_mesh(moe_only=True)
+        phase_mesh(("moe",))
         _lap("42 MoE mesh")
         print(f"chip_smoke: phase 42 passed in {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:] == ["--recurrent-mesh-phase"]:  # phase 43 alone
+        phase_mesh(("recurrent",))
+        _lap("43 recurrent mesh")
+        print(f"chip_smoke: phase 43 passed in {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--mesh-optim-phases"]:  # phases 11 and 39 alone
-        phase_mesh_optimizers(phase_new_optimizers(counters, dev))
+        new_optimizers = phase_new_optimizers(counters, dev)
+        _lap("11 new optimizers")
+        phase_mesh(("optim",), new_optimizers)
+        _lap("39 mesh optimizers")
         print(f"chip_smoke: phases 11 and 39 passed in {time.perf_counter() - t_start:.1f} s")
         return
     if sys.argv[1:] == ["--recompute-phases"]:  # phases 41 and 6 alone
@@ -4426,26 +4725,26 @@ def main():
     _lap("33 stub oracle")
     b1_tiles = phase_b1_tiles(dev)
     _lap("34 B1 tiles")
-    mesh = phase_mesh()
-    _lap("35-36, 40, 42 mesh")
+    mesh = phase_mesh(MESH_PARTS, new_optimizers)
+    _lap("35-36, 39, 40, 42, 43 mesh")
     mesh_checkpoint = phase_mesh_checkpoint(counters, checkpoint)
     _lap("37 mesh checkpoint")
     roofline = phase_roofline(card, main_steps, mesh)
     _lap("38 roofline")
-    mesh_optim = phase_mesh_optimizers(new_optimizers)
-    _lap("39 mesh optimizers")
     recompute = phase_recompute(dev)
     _lap("41 recompute")
     # launches: every path run of the slices, each counted from 0 just before
-    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37, 40, 42 train;
-    # 8, 17, 23, 27, 32 serve)
+    # it and read just after (phases 6, 15, 21, 25, 30, 35, 37, 40, 42, 43
+    # train; 8, 17, 23, 27, 32 serve)
     path_counts = [counts] + [r["launches"] for t in (arch_train, moe_train, rec_train,
                                                       stub_train)
                               for r in t.values()] + [mesh["launches"],
                                                       mesh["moe"]["launches"],
                                                       mesh["moe"]["oracle"]["launches"],
                                                       mesh_checkpoint["launches"],
-                                                      mesh["tp"]["launches"]]
+                                                      mesh["tp"]["launches"],
+                                                      mesh["recurrent"]["launches"],
+                                                      mesh["recurrent"]["oracle_launches"]]
     serve_counts = [serving["launches"]] + [r["launches"] for t in (arch_serve, moe_serve,
                                                                     rec_serve, stub_serve)
                                             for r in t.values()]
@@ -4543,7 +4842,7 @@ def main():
          "mesh_checkpoint": mesh_checkpoint, "roofline": roofline["roofline"],
          "dryrun": roofline["dryrun"], "roofline_mesh_collectives":
              roofline["mesh_collectives"], "roofline_seconds": roofline["seconds"],
-         "mesh_optimizers": mesh_optim, "recompute": recompute, "path_launches": launches,
+         "mesh_optimizers": mesh["optim"], "recompute": recompute, "path_launches": launches,
          "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -410,6 +410,43 @@ def _padded_identity(kv_lengths, S: int, log_a: torch.Tensor, k: torch.Tensor):
             torch.where(step_ok[..., None, None], k, 0.0))
 
 
+def _split_of(p, whole: Dict[str, tuple], cache) -> Optional[tp_lib.TPRun]:
+    """The model group where some of a recurrent block's leaves (``whole``:
+    their whole shapes) are this rank's model shards, else None; a block
+    computing on shards keeps no cache (the split is the train step's)."""
+    tp = tp_lib.current()
+    if tp is None or all(tuple(p[k].shape) == s for k, s in whole.items()):
+        return None
+    if cache is not None:
+        raise ValueError("a tensor-parallel recurrent block is the train step's: no cache")
+    return tp
+
+
+def _columns(x: torch.Tensor, w: torch.Tensor, width: int, spec: str, tp, parts: bool):
+    """``dense(x, w)`` whole on every rank. Where ``w`` holds this rank's
+    columns of ``width`` only, its input enters the split and the products
+    are joined over the model group: for consumers that compute on the
+    rank's part (``parts``: its heads) the gradient is summed first."""
+    if w.shape[-1] == width:
+        return dense(x, w, spec)
+    y = dense(tp_lib.enter(x, tp), w, spec)
+    return tp_lib.gather_last(y, tp) if parts else tp_lib.collect(y, tp, -1)
+
+
+def _rows(x: torch.Tensor, w: torch.Tensor, spec: str, tp, width: int,
+          part: Optional[torch.Tensor] = None):
+    """``dense(x, w)``, ``w``'s rows (its contracting dim) ``width`` whole.
+    Where ``w`` holds this rank's rows only, the row-parallel product summed
+    over the model group: of ``x`` where it is already the rank's part (its
+    heads' columns), else of the rank's columns of the whole ``x``
+    (``part``, or ``tensor_parallel.own(x)``)."""
+    if w.shape[0] == width:
+        return dense(x, w, spec)
+    if x.shape[-1] == width:
+        x = tp_lib.own(x, tp) if part is None else part
+    return tp_lib.row_parallel(x, w, spec, tp, COMPUTE_DTYPE)
+
+
 def apply_mlstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
                 cache: Optional[GLAState] = None, cur_pos: Optional[torch.Tensor] = None,
                 kv_lengths: Optional[torch.Tensor] = None):
@@ -417,17 +454,46 @@ def apply_mlstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
     (xm, z), per-head q/k/v of ``D // H``, sigmoid input gate folded into k,
     ``log_sigmoid`` forget gate as the decay, the chunked recurrence (or one
     decode step), ``silu(z)`` gating and the down-projection. Returns (x,
-    the new recurrent state)."""
+    the new recurrent state).
+
+    Under ``sharding.tensor_parallel.use``, with leaves that are this rank's
+    model shards: ``w_in`` cut on its columns gives the rank's columns of
+    (xm, z), joined over the model group. Where ``wq`` holds fewer heads
+    than the config's, the rank runs the recurrence on its heads: its
+    q/k/v heads, its columns of the gates (``w_if``, ``b_if`` cut on their
+    2H dim) joined and its heads' i and f taken, its heads' z, and
+    ``w_out``'s rows of its heads summed. Else the recurrence runs whole on
+    every rank: q/k/v (and the gates, where ``w_if`` is cut on its rows)
+    summed from the rank's rows, ``b_if`` added after the sum; ``w_if`` cut
+    on its 2H dim gives the rank's gate columns, joined; ``w_out``'s
+    product of the rank's columns summed."""
     B, S, D = x.shape
-    dh = D // cfg.num_heads
+    H = cfg.num_heads
+    dh = D // H
+    tp = _split_of(p, {"w_in": (D, 2 * D), "wq": (D, H, dh), "w_if": (D, 2 * H),
+                       "w_out": (D, D)}, cache)
+    n = p["wq"].shape[1]  # the heads this rank runs
+    heads = n != H
     h = norm_apply(cfg, x, p["norm"])
-    xm, z = dense(h, p["w_in"], "bsd,de->bse").chunk(2, dim=-1)
-    q = dense(xm, p["wq"], "bse,ehd->bshd")
-    k = dense(xm, p["wk"], "bse,ehd->bshd")
+    xm, z = _columns(h, p["w_in"], 2 * D, "bsd,de->bse", tp, heads).chunk(2, dim=-1)
+    # the rank's columns of xm, for the products cut on their rows (one
+    # join of its gradient however many read it; none where none does)
+    part = tp_lib.own(xm, tp) if tp is not None and not heads else None
+    q = _rows(xm, p["wq"], "bse,ehd->bshd", tp, D, part)
+    k = _rows(xm, p["wk"], "bse,ehd->bshd", tp, D, part)
     k = k / _divisor(math.sqrt(dh), k)
-    v = dense(xm, p["wv"], "bse,ehd->bshd")
-    gates = dense(xm, p["w_if"], "bse,eh->bsh").to(torch.float32) + p["b_if"]
+    v = _rows(xm, p["wv"], "bse,ehd->bshd", tp, D, part)
+    if p["w_if"].shape[-1] != 2 * H:  # the rank's gate columns, joined
+        gates = dense(xm if heads else tp_lib.enter(xm, tp), p["w_if"],
+                      "bse,eh->bsh").to(torch.float32) + p["b_if"]
+        gates = tp_lib.gather_last(gates, tp) if heads else tp_lib.collect(gates, tp, -1)
+    else:
+        gates = _rows(xm, p["w_if"], "bse,eh->bsh", tp, D, part).to(torch.float32) + p["b_if"]
     i_gate, f_gate = gates.chunk(2, dim=-1)
+    if heads:
+        h0 = tp.index * n
+        i_gate, f_gate = i_gate[..., h0:h0 + n], f_gate[..., h0:h0 + n]
+        z = z[..., h0 * dh:(h0 + n) * dh]
     log_a = F.logsigmoid(f_gate)                 # (B, S, H)
     k = k * torch.sigmoid(i_gate)[..., None]     # fp32
     if kv_lengths is not None and S > 1:
@@ -436,7 +502,7 @@ def apply_mlstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
         y, new = gla_lib.gla_decode_step(q, k, v, log_a, cache)
     else:
         y, new = gla_lib.gla_chunked(q, k, v, log_a, chunk=cfg.gla_chunk, init_state=cache)
-    out = dense(y.reshape(B, S, D) * F.silu(z), p["w_out"], "bse,ed->bsd")
+    out = _rows(y.reshape(B, S, n * dh) * F.silu(z), p["w_out"], "bse,ed->bsd", tp, D)
     return x + out, new
 
 
@@ -447,15 +513,31 @@ def apply_slstm(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions=None,
     """The sLSTM block (the reference's ``_apply_slstm``): gate
     pre-activations ``W x``, the sequential cell (padded prefill steps
     frozen by ``step_mask``), the output projection, then a gated MLP.
-    Returns (x, the new recurrent state)."""
-    S = x.shape[1]
-    gates_x = dense(norm_apply(cfg, x, p["norm1"]), p["w_gates"], "bsd,dge->bsge")
+    Returns (x, the new recurrent state).
+
+    Under ``sharding.tensor_parallel.use``, with leaves that are this rank's
+    model shards: ``w_gates`` cut on its last dim gives the rank's columns
+    of every gate. Where ``r_gates`` holds fewer heads than the config's,
+    those columns are the rank's heads: the cell runs on them and
+    ``w_out``'s rows of its heads are summed. Else the columns are joined
+    over the model group, the cell runs whole on every rank and
+    ``w_out``'s product of the rank's columns is summed."""
+    S, D = x.shape[1:]
+    H = cfg.num_heads
+    dh = D // H
+    tp = _split_of(p, {"w_gates": (D, 4, D), "r_gates": (H, 4, dh, dh), "w_out": (D, D)}, cache)
+    n = p["r_gates"].shape[0]  # the heads this rank runs
+    h = norm_apply(cfg, x, p["norm1"])
+    if n != H:  # the rank's columns are its heads'
+        gates_x = dense(tp_lib.enter(h, tp), p["w_gates"], "bsd,dge->bsge")
+    else:
+        gates_x = _columns(h, p["w_gates"], D, "bsd,dge->bsge", tp, False)
     step_mask = None
     if kv_lengths is not None and S > 1:
         step_mask = torch.arange(S, device=x.device)[None, :] < kv_lengths[:, None]
-    hs, new = gla_lib.slstm_scan(gates_x, p["r_gates"], cfg.num_heads, init_state=cache,
+    hs, new = gla_lib.slstm_scan(gates_x, p["r_gates"], n, init_state=cache,
                                  step_mask=step_mask)
-    x = x + dense(hs, p["w_out"], "bsd,de->bse")
+    x = x + _rows(hs, p["w_out"], "bsd,de->bse", tp, D)
     return x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act,
                          slstm_ff(cfg.d_model)), new
 
@@ -469,30 +551,60 @@ def apply_hymba(p, x: torch.Tensor, spec: LayerSpec, cfg, *, positions,
     exp(A_log)``, its heads ``D // H`` wide with ``ssm_state`` keys, no
     normalizer, a ``D`` skip. ``cache`` is ``{"attn": KVCache, "ssm":
     GLAState}``; the K/V cache is written in place. Returns (x, ``{"ssm":
-    the new SSM state}``)."""
+    the new SSM state}``).
+
+    Under ``sharding.tensor_parallel.use``, with SSM leaves that are this
+    rank's model shards: ``ssm_in`` cut on its columns gives the rank's
+    columns of (xm, z), joined over the model group. Where ``ssm_B`` holds
+    fewer heads than the config's, the SSM runs on the rank's heads (its
+    dt, A, D, B and C heads, its heads of xm and z) and ``ssm_out``'s rows
+    of its heads are summed. Where ``ssm_B``/``ssm_C`` hold the rank's
+    states, each rank's ``y`` over its states is an fp32 partial (``y`` is
+    linear in the state dim), summed over the group, rounded once, and the
+    ``D`` skip added after; dt, ``v`` and the decay are whole. Else the SSM
+    runs whole. A product cut on its rows (``ssm_dt``, ``ssm_B``/``ssm_C``
+    on ``embed``, ``ssm_out``) sums the products of the rank's columns."""
     B, S, D = x.shape
-    H = cfg.num_heads
+    H, st = cfg.num_heads, cfg.ssm_state
+    tp = _split_of(p, {"ssm_in": (D, 2 * D), "ssm_dt": (D, H), "ssm_B": (D, H, st),
+                       "ssm_out": (D, D)}, cache)
+    n = p["ssm_B"].shape[1]  # the heads this rank runs
+    heads, states = n != H, p["ssm_B"].shape[2] != st
+    dh = D // H
     h = norm_apply(cfg, x, p["norm1"])
     kv, ssm = (None, None) if cache is None else (cache["attn"], cache["ssm"])
     a_out = apply_attention(p["attn"], h, cfg, window=spec.window, positions=positions,
                             cache=kv, cur_pos=cur_pos, kv_lengths=kv_lengths)
-    xm, z = dense(h, p["ssm_in"], "bsd,de->bse").chunk(2, dim=-1)
-    dt = F.softplus(dense(xm, p["ssm_dt"], "bsd,dh->bsh").to(torch.float32)
+    xm, z = _columns(h, p["ssm_in"], 2 * D, "bsd,de->bse", tp, heads).chunk(2, dim=-1)
+    # the rank's columns of xm, for the products cut on their rows (one
+    # join of its gradient however many read it; none where none does)
+    part = tp_lib.own(xm, tp) if tp is not None and not heads else None
+    dt = F.softplus(_rows(xm, p["ssm_dt"], "bsd,dh->bsh", tp, D, part).to(torch.float32)
                     + p["ssm_dt_bias"])              # (B, S, H)
     log_a = -dt * torch.exp(p["ssm_A_log"])          # <= 0
-    k = dense(xm, p["ssm_B"], "bsd,dhn->bshn")
-    q = dense(xm, p["ssm_C"], "bsd,dhn->bshn")
-    v = xm.reshape(B, S, H, D // H) * dt[..., None].to(COMPUTE_DTYPE)
+    xs = tp_lib.enter(xm, tp) if states else xm      # the rank's states read all of xm
+    k = _rows(xs, p["ssm_B"], "bsd,dhn->bshn", tp, D, part)
+    q = _rows(xs, p["ssm_C"], "bsd,dhn->bshn", tp, D, part)
+    xv = xm.reshape(B, S, H, dh)
+    if heads:
+        h0 = tp.index * n
+        xv, z = xv[:, :, h0:h0 + n], z[..., h0 * dh:(h0 + n) * dh]
+    v = xv * dt[..., None].to(COMPUTE_DTYPE)
     if kv_lengths is not None and S > 1:
         log_a, k = _padded_identity(kv_lengths, S, log_a, k)
     if ssm is not None and S == 1:
         y, new = gla_lib.gla_decode_step(q, k, v, log_a, ssm, normalize=False)
+    elif states:  # the rank's states' fp32 partial of y, summed
+        y, new = gla_lib.gla_chunked(q, k, tp_lib.enter(v, tp), tp_lib.enter(log_a, tp),
+                                     chunk=cfg.gla_chunk, normalize=False,
+                                     out_dtype=tp_lib.PARTIAL_DTYPE)
+        y = tp_lib.leave(y, tp).to(v.dtype)
     else:
         y, new = gla_lib.gla_chunked(q, k, v, log_a, chunk=cfg.gla_chunk, normalize=False,
                                      init_state=ssm)
     y = y + p["ssm_D"][None, None, :, None].to(y.dtype) * v
-    y = (y.reshape(B, S, D) * F.silu(z)).to(COMPUTE_DTYPE)
-    s_out = dense(y, p["ssm_out"], "bse,ed->bsd")
+    y = (y.reshape(B, S, n * dh) * F.silu(z)).to(COMPUTE_DTYPE)
+    s_out = _rows(y, p["ssm_out"], "bse,ed->bsd", tp, D)
     x = x + 0.5 * (a_out * p["scale_attn"].to(COMPUTE_DTYPE)
                    + s_out * p["scale_ssm"].to(COMPUTE_DTYPE))
     x = x + apply_mlp(p["mlp"], norm_apply(cfg, x, p["norm2"]), cfg.act, cfg.d_ff)

@@ -39,9 +39,10 @@ class GLAState(NamedTuple):
 
 def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor, *,
                 chunk: int = 128, normalize: bool = True,
-                init_state: Optional[GLAState] = None) -> Tuple[torch.Tensor, GLAState]:
+                init_state: Optional[GLAState] = None,
+                out_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, GLAState]:
     """q, k (B, S, H, dk), v (B, S, H, dv), log_a (B, S, H) <= 0 -> (y (B, S,
-    H, dv) in v's dtype, the final fp32 state)."""
+    H, dv) in ``out_dtype``, v's dtype by default, the final fp32 state)."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     c = min(chunk, S)
@@ -83,7 +84,7 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.
         S_prev = decay[..., None, None] * S_prev + torch.einsum("bchk,bchv->bhkv", k_end, vc)
         n_prev = decay[..., None] * n_prev + torch.sum(k_end, dim=1)
     y = torch.cat(ys, dim=1)[:, :S]
-    return y.to(v.dtype), GLAState(S_prev, n_prev)
+    return y.to(out_dtype or v.dtype), GLAState(S_prev, n_prev)
 
 
 def gla_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor,

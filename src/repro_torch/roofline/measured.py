@@ -61,11 +61,11 @@ the MoE aux loss's backward); a further layer is a probe.
   of the ``model`` axis (``compute_split: "data+model"`` where some leaf
   is split, ``sharding.tensor_parallel.placement``): the model and its
   probes run on the model shard of rank 0 of a model group (its heads,
-  mlp columns, experts or expert columns and vocab rows; every other leaf
-  whole), inside ``tensor_parallel.use`` with the collectives
-  ``without_world``, so the model group's sums and the expert outputs'
-  gathers (the all-gathers' empty results, the adds in model rank order)
-  are counted where they run. An MoE layer whose token groups span data
+  mlp columns, experts or expert columns, recurrent heads, states or rows
+  and vocab rows; every other leaf whole), inside ``tensor_parallel.use``
+  with the collectives ``without_world``, so the model group's sums and
+  the expert outputs' gathers (the all-gathers' empty results, the adds in
+  model rank order) are counted where they run. An MoE layer whose token groups span data
   shards computes as data rank 0 does: its tokens placed in their groups,
   the data group's gather of the routing's counts run without a world. A
   train cell on more than one rank walks the mesh step's own code with no

@@ -27,21 +27,36 @@ The placement rule (``placement``), per leaf, from the cut that
   the rank's rows gives a zero row; the rows are summed) and, as ``head``
   cut on ``vocab`` does, or a tied head, vocab-parallel cross entropy
   (``models.layers``);
+* a recurrent block's own leaves (mLSTM, sLSTM, hymba's SSM heads) compute
+  on whatever cut the rules give each (``models.blocks``): a cut output dim
+  is column-parallel (the products joined over the model group where more
+  than the rank's columns follow), a cut contracting dim row-parallel
+  (``own``: the rank's columns of the input; the partials summed); the
+  recurrence runs on the rank's heads where ``wq``/``r_gates``/``ssm_B``
+  are cut on ``heads``, on its states where ``ssm_B``/``ssm_C`` are cut on
+  ``state`` (the fp32 partials of ``y`` summed), else whole on every rank;
 * every other leaf is gathered whole and computed the same on every rank
-  of the model group (norms, the MoE router, the recurrent blocks' own
-  leaves, an attention, MLP or experts whose widths the axis does not
-  divide).
+  of the model group (norms, the MoE router, hymba's ``scale_attn`` and
+  ``scale_ssm``, an attention, MLP or experts whose widths the axis does
+  not divide).
 
 A block knows it computes on a model shard by its leaves: inside ``use``,
 a ``wq`` narrower than the config's heads, a ``w1`` narrower than the MLP's
 width, an MoE ``w1`` with fewer experts than the router or narrower than
-the expert's width, an ``embed`` or head narrower than the vocabulary.
+the expert's width, an ``embed`` or head narrower than the vocabulary, a
+recurrent leaf narrower than its whole shape.
 
-The two functions of the split: ``enter`` (identity forward, model-group
-sum backward) at a column-parallel input, and ``leave`` (model-group sum
-forward, identity backward) at a row-parallel output. A whole leaf that a
-rank uses on its shard only (``q_norm``, gathered kv weights) enters too,
-so its gradient is the whole group's. Every sum is an all-gather (recorded
+The functions of the split: ``enter`` (identity forward, model-group sum
+backward) at a column-parallel input, and ``leave`` (model-group sum
+forward, identity backward) at a row-parallel output; ``collect`` joins the
+ranks' shards of a product for a consumer that computes the whole on every
+rank (the gradient: the rank's part), ``gather_last`` for consumers that
+each compute on their rank's part (the gradient summed first), ``own``
+takes the rank's columns of a replicated tensor for a row-parallel product
+(the gradient: the group's parts joined). So each replicated tensor's
+gradient is the whole one on every rank. A whole leaf that a rank uses on
+its shard only (``q_norm``, gathered kv weights) enters too, so its
+gradient is the whole group's. Every sum is an all-gather (recorded
 in ``collectives.recording`` and ``STATS`` as one) followed by adds in
 ascending model rank, so every rank of a group holds the same bits: the
 replicated activations after a sum, on which every rank computes norms,
@@ -65,13 +80,20 @@ from repro_torch.comms.collectives import timed_gather
 from repro_torch.sharding.rules import spec_for
 
 __all__ = ["TPRun", "PARTIAL_DTYPE", "use", "current", "placement", "model_box", "enter",
-           "leave", "collect", "group_max", "row_parallel", "kv_heads", "reckon_sums"]
+           "leave", "collect", "gather_last", "own", "group_max", "row_parallel", "kv_heads",
+           "reckon_sums"]
 
 # the type of a row-parallel partial and of its sum over the model group
 PARTIAL_DTYPE = torch.float32
 
 # the parent of a leaf, by the subtree that holds it
 _ATTENTION = ("attn", "self", "cross")
+# the recurrent blocks' own leaves (mLSTM, sLSTM, hymba's SSM heads): each
+# computes on its model shard wherever the rules cut it; hymba's
+# ``scale_attn``/``scale_ssm`` and the norms scale the replicated stream
+_RECURRENT = ("w_in", "wq", "wk", "wv", "w_if", "b_if", "w_out", "w_gates", "r_gates",
+              "ssm_in", "ssm_dt", "ssm_dt_bias", "ssm_B", "ssm_C", "ssm_A_log", "ssm_D",
+              "ssm_out")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +163,10 @@ def placement(shapes: Mapping[str, Tuple[int, ...]], axes: Mapping[str, Tuple[st
             continue
         for n in names:
             out[leaf(n)] = cut[leaf(n)]
+    for k in shapes:  # a recurrent block's leaf: directly under its sub
+        parent, _, name = k.rpartition("/")
+        if parent.rsplit("/", 1)[-1].startswith("sub") and name in _RECURRENT:
+            out[k] = cut[k]
     for k in ("embed", "head"):
         if cuts(k, "vocab"):
             out[k] = cut[k]
@@ -189,19 +215,38 @@ class _Leave(torch.autograd.Function):
         return grad, None
 
 
+def _joined(x: torch.Tensor, tp: TPRun, dim: int) -> torch.Tensor:
+    """The model group's equal shards of one tensor, joined on ``dim`` in
+    model rank order."""
+    return torch.cat(timed_gather(x.contiguous(), tp.group, tp.world).unbind(0), dim=dim)
+
+
 class _Collect(torch.autograd.Function):
-    """The model group's shards joined on dim 0 forward; the gradient of
-    the rank's own rows backward (what follows is replicated)."""
+    """The model group's shards joined on ``dim`` forward; the gradient of
+    the rank's own part backward (what follows is replicated)."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp, ctx.n = tp, x.shape[0]
-        return timed_gather(x, tp.group, tp.world).reshape((-1,) + tuple(x.shape[1:]))
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim % x.dim(), x.shape[dim]
+        return _joined(x, tp, ctx.dim)
 
     @staticmethod
     def backward(ctx, grad):
-        start = ctx.tp.index * ctx.n
-        return grad[start:start + ctx.n], None
+        return grad.narrow(ctx.dim, ctx.tp.index * ctx.n, ctx.n), None, None
+
+
+class _Own(torch.autograd.Function):
+    """The rank's part of a replicated tensor's last dim forward; the
+    group's parts of the gradient joined backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, n = tp, x.shape[-1] // tp.size
+        return x.narrow(-1, tp.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _joined(grad, ctx.tp, -1), None
 
 
 def enter(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
@@ -216,10 +261,25 @@ def leave(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
     return _Leave.apply(x, tp)
 
 
-def collect(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
-    """The ranks' dim-0 shards of one tensor, joined in model rank order
-    (the expert-parallel outputs); each rank keeps its rows' gradient."""
-    return _Collect.apply(x, tp)
+def collect(x: torch.Tensor, tp: TPRun, dim: int = 0) -> torch.Tensor:
+    """The ranks' shards of one tensor on ``dim``, joined in model rank
+    order (the expert-parallel outputs on dim 0), for a consumer that
+    computes the whole on every rank: each rank keeps its part's gradient."""
+    return _Collect.apply(x, tp, dim)
+
+
+def gather_last(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
+    """The ranks' column shards of one tensor joined on its last dim, for
+    consumers that each compute on their rank's part (its heads): the
+    gradient summed over the model group, then the rank's columns kept."""
+    return enter(collect(x, tp, -1), tp)
+
+
+def own(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
+    """The rank's equal part of a replicated tensor's last dim (the input
+    of a product cut on its contracting dim); the gradient is the group's
+    parts joined, so it is replicated as the tensor is."""
+    return _Own.apply(x, tp)
 
 
 def group_max(x: torch.Tensor, tp: TPRun) -> torch.Tensor:
@@ -249,6 +309,76 @@ def kv_heads(start: int, n: int, heads: int, kv: int) -> Union[slice, List[int]]
     return idx
 
 
+def _recurrent_sums(cfg, split: Mapping[str, Optional[int]], shapes, prefix: str, B: int,
+                    S: int, dtype: torch.dtype, M: int
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The model group's collectives of one recurrent block's split compute
+    (``models.blocks.apply_mlstm`` / ``apply_slstm`` / ``apply_hymba``
+    below ``prefix``), as what each rank gathers: (the forward's, the
+    backward's). Forward: a column-cut product joined (``collect``), each
+    row-parallel partial and hymba's state partial of ``y`` summed.
+    Backward: the sum of an entered input's gradient (the block's input at
+    a column-cut product; the joined product where the rank computes on its
+    heads; xm, ``v`` and the decay where it computes on its states; xm at
+    mLSTM's gate columns where the cell runs whole) and the join of
+    ``own``'s (the rank's columns of a whole tensor at a row-cut product)."""
+    cut = lambda n: split.get(prefix + n)  # the stacked leaf's cut dim
+    D, H = cfg.d_model, cfg.num_heads
+    dh = D // H
+    meta = lambda *shape, dt=dtype: torch.empty(shape, dtype=dt, device="meta")
+    part = lambda *shape: meta(*shape, dt=PARTIAL_DTYPE)
+    fwd: List[torch.Tensor] = []
+    bwd: List[torch.Tensor] = []
+
+    def columns(name: str, width: int, heads: bool) -> None:
+        if cut(name) is not None:  # joined; the input's gradient summed
+            fwd.append(meta(B, S, width // M))
+            bwd.append(meta(B, S, D))
+            if heads:
+                bwd.append(meta(B, S, width))
+
+    def out(name: str, heads: bool) -> None:
+        if cut(name) is not None:  # the partial summed (of own's columns)
+            fwd.append(part(B, S, D))
+            if not heads:
+                bwd.append(meta(B, S, D // M))
+
+    if prefix + "w_in" in shapes:  # mLSTM
+        heads = cut("wq") == 2
+        columns("w_in", 2 * D, heads)
+        if not heads and (cut("wq") == 1 or cut("w_if") == 1):
+            bwd.append(meta(B, S, D // M))  # own(xm)
+        if cut("wq") == 1:
+            fwd += [part(B, S, H, dh)] * 3
+        if cut("w_if") == 2:  # the gate columns joined
+            fwd.append(meta(B, S, 2 * H // M, dt=torch.float32))
+            bwd.append(meta(B, S, 2 * H, dt=torch.float32) if heads else meta(B, S, D))
+        elif cut("w_if") == 1:
+            fwd.append(part(B, S, 2 * H))
+        out("w_out", heads)
+    elif prefix + "w_gates" in shapes:  # sLSTM
+        heads = cut("r_gates") == 1
+        if cut("w_gates") is not None:
+            bwd.append(meta(B, S, D))
+            if not heads:
+                fwd.append(meta(B, S, 4, D // M))
+        out("w_out", heads)
+    elif prefix + "ssm_in" in shapes:  # hymba's SSM heads
+        heads, states = cut("ssm_B") == 2, cut("ssm_B") == 3
+        columns("ssm_in", 2 * D, heads)
+        if not heads and (cut("ssm_dt") == 1 or cut("ssm_B") == 1):
+            bwd.append(meta(B, S, D // M))  # own(xm)
+        if cut("ssm_dt") == 1:
+            fwd.append(part(B, S, H))
+        if cut("ssm_B") == 1:
+            fwd += [part(B, S, H, cfg.ssm_state)] * 2
+        if states:
+            fwd.append(part(B, S, H, dh))
+            bwd += [meta(B, S, D), meta(B, S, H, dh), meta(B, S, H, dt=torch.float32)]
+        out("ssm_out", heads)
+    return fwd, bwd
+
+
 def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tuple[int, ...]],
                 batch: Mapping[str, torch.Tensor], dtype: torch.dtype, model: int = 1,
                 shards: Tuple[int, int] = (1, 0)) -> List[Tuple[torch.Tensor, str]]:
@@ -260,6 +390,8 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
     ``wo``, the input's gradient (and the encoder output's, for
     cross-attention) and the gradients of the whole leaves it uses on its
     heads; per split MLP, the partial of ``w2`` and the input's gradient;
+    per split recurrent block, its joins, partials and the backward's sums
+    and joins (``_recurrent_sums``);
     per split MoE layer, the gathered expert outputs (or ``w2``'s partial)
     and the expert input's gradient; per MoE layer whose groups span data
     shards, the data group's gather of the routing's counts and
@@ -299,6 +431,8 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
                             layer.append((meta(shapes[k][1:], torch.float32), "model"))
                 if split.get(f"{prefix}mlp/w1") is not None:
                     layer += on_model([act(s, PARTIAL_DTYPE)] * forwards + [act(s)])
+                fwd, bwd = _recurrent_sums(cfg, split, shapes, prefix, B, s, dtype, model)
+                layer += on_model(fwd * forwards + bwd)
                 router = f"{prefix}moe/router"
                 if router in shapes:
                     E = shapes[router][-1]

@@ -3,9 +3,10 @@
 not train: reduced whisper-large-v3 (encoder and decoder attention, the
 decoder's cross-attention over the encoder's output, a tied head),
 qwen2-vl-2b (embeds input, M-RoPE, a tied head), hymba-1.5b (attention and
-SSM heads on one norm), xlstm-125m (the sLSTM block's MLP the only split
-block), mixtral-8x7b (attention split, its 4 reduced experts
-expert-parallel, the router gathered) and qwen3-4b
+SSM heads on one norm, both head-parallel), xlstm-125m (mLSTM and sLSTM
+head-parallel, the sLSTM block's MLP mlp-parallel), mixtral-8x7b
+(attention split, its 4 reduced experts expert-parallel, the router
+gathered) and qwen3-4b
 (q/k norms), each on (1, 2), 2 steps of production4bit with SR from
 ``init_model(seed=0)`` (``torch_mesh_worker``'s ``tp_step``, one world of
 2 for all six, started before the one-process runs here).
@@ -42,8 +43,10 @@ SPLIT = {
     "qwen2-vl-2b": {"embed", "attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w1", "mlp/w2",
                     "mlp/w3"},
     "hymba-1.5b": {"embed", "head", "attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w1",
-                   "mlp/w2", "mlp/w3"},
-    "xlstm-125m": {"embed", "head", "mlp/w1", "mlp/w2", "mlp/w3"},
+                   "mlp/w2", "mlp/w3", "ssm_in", "ssm_dt", "ssm_dt_bias", "ssm_B", "ssm_C",
+                   "ssm_A_log", "ssm_D", "ssm_out"},
+    "xlstm-125m": {"embed", "head", "mlp/w1", "mlp/w2", "mlp/w3", "w_in", "wq", "wk", "wv",
+                   "w_if", "b_if", "w_out", "w_gates", "r_gates"},
     "mixtral-8x7b": {"embed", "head", "attn/wq", "attn/wk", "attn/wv", "attn/wo", "moe/w1",
                      "moe/w2", "moe/w3"},
     "qwen3-4b": {"embed", "head", "attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w1",

@@ -11,11 +11,13 @@ splits its heads where ``wq`` and ``wo`` are cut on ``heads`` (and ``wk``/
 ``w1``/``w3``/``w2`` are cut on ``mlp``, an MoE layer its experts where
 its ``w1``/``w3``/``w2`` are cut on ``experts`` and else each expert's
 columns where they are cut on ``mlp``, ``embed`` and ``head`` their
-vocabulary where cut on ``vocab``; everything else (norms, MoE routers,
-the recurrent blocks' own leaves) is gathered. Named cases:
-chatglm3-6b's 2 kv heads on 4 ranks and internlm2-1.8b's 8 on 16 (kv
-weights gathered, cut on ``embed`` by the reference), hymba-1.5b's 25 heads
-(its attention gathered, its MLP split), whisper-large-v3's 20 heads on 16.
+vocabulary where cut on ``vocab``, a recurrent block's own leaves (mLSTM,
+sLSTM, hymba's SSM heads) wherever they are cut; everything else (norms,
+MoE routers, hymba's ``scale_attn``/``scale_ssm``) is gathered. Named
+cases: chatglm3-6b's 2 kv heads on 4 ranks and internlm2-1.8b's 8 on 16
+(kv weights gathered, cut on ``embed`` by the reference), hymba-1.5b's 25
+heads (its attention gathered, its MLP split, its SSM cut on its states and
+``ssm_dt`` on its rows), whisper-large-v3's 20 heads on 16.
 GQA: the kv heads a rank's q heads read (``kv_heads``) are its own slice
 wherever the model axis divides the kv heads, and map every q head onto
 its kv head (``h // G``) wherever it does not.
@@ -43,6 +45,10 @@ from repro_torch.sharding.context import MeshRun  # noqa: E402
 from repro_torch.train.mesh import MeshStep  # noqa: E402
 
 MESHES = ((1, 2), (1, 4), (2, 2), (1, 16), (16, 16))
+# the recurrent blocks' own leaves (the reference's _init_mlstm, _init_slstm,
+# _init_hymba) but their norms and hymba's scales
+RECURRENT = {"w_in", "wq", "wk", "wv", "w_if", "b_if", "w_out", "w_gates", "r_gates", "ssm_in",
+             "ssm_dt", "ssm_dt_bias", "ssm_B", "ssm_C", "ssm_A_log", "ssm_D", "ssm_out"}
 
 
 def _fake_mesh(shape):
@@ -82,6 +88,8 @@ def _expected(shapes, axes, mesh):
                 want[k] = cut[k]
         elif k in ("embed", "head") and on(k, "vocab"):
             want[k] = cut[k]
+        elif sub.startswith("sub") and leaf in RECURRENT:
+            want[k] = cut[k]
     return want
 
 
@@ -101,9 +109,9 @@ def test_placement_follows_the_references_cuts(arch):
         # a split leaf is cut on its model dim by the reference, its shard whole
         for k in split:
             assert shapes[k][got[k]] % mesh[1] == 0
-        # never split: norms, MoE routers, the recurrent blocks' own leaves
-        assert not any(k.endswith("/moe/router") or "norm" in k.rsplit("/", 1)[-1]
-                       for k in split), split
+        # never split: norms, MoE routers, hymba's scales
+        assert not any(k.endswith(("/moe/router", "/scale_attn", "/scale_ssm"))
+                       or "norm" in k.rsplit("/", 1)[-1] for k in split), split
         print(f"{arch} {mesh}: {len(split)} leaves split, {len(got) - len(split)} gathered")
 
 
@@ -127,6 +135,12 @@ def test_named_cases():
     assert all(d is None for k, d in got.items() if "/attn/" in k)
     assert all(d is not None for k, d in got.items() if "/mlp/" in k)
     assert got["embed"] is None  # 32001 rows
+    # its SSM: B and C on their 16 states, dt on its rows, the per-head
+    # vectors and the scales whole
+    ssm = {k.rsplit("/", 1)[-1]: d for k, d in got.items() if k.startswith("decoder/0/sub0/")}
+    assert (ssm["ssm_in"], ssm["ssm_dt"], ssm["ssm_B"], ssm["ssm_C"], ssm["ssm_out"]) == (
+        2, 1, 3, 3, 1)
+    assert ssm["ssm_D"] is ssm["ssm_A_log"] is ssm["scale_ssm"] is None
     whisper = T.placement(_shapes(get_config("whisper-large-v3")),
                           param_axes(get_config("whisper-large-v3")), {"data": 1, "model": 16})
     assert all(d is None for k, d in whisper.items() if "/self/" in k or "/cross/" in k)

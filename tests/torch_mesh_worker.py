@@ -5,7 +5,7 @@ through a ``FileStore`` in ``tmp`` (never a fixed port), runs every task
 in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
 ``kind`` (``allreduce``, ``reduce``, ``step``, ``optim``, ``optim_one``, ``losses``,
-``tp_step``, ``tp_blocks``, ``moe_blocks``,
+``tp_step``, ``tp_blocks``, ``moe_blocks``, ``recurrent_blocks``,
 ``collectives``, and the checkpoint kinds ``save``, ``restore``, ``resume``, ``mesh_ckpt``,
 ``protocol``) and its inputs; a task
 with ``after`` waits until that file exists (the caller writes its inputs
@@ -498,6 +498,74 @@ def _tp_blocks(task, rank):
     return out
 
 
+def recurrent_cuts(kind, shapes, world):
+    """``{leaf: the dim a model axis of ``world`` cuts, or None}`` of one
+    recurrent block's leaves (``shapes``: ``{path in the block: shape}``),
+    by the placement rule (``tensor_parallel.placement`` on the leaves
+    stacked as one layer)."""
+    from repro_torch.models.axes import leaf_axes
+    from repro_torch.sharding import tensor_parallel as T
+
+    paths = {f"decoder/0/sub0/{k}": k for k in shapes}
+    split = T.placement({p: (1,) + tuple(shapes[k]) for p, k in paths.items()},
+                        {p: ("layers",) + leaf_axes(kind, k) for p, k in paths.items()},
+                        {"data": 1, "model": world})
+    return {k: None if split[p] is None else split[p] - 1 for p, k in paths.items()}
+
+
+def _recurrent_blocks(task, rank):
+    """Each case's recurrent block (``models.blocks.RECURRENT``: mLSTM,
+    sLSTM, hymba) on this rank's model shard of its leaves
+    (``recurrent_cuts``; a world of ``M`` ranks, one model group), forward
+    and backward against the case's cotangent, in the case's compute type.
+    Returns per case the output, the input's gradient and each leaf's
+    gradient (of the rank's shard)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.sharding import tensor_parallel as T
+
+    world = dist.get_world_size()
+    tp = T.TPRun(None, rank, world)
+    out = []
+    for case in task["cases"]:
+        dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
+        cuts = recurrent_cuts(case["kind"], {k: v.shape for k, v in case["params"].items()},
+                              world)
+        flat = {}
+        for k, v in case["params"].items():
+            v = torch.from_numpy(v)
+            if cuts[k] is not None:
+                n = v.shape[cuts[k]] // world
+                v = v.narrow(cuts[k], rank * n, n)
+            flat[k] = v.clone().requires_grad_()
+        with _compute_dtype(dtype), T.use(tp):
+            cfg = dataclasses.replace(reduced_config(case["arch"]), **case["cfg"])
+            x = torch.from_numpy(case["x"]).to(dtype).requires_grad_()
+            y = recurrent_apply(case["kind"], flat, x, cfg)
+            (y.float() * torch.from_numpy(case["cot"])).sum().backward()
+        out.append({"y": y.detach(), "x_grad": x.grad,
+                    "grads": {k: v.grad for k, v in flat.items()}})
+    return out
+
+
+def recurrent_apply(kind, flat, x, cfg):
+    """A recurrent block of ``kind`` on ``{path in the block: leaf}`` (the
+    leaves under ``attn/`` and ``mlp/`` nested): its output."""
+    from repro_torch.models.blocks import RECURRENT, LayerSpec
+
+    p = {}
+    for k, v in flat.items():
+        *dirs, name = k.split("/")
+        node = p
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[name] = v
+    B, S = x.shape[:2]
+    pos = torch.arange(S)[None].expand(B, -1)
+    return RECURRENT[kind](p, x, LayerSpec(kind), cfg, positions=pos)[0]
+
+
 def _moe_blocks(task, rank):
     """Each case's MoE layer (``models.moe.moe_apply``) on this rank's part,
     a world of ``N`` ranks: ``shards`` (the batch's rows cut into ``N``
@@ -819,7 +887,7 @@ def _protocol(task, rank):
 
 TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "optim": _optim,
          "optim_one": _optim_one, "losses": _losses, "tp_step": _tp_step, "tp_blocks": _tp_blocks,
-         "moe_blocks": _moe_blocks,
+         "moe_blocks": _moe_blocks, "recurrent_blocks": _recurrent_blocks,
          "collectives": _collectives, "slots": _slots,
          "save": _save, "restore": _restore, "resume": _resume, "mesh_ckpt": _mesh_ckpt,
          "protocol": _protocol}
