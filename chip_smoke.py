@@ -372,21 +372,27 @@ Phases, each failing the run on error:
     ``python3 chip_smoke.py --moe-mesh-phase`` runs the build and this phase
     alone.
 43. the recurrent blocks on the mesh as the reference's rules cut them
-    (slice 18), in phase 35's two processes after phase 42, (data=1,
-    model=2), production4bit with SR, 2 steps of batch 8 x seq 128:
-    xlstm-125m whole (its mLSTM and sLSTM on 2 of the 4 heads a rank) and
-    hymba-1.5b at full width and 4 of its 32 layers (its SSM on 8 of the 16
-    states a rank, ``ssm_dt`` row-parallel; its attention whole: 25 heads);
-    the oracle is the same run in one process on the card, made before the
-    ranks start and freed. The logged losses equal on both ranks and within
-    1e-4 relative of the oracle's, each rank's state bytes equal to its
-    plan's, the collective bytes each step recorded equal to
-    ``MeshStep.reckon``'s (on ``meta``) and to the prediction
-    (``RECURRENT_MESH_RECKONED``), each B1 pass launched as often as in the
-    oracle (on the rank's tiles) and no B2/B3, the largest layer a rank
-    gathers equal to the prediction (``RECURRENT_MESH_GATHERED``). Prints
-    each step's split into compute, collective and update, each rank's
-    peak, and the gathered layer and collective bytes before the split.
+    (slice 18), with the ``embed``-cut fallbacks (slice 19), in phase 35's
+    two processes after phase 42, (data=1, model=2), production4bit with
+    SR, 2 steps of batch 8 x seq 128: xlstm-125m whole (its mLSTM and sLSTM
+    on 2 of the 4 heads a rank) and hymba-1.5b at full width and 4 of its
+    32 layers (its SSM on 8 of the 16 states a rank, ``ssm_dt``
+    row-parallel; its attention row-parallel: 25 heads, ``wq`` cut on its
+    800 of 1600 rows a rank; its vocabulary of 32,001 cut on the width: the
+    lookup column-parallel, the cross entropy row-parallel); the oracle is
+    the same run in one process on the card, made before the ranks start
+    and freed. The logged losses equal on both ranks and within 1e-4
+    relative of the oracle's, each rank's state bytes equal to its plan's,
+    the collective bytes each step recorded equal to ``MeshStep.reckon``'s
+    (on ``meta``) and to the prediction (``RECURRENT_MESH_RECKONED``), each
+    B1 pass launched as often as in the oracle (on the rank's tiles) and no
+    B2/B3, the largest layer and the top-level leaves a rank gathers equal
+    to the prediction (``RECURRENT_MESH_GATHERED``,
+    ``RECURRENT_MESH_TOP``), and for hymba-1.5b each rank's calls of the
+    three ``embed``-cut modes (``tensor_parallel.CALLS``) above zero.
+    Prints each step's split into compute, collective and update, each
+    rank's peak, and the gathered layer and collective bytes before the
+    recurrent split and before the fallbacks.
     ``python3 chip_smoke.py --recurrent-mesh-phase`` runs the build and this
     phase alone.
 
@@ -714,11 +720,18 @@ RECURRENT_MESH_BATCH, RECURRENT_MESH_SEQ = 8, 128
 RECURRENT_MESH_RTOL = 1e-4
 # the largest layer a rank gathers (fp32) and one step's collective bytes a
 # rank (MeshStep.reckon on meta, PERF.md section 6), and both before the
-# recurrent leaves split (every one gathered whole over the model axis)
-RECURRENT_MESH_GATHERED = {"xlstm-125m": 11_802_624, "hymba-1.5b": 95_440_300}
-RECURRENT_MESH_RECKONED = {"xlstm-125m": 610_551_232, "hymba-1.5b": 1_644_331_152}
+# recurrent leaves split (every one gathered whole over the model axis) and
+# before the embed-cut fallbacks split (hymba's attention, embed and head
+# gathered whole); the top-level leaves a rank gathers (fp32)
+RECURRENT_MESH_GATHERED = {"xlstm-125m": 11_802_624, "hymba-1.5b": 83_152_300}
+RECURRENT_MESH_RECKONED = {"xlstm-125m": 610_551_232, "hymba-1.5b": 1_781_304_976}
 RECURRENT_MESH_BEFORE = {"xlstm-125m": (18_880_512, 647_563_264),
                          "hymba-1.5b": (113_440_300, 1_562_871_952)}
+RECURRENT_MESH_FALLBACK_BEFORE = {"hymba-1.5b": (95_440_300, 1_644_331_152)}
+RECURRENT_MESH_TOP = {"xlstm-125m": 154_536_960, "hymba-1.5b": 204_812_800}
+# the embed-cut modes each rank must run (tensor_parallel.CALLS)
+RECURRENT_MESH_MODES = {"hymba-1.5b": ("row_parallel_attention", "column_parallel_lookup",
+                                       "row_parallel_cross_entropy")}
 # the parts of the mesh phases that run in phase 35's two processes, in
 # order: phases 35, 36, 40, 39, 42 and 43
 MESH_PARTS = ("train", "all_reduce", "tp", "optim", "moe", "recurrent")
@@ -3493,6 +3506,14 @@ def _gathered_layer(ms):
     return max(stacks.values())
 
 
+def _gathered_top(ms):
+    """The top-level leaves a rank of the mesh step ``ms`` holds gathered
+    through the step (fp32): its model shard of a split leaf, any other
+    leaf whole."""
+    return sum(math.prod(shape) * 4 // (ms.run.n_tp if ms.split[k] is not None else 1)
+               for k, shape in ms.shapes.items() if not k.startswith(("decoder/", "encoder/")))
+
+
 def _reckoned(cfg, opt, key, layout, rank, batch):
     """The collective bytes of one step of rank ``rank`` on ``layout``,
     reckoned with no world on its ``meta`` parts (``MeshStep.reckon``;
@@ -3622,13 +3643,16 @@ def _recurrent_mesh_oracle(dev, counters):
 def _mesh_recurrent(rank, dev, counters):
     """Phase 43 in one rank: each arch of ``RECURRENT_MESH`` on the
     ``RECURRENT_MESH_LAYOUT`` mesh, its recurrent blocks on the rank's heads,
-    states or rows; its steps counted from 0 just before and read just
+    states or rows, its attention, lookup and cross entropy in the
+    ``embed``-cut modes where the rules cut those leaves on ``embed``; its
+    steps and the modes' calls counted from 0 just before and read just
     after; its collective bytes reckoned on ``meta``."""
     import torch
 
     from repro_torch.core.optimizers import state_nbytes
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_model, named_params, param_axes
+    from repro_torch.sharding import tensor_parallel as tp_lib
     from repro_torch.sharding.specs import plan_nbytes
     from repro_torch.train.train_loop import build_train_step, make_train_state, shard_train_state
 
@@ -3648,11 +3672,13 @@ def _mesh_recurrent(rank, dev, counters):
                "plan_bytes": plan_nbytes(opt.init(meta), ms.state_plan, ms.run.coord,
                                          ms.run.sizes),
                "param_bytes": sum(p.numel() * 4 for p in state.params.values()),
-               "gathered_layer_bytes": _gathered_layer(ms)}
+               "gathered_layer_bytes": _gathered_layer(ms),
+               "gathered_top_bytes": _gathered_top(ms)}
         batches = [data.batch_at(t) for t in range(RECURRENT_MESH_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _reset(counters)
+        tp_lib.CALLS.update(dict.fromkeys(tp_lib.CALLS, 0))
         steps = []
         for t, b in enumerate(batches):
             batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
@@ -3662,7 +3688,7 @@ def _mesh_recurrent(rank, dev, counters):
             torch.cuda.synchronize()
             steps.append({"step": t, "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
                           **fn.times})
-        res.update(launches=_read(counters), steps=steps,
+        res.update(launches=_read(counters), calls=dict(tp_lib.CALLS), steps=steps,
                    peak_bytes=torch.cuda.max_memory_allocated(dev),
                    state_bytes_after=state_nbytes(state.opt_state))
         del model, state, fn, ms, metrics, batch
@@ -3941,6 +3967,12 @@ def _check_mesh_recurrent(ranks, oracle, oracle_seconds):
             if res["gathered_layer_bytes"] != RECURRENT_MESH_GATHERED[arch]:
                 fail(f"{what}: gathered layer {res['gathered_layer_bytes']:,} B, the prediction "
                      f"{RECURRENT_MESH_GATHERED[arch]:,}")
+            if res["gathered_top_bytes"] != RECURRENT_MESH_TOP[arch]:
+                fail(f"{what}: gathered top-level leaves {res['gathered_top_bytes']:,} B, the "
+                     f"prediction {RECURRENT_MESH_TOP[arch]:,}")
+            idle = [m for m in RECURRENT_MESH_MODES.get(arch, ()) if res["calls"][m] <= 0]
+            if idle:
+                fail(f"{what}: the embed-cut modes {idle} never ran ({res['calls']})")
             losses = [s["loss"] for s in res["steps"]]
             if losses != [s["loss"] for s in rs[0]["steps"]]:
                 fail(f"{what}: losses {losses} differ from rank 0's")
@@ -3966,13 +3998,22 @@ def _check_mesh_recurrent(ranks, oracle, oracle_seconds):
                       f"{1e3 * (s['update_s'] - s['collective_update_s']):.1f} ms; "
                       f"{s['collective_bytes']:,} B through the collectives)")
             before_layer, before_bytes = RECURRENT_MESH_BEFORE[arch]
+            fallback = RECURRENT_MESH_FALLBACK_BEFORE.get(arch)
             print(f"{what}: {res['split']} leaves split over model, {res['gathered']} gathered "
                   f"whole; gathered layer {res['gathered_layer_bytes']:,} B (before the split "
-                  f"{before_layer:,}); collectives {res['reckoned']:,} B a step (before "
-                  f"{before_bytes:,}); state_bytes {res['state_bytes']:,} (the plan's), "
-                  f"param_bytes {res['param_bytes']:,}, peak {res['peak_bytes']:,} B "
-                  f"({res['peak_bytes'] / 1e9:.2f} GB); launches {res['launches']}")
+                  f"{before_layer:,}"
+                  + ("" if fallback is None else f"; before the fallbacks {fallback[0]:,}")
+                  + f"), top-level {res['gathered_top_bytes']:,} B; collectives "
+                  f"{res['reckoned']:,} B a step (before {before_bytes:,}"
+                  + ("" if fallback is None else f"; before the fallbacks {fallback[1]:,}")
+                  + f"); state_bytes {res['state_bytes']:,} (the plan's), param_bytes "
+                  f"{res['param_bytes']:,}, peak {res['peak_bytes']:,} B "
+                  f"({res['peak_bytes'] / 1e9:.2f} GB); launches {res['launches']}; embed-cut "
+                  f"mode calls {res['calls']}")
         out["archs"][arch] = rs
+    for r in range(len(ranks)):
+        peak = max(ranks[r]["recurrent"][arch]["peak_bytes"] for arch, _ in RECURRENT_MESH)
+        print(f"recurrent mesh (phase 43) rank {r}: peak {peak:,} B ({peak / 1e9:.2f} GB)")
     out["launches"] = launches
     out["oracle_launches"] = {k: sum(o["launches"][k] for o in oracle.values())
                               for k in next(iter(oracle.values()))["launches"]}

@@ -13,8 +13,8 @@ a new temporary one), never a fixed port. The backend is NCCL when each
 rank has a card of its own and gloo on the CPU or when the ranks share a
 card (the first line says which); under gloo the collectives copy CUDA
 tensors through host memory; it also counts the leaves that compute
-tensor-parallel on the model axis (heads, mlp columns, vocab rows:
-``sharding.tensor_parallel``) and those gathered whole. Rank 0 prints the
+tensor-parallel on the model axis (heads or rows, mlp columns, vocab rows
+or width columns: ``sharding.tensor_parallel``) and those gathered whole. Rank 0 prints the
 step lines and every rank's
 state, parameter and peak bytes and checkpoint times. The modality-stub
 archs (whisper-large-v3, qwen2-vl-2b) are refused, as the reference's CLI

@@ -299,15 +299,23 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = 
     inputs enter the split (their gradients summed over the model group),
     as do the whole leaves used on the rank's heads only (``q_norm``,
     ``k_norm``, whole kv weights), and ``wo``'s partial product is summed
-    over the group.
+    over the group. A ``wq`` with fewer rows than ``cfg.d_model`` is this
+    rank's rows (row-parallel, where the model axis does not divide the
+    heads): q, and k/v from ``wk``/``wv`` cut alike, are the fp32 sums of
+    the products of the rank's columns of the input (one
+    ``tensor_parallel.own`` for the three, the source's own for
+    cross-attention), rounded once; the attention runs whole on every rank
+    on the sums; ``wo``, cut on its output dim, gives the rank's columns of
+    the output from the entered attention output, joined over the group.
     """
     tp = tp_lib.current()
     split = tp is not None and p["wq"].shape[1] != cfg.num_heads
+    rows = tp is not None and p["wq"].shape[0] != cfg.d_model
     wk, wv = p["wk"], p["wv"]
     q_norm, k_norm = (p[k] if k in p else None for k in ("q_norm", "k_norm"))
+    if (split or rows) and cache is not None:
+        raise ValueError("tensor-parallel attention is the train step's: no cache")
     if split:
-        if cache is not None:
-            raise ValueError("tensor-parallel attention is the train step's: no cache")
         x = tp_lib.enter(x, tp)
         kv_source = None if kv_source is None else tp_lib.enter(kv_source, tp)
         if wk.shape[1] == cfg.num_kv_heads:
@@ -316,11 +324,19 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = 
             wk, wv = tp_lib.enter(wk, tp)[:, idx], tp_lib.enter(wv, tp)[:, idx]
         q_norm, k_norm = (None if t is None else tp_lib.enter(t, tp) for t in (q_norm, k_norm))
     src = x if kv_source is None else kv_source
-    q = dense(x, p["wq"], "bsd,dhe->bshe")
+    if rows:  # the rank's columns of the input: one join of each gradient
+        tp_lib.CALLS["row_parallel_attention"] += 1
+        part = tp_lib.own(x, tp)
+        src_part = part if kv_source is None else tp_lib.own(kv_source, tp)
+        q = _rows(x, p["wq"], "bsd,dhe->bshe", tp, cfg.d_model, part)
+        k = _rows(src, wk, "bsd,dhe->bshe", tp, cfg.d_model, src_part)
+        v = _rows(src, wv, "bsd,dhe->bshe", tp, cfg.d_model, src_part)
+    else:
+        q = dense(x, p["wq"], "bsd,dhe->bshe")
+        k = dense(src, wk, "bsd,dhe->bshe")
+        v = dense(src, wv, "bsd,dhe->bshe")
     if q_norm is not None:
         q = _qk_normalize(q, q_norm)
-    k = dense(src, wk, "bsd,dhe->bshe")
-    v = dense(src, wv, "bsd,dhe->bshe")
     if k_norm is not None:
         k = _qk_normalize(k, k_norm)
     if positions is not None:
@@ -340,6 +356,8 @@ def apply_attention(p, x: torch.Tensor, cfg, *, window: int = 0, causal: bool = 
             attn_lib.cache_prefill(cache, k, v, kv_lengths)
     if split:
         return tp_lib.row_parallel(out, p["wo"], "bshe,hed->bsd", tp, COMPUTE_DTYPE)
+    if rows:
+        return _columns(out, p["wo"], cfg.d_model, "bshe,hed->bsd", tp, False)
     return torch.einsum("bshe,hed->bsd", out.to(COMPUTE_DTYPE), p["wo"].to(COMPUTE_DTYPE))
 
 

@@ -1,7 +1,9 @@
 """Shared layers: rmsnorm, layernorm, embedding lookup, RoPE (full,
 half-dim and Qwen2-VL's M-RoPE), whisper's sinusoidal positions, softcap,
-chunked cross entropy, and the vocab-parallel lookup and cross entropy of
-the mesh step's tensor-parallel compute (``sharding.tensor_parallel``).
+chunked cross entropy, and the mesh step's tensor-parallel lookups and
+cross entropies (``sharding.tensor_parallel``): vocab-parallel where the
+model axis cuts the vocabulary, else column-parallel lookup and
+row-parallel cross entropy on the model's width.
 
 Port of ``repro/models/layers.py``. Compute is bf16 with fp32 master
 weights cast in (``COMPUTE_DTYPE``, as ``layers.py:34``); norms, RoPE, the
@@ -32,6 +34,8 @@ __all__ = [
     "chunked_cross_entropy",
     "vocab_parallel_lookup",
     "vocab_parallel_cross_entropy",
+    "column_parallel_lookup",
+    "row_parallel_cross_entropy",
 ]
 
 INIT_STD = 0.02
@@ -129,19 +133,24 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
-                          logit_cap: float = 0.0, chunk: int = 512) -> torch.Tensor:
+                          logit_cap: float = 0.0, chunk: int = 512, logits_of=None
+                          ) -> torch.Tensor:
     """Mean causal-LM cross entropy over unmasked labels (-1 = masked),
     computing logits for ``chunk`` positions at a time. Each chunk is
     recomputed in the backward (``remat.recomputed``, as the reference's
     ``jax.checkpoint`` of its chunk body), so its fp32 logits ``(B, chunk,
-    V)`` are never saved: only the running sums and the chunk's inputs."""
+    V)`` are never saved: only the running sums and the chunk's inputs.
+    ``logits_of(xc, head_c)`` gives a chunk's fp32 logits (by default the
+    bf16 product)."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
     head_c = head.to(COMPUTE_DTYPE)
+    if logits_of is None:
+        logits_of = lambda xc, w: torch.einsum("bcd,dv->bcv", xc, w).to(torch.float32)
 
     def body(loss_sum, count, xc, lc):
         xc, lc = xc.to(COMPUTE_DTYPE), lc.long()
-        logits = torch.einsum("bcd,dv->bcv", xc, head_c).to(torch.float32)
+        logits = logits_of(xc, head_c)
         if logit_cap > 0:
             logits = logit_cap * torch.tanh(logits / logit_cap)
         lse = torch.logsumexp(logits, dim=-1)
@@ -210,3 +219,31 @@ def vocab_parallel_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: to
         loss_sum, count = recomputed(body, loss_sum, count, x[:, s0:s0 + chunk],
                                      labels[:, s0:s0 + chunk])
     return loss_sum / torch.clamp_min(count, 1.0)
+
+
+def column_parallel_lookup(table: torch.Tensor, ids: torch.Tensor, tp: "tp_lib.TPRun"
+                           ) -> torch.Tensor:
+    """``embed_lookup`` with this rank's columns of the table (its ``D/M``
+    shard of the width, ``tp.index``): each token's columns, joined over the
+    model group (``tensor_parallel.collect``; the one-process lookup, bit
+    for bit); the gradient is the rank's columns."""
+    tp_lib.CALLS["column_parallel_lookup"] += 1
+    return tp_lib.collect(embed_lookup(table, ids), tp, -1)
+
+
+def row_parallel_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                               tp: "tp_lib.TPRun", *, logit_cap: float = 0.0,
+                               chunk: int = 512) -> torch.Tensor:
+    """``chunked_cross_entropy`` with this rank's rows of the head (its
+    ``D/M`` shard of the width, ``tp.index``): each chunk's logits are the
+    fp32 partial products of the rank's columns of ``x`` (one
+    ``tensor_parallel.own`` for all chunks), summed over the model group in
+    ascending model rank and rounded to the compute type once, as the
+    one-process product is; the softcap, the log-sum-exp and the gold logit
+    run whole on every rank, so the loss is bit-equal across the group.
+    Each chunk is recomputed in the backward, its sum with it."""
+    tp_lib.CALLS["row_parallel_cross_entropy"] += 1
+    return chunked_cross_entropy(
+        tp_lib.own(x, tp), head, labels, logit_cap=logit_cap, chunk=chunk,
+        logits_of=lambda xc, w: tp_lib.row_parallel(xc, w, "bcd,dv->bcv", tp,
+                                                    COMPUTE_DTYPE).to(torch.float32))

@@ -59,7 +59,9 @@ from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     INIT_STD,
     chunked_cross_entropy,
+    column_parallel_lookup,
     embed_lookup,
+    row_parallel_cross_entropy,
     sinusoidal_at,
     sinusoidal_positions,
     softcap,
@@ -374,12 +376,17 @@ def params_loss(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
     ``_unit_layers`` over ``params``; the mesh step passes its gather
     hook). Under ``sharding.tensor_parallel.use``, an ``embed`` or head
     narrower than the vocabulary is this rank's vocab shard: the lookup and
-    the cross entropy run vocab-parallel."""
+    the cross entropy run vocab-parallel; one narrower than the model's
+    width is this rank's share of it: the lookup runs column-parallel, the
+    cross entropy row-parallel."""
     x, aux = _forward(params, cfg, batch, unit_layers)
     head, tp = _head(params, cfg), tp_lib.current()
     if tp is not None and head.shape[1] != cfg.vocab_size:  # this rank's vocab shard
         loss = vocab_parallel_cross_entropy(x, head, batch["labels"], tp,
                                             logit_cap=cfg.final_softcap, chunk=cfg.ce_chunk)
+    elif tp is not None and head.shape[0] != cfg.d_model:  # this rank's rows of the head
+        loss = row_parallel_cross_entropy(x, head, batch["labels"], tp,
+                                          logit_cap=cfg.final_softcap, chunk=cfg.ce_chunk)
     else:
         loss = chunked_cross_entropy(x, head, batch["labels"], logit_cap=cfg.final_softcap,
                                      chunk=cfg.ce_chunk)
@@ -433,6 +440,8 @@ def _inputs(params: Mapping[str, torch.Tensor], cfg: ModelConfig,
         x = batch["embeds"].to(COMPUTE_DTYPE)
     elif tp is not None and params["embed"].shape[0] != cfg.vocab_size:  # its vocab shard
         x = vocab_parallel_lookup(params["embed"], batch["tokens"], tp)
+    elif tp is not None and params["embed"].shape[1] != cfg.d_model:  # its columns
+        x = column_parallel_lookup(params["embed"], batch["tokens"], tp)
     else:
         x = embed_lookup(params["embed"], batch["tokens"])
     B, S = x.shape[:2]

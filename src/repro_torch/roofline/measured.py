@@ -60,9 +60,10 @@ the MoE aux loss's backward); a further layer is a probe.
   the data size, ``batch_shardings``' rule) at its tensor-parallel share
   of the ``model`` axis (``compute_split: "data+model"`` where some leaf
   is split, ``sharding.tensor_parallel.placement``): the model and its
-  probes run on the model shard of rank 0 of a model group (its heads,
-  mlp columns, experts or expert columns, recurrent heads, states or rows
-  and vocab rows; every other leaf whole), inside ``tensor_parallel.use``
+  probes run on the model shard of rank 0 of a model group (its heads or
+  attention rows, mlp columns, experts or expert columns, recurrent heads,
+  states or rows, and vocab rows or columns of the width; every other leaf
+  whole), inside ``tensor_parallel.use``
   with the collectives ``without_world``, so the model group's sums and
   the expert outputs' gathers (the all-gathers' empty results, the adds in
   model rank order) are counted where they run. An MoE layer whose token groups span data

@@ -14,6 +14,14 @@ The placement rule (``placement``), per leaf, from the cut that
   else they are gathered whole and the rank takes the kv heads its q heads
   read (``kv_heads``); ``q_norm``/``k_norm`` stay whole; ``wo``'s product
   is a partial summed over the model group;
+* attention is row-parallel where ``wq`` and ``wo`` are cut on ``embed``
+  (the rules' last resort, where the axis does not divide the heads:
+  hymba's 25, whisper's 20 on 8 or 16): q, and k/v where ``wk``/``wv`` are
+  cut (on ``embed`` too), are summed from the products of the rank's
+  columns of the input (``own``; one join of its gradient for the three,
+  cross-attention's source its own); the attention runs whole on every
+  rank on the sums; ``wo`` cut on its output dim is column-parallel, its
+  input entered and the rank's ``D/M`` columns joined (``collect``);
 * an MLP is mlp-parallel where ``w1`` (and ``w3``) and ``w2`` are cut on
   ``mlp``; ``w2``'s product is a partial summed over the model group;
 * an MoE layer's experts are expert-parallel where ``w1``, ``w3`` and
@@ -26,7 +34,12 @@ The placement rule (``placement``), per leaf, from the cut that
 * ``embed`` cut on ``vocab`` gives a vocab-parallel lookup (an id outside
   the rank's rows gives a zero row; the rows are summed) and, as ``head``
   cut on ``vocab`` does, or a tied head, vocab-parallel cross entropy
-  (``models.layers``);
+  (``models.layers``); cut on ``embed`` (a vocabulary the axis does not
+  divide: hymba's 32,001, whisper's 51,866 on 4, 8 or 16), a
+  column-parallel lookup (the rank's ``D/M`` columns of each row, joined)
+  and, for ``head`` cut on ``embed`` or that tied head, row-parallel cross
+  entropy (each chunk's logits summed from the products of the rank's
+  columns of the input, the softcap and the log-sum-exp whole);
 * a recurrent block's own leaves (mLSTM, sLSTM, hymba's SSM heads) compute
   on whatever cut the rules give each (``models.blocks``): a cut output dim
   is column-parallel (the products joined over the model group where more
@@ -36,15 +49,25 @@ The placement rule (``placement``), per leaf, from the cut that
   are cut on ``heads``, on its states where ``ssm_B``/``ssm_C`` are cut on
   ``state`` (the fp32 partials of ``y`` summed), else whole on every rank;
 * every other leaf is gathered whole and computed the same on every rank
-  of the model group (norms, the MoE router, hymba's ``scale_attn`` and
-  ``scale_ssm``, an attention, MLP or experts whose widths the axis does
-  not divide).
+  of the model group (an MLP or experts whose widths the axis does not
+  divide). Of the leaves the rules cut on ``model``, three kinds stay
+  whole by use: the norms and hymba's ``scale_attn``/``scale_ssm``, which
+  scale the replicated stream on every rank; the MoE router, whose routing
+  runs whole on every model rank; and the ``wk``/``wv`` of a head-parallel
+  attention whose kv heads the axis does not divide (cut on ``embed`` by
+  the rules), of which each rank reads the kv heads its q heads use. That
+  last is a divergence from the reference's layout: gathering a layer's kv
+  weights moves far fewer bytes than summing a ``(B, S, Hkv, dh)`` fp32
+  partial over the group.
 
 A block knows it computes on a model shard by its leaves: inside ``use``,
-a ``wq`` narrower than the config's heads, a ``w1`` narrower than the MLP's
-width, an MoE ``w1`` with fewer experts than the router or narrower than
-the expert's width, an ``embed`` or head narrower than the vocabulary, a
-recurrent leaf narrower than its whole shape.
+a ``wq`` narrower than the config's heads (head-parallel) or than its
+width (row-parallel), a ``w1`` narrower than the MLP's width, an MoE ``w1``
+with fewer experts than the router or narrower than the expert's width, an
+``embed`` or head narrower than the vocabulary (vocab-parallel) or than
+the model's width (column-parallel lookup, row-parallel cross entropy), a
+recurrent leaf narrower than its whole shape. ``CALLS`` counts the calls
+of the three ``embed``-cut modes.
 
 The functions of the split: ``enter`` (identity forward, model-group sum
 backward) at a column-parallel input, and ``leave`` (model-group sum
@@ -79,12 +102,16 @@ import torch
 from repro_torch.comms.collectives import timed_gather
 from repro_torch.sharding.rules import spec_for
 
-__all__ = ["TPRun", "PARTIAL_DTYPE", "use", "current", "placement", "model_box", "enter",
+__all__ = ["TPRun", "PARTIAL_DTYPE", "CALLS", "use", "current", "placement", "model_box", "enter",
            "leave", "collect", "gather_last", "own", "group_max", "row_parallel", "kv_heads",
            "reckon_sums"]
 
 # the type of a row-parallel partial and of its sum over the model group
 PARTIAL_DTYPE = torch.float32
+
+# calls of the ``embed``-cut modes (each recompute a call too)
+CALLS = {"row_parallel_attention": 0, "column_parallel_lookup": 0,
+         "row_parallel_cross_entropy": 0}
 
 # the parent of a leaf, by the subtree that holds it
 _ATTENTION = ("attn", "self", "cross")
@@ -153,6 +180,8 @@ def placement(shapes: Mapping[str, Tuple[int, ...]], axes: Mapping[str, Tuple[st
         leaf = lambda n: f"{parent}/{n}"
         if kind in _ATTENTION and cuts(leaf("wq"), "heads") and cuts(leaf("wo"), "heads"):
             names = ["wq", "wo"] + [n for n in ("wk", "wv") if cuts(leaf(n), "kv_heads")]
+        elif kind in _ATTENTION and cuts(leaf("wq"), "embed") and cuts(leaf("wo"), "embed"):
+            names = ["wq", "wo"] + [n for n in ("wk", "wv") if cut[leaf(n)] is not None]
         elif (kind == "mlp" and cuts(leaf("w1"), "mlp") and cuts(leaf("w2"), "mlp")
               and (leaf("w3") not in shapes or cuts(leaf("w3"), "mlp"))):
             names = [n for n in ("w1", "w2", "w3") if leaf(n) in shapes]
@@ -167,8 +196,8 @@ def placement(shapes: Mapping[str, Tuple[int, ...]], axes: Mapping[str, Tuple[st
         parent, _, name = k.rpartition("/")
         if parent.rsplit("/", 1)[-1].startswith("sub") and name in _RECURRENT:
             out[k] = cut[k]
-    for k in ("embed", "head"):
-        if cuts(k, "vocab"):
+    for k in ("embed", "head"):  # on its vocabulary, or on its width
+        if k in cut:
             out[k] = cut[k]
     return out
 
@@ -379,6 +408,24 @@ def _recurrent_sums(cfg, split: Mapping[str, Optional[int]], shapes, prefix: str
     return fwd, bwd
 
 
+def _row_attention_sums(cfg, split: Mapping[str, Optional[int]], prefix: str, B: int, S: int,
+                        Skv: int, cross: bool, dtype: torch.dtype, M: int, forwards: int
+                        ) -> List[torch.Tensor]:
+    """The model group's collectives of one row-parallel attention
+    (``models.blocks.apply_attention`` below ``prefix``), as what each rank
+    gathers: forward (``forwards`` times), the fp32 partials of q, and of k
+    and v (over ``Skv``) where ``wk``/``wv`` are cut, and ``wo``'s columns
+    joined; backward, the joins of ``own``'s gradients (the input's, and the
+    source's for cross-attention) and the sum at ``wo``'s entered input."""
+    H, Hkv, dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    meta = lambda *shape, dt=dtype: torch.empty(shape, dtype=dt, device="meta")
+    kv = [n for n in ("wk", "wv") if split.get(prefix + n) is not None]
+    fwd = ([meta(B, S, H, dh, dt=PARTIAL_DTYPE)]
+           + [meta(B, Skv, Hkv, dh, dt=PARTIAL_DTYPE)] * len(kv) + [meta(B, S, D // M)])
+    bwd = [meta(B, S, D // M)] + ([meta(B, Skv, D // M)] if cross and kv else [])
+    return fwd * forwards + bwd + [meta(B, S, H, dh)]
+
+
 def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tuple[int, ...]],
                 batch: Mapping[str, torch.Tensor], dtype: torch.dtype, model: int = 1,
                 shards: Tuple[int, int] = (1, 0)) -> List[Tuple[torch.Tensor, str]]:
@@ -386,20 +433,23 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
     backward, as (an empty ``meta`` tensor of what each gathers, its group:
     ``"model"`` or ``"data"``) (``batch`` the rank's microbatch; ``split``
     the ``placement`` on a model axis of ``model``; ``shards`` the data
-    shards and this rank's index): per split attention, the partial of
-    ``wo``, the input's gradient (and the encoder output's, for
+    shards and this rank's index): per head-parallel attention, the
+    partial of ``wo``, the input's gradient (and the encoder output's, for
     cross-attention) and the gradients of the whole leaves it uses on its
-    heads; per split MLP, the partial of ``w2`` and the input's gradient;
+    heads; per row-parallel attention, its partials, joins and sums
+    (``_row_attention_sums``); per split MLP, the partial of ``w2`` and the input's gradient;
     per split recurrent block, its joins, partials and the backward's sums
     and joins (``_recurrent_sums``);
     per split MoE layer, the gathered expert outputs (or ``w2``'s partial)
     and the expert input's gradient; per MoE layer whose groups span data
     shards, the data group's gather of the routing's counts and
-    probability sums; the vocab-parallel lookup's rows; the cross
-    entropy's input gradient and per chunk the max, the sum of ``exp`` and
-    the gold logit. A layer's forward collectives (under ``cfg.remat``) and
-    a chunk's merges (always) run twice: their regions run again in the
-    backward."""
+    probability sums; the vocab-parallel lookup's rows, or the
+    column-parallel lookup's columns; the vocab-parallel cross entropy's
+    input gradient and per chunk the max, the sum of ``exp`` and the gold
+    logit, or the row-parallel cross entropy's join of ``own``'s gradient
+    and per chunk the partial logits. A layer's forward collectives (under
+    ``cfg.remat``) and a chunk's (always) run twice: their regions run
+    again in the backward."""
     from repro_torch.models.model import plan_scan_units
     from repro_torch.models.moe import moe_shard_groups
 
@@ -411,8 +461,10 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
     Se = batch["frames"].shape[1] if cfg.family == "encdec" else 0
     out: List[Tuple[torch.Tensor, str]] = []
     on_model = lambda ts: [(t, "model") for t in ts]
-    if cfg.input_mode == "tokens" and split.get("embed") is not None:
+    if cfg.input_mode == "tokens" and split.get("embed") == 0:  # the vocab rows summed
         out.append((act(S), "model"))
+    elif cfg.input_mode == "tokens" and split.get("embed") == 1:  # the columns joined
+        out.append((meta((B, S, D // model)), "model"))
     for root, blocks, s in (("encoder", cfg.encoder_blocks, Se), ("decoder", cfg.blocks, S)):
         for ui, unit in enumerate(plan_scan_units(blocks) if blocks else []):
             layer: List[Tuple[torch.Tensor, str]] = []
@@ -421,6 +473,11 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
                 for sub in _ATTENTION:
                     wq = f"{prefix}{sub}/wq"
                     if split.get(wq) is None:
+                        continue
+                    if split[wq] == 1:  # (L, D, H, dh) cut on its rows: row-parallel
+                        layer += on_model(_row_attention_sums(
+                            cfg, split, f"{prefix}{sub}/", B, s, Se if sub == "cross" else s,
+                            sub == "cross", dtype, model, forwards))
                         continue
                     layer += on_model([act(s, PARTIAL_DTYPE)] * forwards + [act(s)])
                     if sub == "cross":
@@ -451,10 +508,16 @@ def reckon_sums(cfg, split: Mapping[str, Optional[int]], shapes: Mapping[str, Tu
             out += layer * unit.repeat
     head = "embed" if cfg.tie_embeddings else "head"
     if split.get(head) is not None:
-        out.append((act(S), "model"))
+        # the head's width is cut: embed (V, D) on dim 1, head (D, V) on dim 0
+        rows = split[head] == (1 if cfg.tie_embeddings else 0)
+        out.append((meta((B, S, D // model)) if rows else act(S), "model"))
         chunk = min(cfg.ce_chunk, S)
         for s0 in range(0, S, chunk):
             c = min(chunk, S - s0)
-            # the chunk's merges, in its forward and again in its recompute
-            out += on_model([meta((B, c), torch.float32)] * 6)
+            # the chunk's partial logits, or its merges, in its forward and
+            # again in its recompute
+            if rows:
+                out += on_model([meta((B, c, cfg.vocab_size), PARTIAL_DTYPE)] * 2)
+            else:
+                out += on_model([meta((B, c), torch.float32)] * 6)
     return out

@@ -11,18 +11,20 @@ of every fp32 moment, of the packed codes, and its part of the scales.
 * Forward: the ranks of one model group (one data coordinate) compute one
   batch shard together, tensor-parallel on the ``model`` axis
   (``sharding.tensor_parallel``, the reference's ``TP_RULES`` split): each
-  computes its heads of every attention, its columns of every MLP, its
-  experts (or each expert's columns) of every MoE layer, its heads, states
-  or rows of every recurrent block and its vocab rows of the lookup and
-  the cross entropy, where the plan cuts those leaves on ``model``
-  (``placement``), and the partial results are summed (the experts'
-  outputs and column-cut products gathered) over the model group in
-  ascending model rank. Such a leaf is gathered over the rank's data group
-  only, into its model shard (with one data rank, the shard is the rank's
-  own part: no collective); every other leaf (norms, the MoE router,
-  hymba's scales, an attention, MLP or experts whose widths the axis does
-  not divide) is gathered whole over the world and computed alike on
-  every rank of the group. An MoE layer groups the global batch's tokens:
+  computes its heads (or, where the axis does not divide them, its rows)
+  of every attention, its columns of every MLP, its experts (or each
+  expert's columns) of every MoE layer, its heads, states or rows of every
+  recurrent block and its vocab rows (or its columns of the model's width)
+  of the lookup and the cross entropy, where the plan cuts those leaves on
+  ``model`` (``placement``), and the partial results are summed (the
+  experts' outputs and column-cut products gathered) over the model group
+  in ascending model rank. Such a leaf is gathered over the rank's data
+  group only, into its model shard (with one data rank, the shard is the
+  rank's own part: no collective); every other leaf (norms, the MoE
+  router, hymba's scales, the kv weights of a head-parallel attention
+  whose kv heads the axis does not divide, an MLP or experts whose widths
+  the axis does not divide) is gathered whole over the world and computed
+  alike on every rank of the group. An MoE layer groups the global batch's tokens:
   where a group spans data shards, its routing counts are exchanged over
   the data group (``models.moe``).
   Top-level leaves (embed, head, final norms) are gathered before the

@@ -16,8 +16,9 @@ the port's one-process gradients):
   split attention;
 * hymba-1.5b with 5 heads at d_model 80 on (1, 2): the full config's case,
   the SSM state-parallel (4 of 8 states a rank, ``ssm_dt`` row-parallel),
-  its attention whole; with the reference's layer remat on in both
-  packages, so each layer's forward collectives run twice.
+  its attention row-parallel (5 heads on 2: ``wq`` cut on ``embed``); with
+  the reference's layer remat on in both packages, so each layer's forward
+  collectives run twice.
 
 Held to ``tests/test_torch_tp_archs.py``'s bars: the losses within 2e-3 of
 the reference's jitted step on the same layout and bit-equal on every
@@ -73,7 +74,7 @@ WANT = {
                         "scale_ssm": None, "attn/wq": 2}},
     "hymba5": {"hymba": {"ssm_in": 2, "ssm_dt": 1, "ssm_dt_bias": None, "ssm_B": 3,
                          "ssm_C": 3, "ssm_A_log": None, "ssm_D": None, "ssm_out": 1,
-                         "scale_attn": None, "scale_ssm": None, "attn/wq": None}},
+                         "scale_attn": None, "scale_ssm": None, "attn/wq": 1}},
 }
 WANT["xlstm_2x2"] = WANT["xlstm"]
 
@@ -189,8 +190,9 @@ def test_recurrent_leaves_split(name, results):
 
 # the largest layer a rank gathers on the single-pod plan (fp32): before
 # the recurrent leaves split, and now (xlstm's sLSTM layer, its r_gates
-# whole: 4 heads on 16; hymba's attention whole: 25 heads on 16)
-GATHERED = {XLSTM: (14_751_744, 3_692_544), HYMBA: (67_206_700, 33_456_700)}
+# whole: 4 heads on 16; hymba's layer with its attention row-parallel: 25
+# heads on 16, 33,456,700 B while it was gathered whole)
+GATHERED = {XLSTM: (14_751_744, 3_692_544), HYMBA: (67_206_700, 10_416_700)}
 
 
 @pytest.mark.parametrize("arch", [XLSTM, HYMBA])

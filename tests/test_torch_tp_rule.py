@@ -7,17 +7,21 @@ splits nothing.
 gathered whole, every cut taken from the reference's ``spec_for``
 (``repro/sharding/rules.py``, given the mesh's axis sizes): an attention
 splits its heads where ``wq`` and ``wo`` are cut on ``heads`` (and ``wk``/
-``wv`` where they are cut on ``kv_heads``), an MLP its columns where
-``w1``/``w3``/``w2`` are cut on ``mlp``, an MoE layer its experts where
-its ``w1``/``w3``/``w2`` are cut on ``experts`` and else each expert's
-columns where they are cut on ``mlp``, ``embed`` and ``head`` their
-vocabulary where cut on ``vocab``, a recurrent block's own leaves (mLSTM,
-sLSTM, hymba's SSM heads) wherever they are cut; everything else (norms,
-MoE routers, hymba's ``scale_attn``/``scale_ssm``) is gathered. Named
-cases: chatglm3-6b's 2 kv heads on 4 ranks and internlm2-1.8b's 8 on 16
-(kv weights gathered, cut on ``embed`` by the reference), hymba-1.5b's 25
-heads (its attention gathered, its MLP split, its SSM cut on its states and
-``ssm_dt`` on its rows), whisper-large-v3's 20 heads on 16.
+``wv`` where they are cut on ``kv_heads``) and is row-parallel where
+``wq`` and ``wo`` are cut on ``embed`` (``wk``/``wv`` wherever they are
+cut), an MLP its columns where ``w1``/``w3``/``w2`` are cut on ``mlp``, an
+MoE layer its experts where its ``w1``/``w3``/``w2`` are cut on
+``experts`` and else each expert's columns where they are cut on ``mlp``,
+``embed`` and ``head`` wherever they are cut (their vocabulary, else their
+width), a recurrent block's own leaves (mLSTM, sLSTM, hymba's SSM heads)
+wherever they are cut; everything else (norms, MoE routers, hymba's
+``scale_attn``/``scale_ssm``) is gathered. Named cases: chatglm3-6b's 2 kv
+heads on 4 ranks and internlm2-1.8b's 8 on 16 (kv weights gathered, cut on
+``embed`` by the reference), hymba-1.5b's 25 heads (its attention
+row-parallel, its vocabulary of 32,001 cut on the width, its MLP split, its
+SSM cut on its states and ``ssm_dt`` on its rows), whisper-large-v3's 20
+heads on 16 (row-parallel) and on 4 (head-parallel, its vocabulary of
+51,866 cut on the width).
 GQA: the kv heads a rank's q heads read (``kv_heads``) are its own slice
 wherever the model axis divides the kv heads, and map every q head onto
 its kv head (``h // G``) wherever it does not.
@@ -75,8 +79,11 @@ def _expected(shapes, axes, mesh):
         sub = parent.rsplit("/", 1)[-1] if parent else ""
         if sub in ("attn", "self", "cross"):
             heads = on(f"{parent}/wq", "heads") and on(f"{parent}/wo", "heads")
+            rows = on(f"{parent}/wq", "embed") and on(f"{parent}/wo", "embed")
             if heads and (leaf in ("wq", "wo") or (leaf in ("wk", "wv")
                                                    and on(k, "kv_heads"))):
+                want[k] = cut[k]
+            elif rows and leaf in ("wq", "wo", "wk", "wv"):
                 want[k] = cut[k]
         elif sub == "mlp":
             names = [n for n in ("w1", "w3", "w2") if f"{parent}/{n}" in shapes]
@@ -86,7 +93,7 @@ def _expected(shapes, axes, mesh):
             if any(all(on(f"{parent}/{n}", axis) for n in ("w1", "w3", "w2"))
                    for axis in ("experts", "mlp")):
                 want[k] = cut[k]
-        elif k in ("embed", "head") and on(k, "vocab"):
+        elif k in ("embed", "head"):
             want[k] = cut[k]
         elif sub.startswith("sub") and leaf in RECURRENT:
             want[k] = cut[k]
@@ -131,10 +138,11 @@ def test_named_cases():
         assert kv["wq"] == 2 and kv["wk"] is None and got["embed"] == 0 and got["head"] == 1
     kv, _ = _kv_of("internlm2-1.8b", (1, 4))
     assert kv["wk"] == 2 and kv["wv"] == 2
-    _, got = _kv_of("hymba-1.5b", (1, 2))  # 25 heads: attention gathered, mlp split
-    assert all(d is None for k, d in got.items() if "/attn/" in k)
+    # 25 heads: attention row-parallel (every weight on its embed dim), mlp split
+    attn, got = _kv_of("hymba-1.5b", (1, 2))
+    assert (attn["wq"], attn["wk"], attn["wv"], attn["wo"]) == (1, 1, 1, 3)
     assert all(d is not None for k, d in got.items() if "/mlp/" in k)
-    assert got["embed"] is None  # 32001 rows
+    assert got["embed"] == 1 and got["head"] == 0  # 32001 rows: cut on the width
     # its SSM: B and C on their 16 states, dt on its rows, the per-head
     # vectors and the scales whole
     ssm = {k.rsplit("/", 1)[-1]: d for k, d in got.items() if k.startswith("decoder/0/sub0/")}
@@ -143,11 +151,15 @@ def test_named_cases():
     assert ssm["ssm_D"] is ssm["ssm_A_log"] is ssm["scale_ssm"] is None
     whisper = T.placement(_shapes(get_config("whisper-large-v3")),
                           param_axes(get_config("whisper-large-v3")), {"data": 1, "model": 16})
-    assert all(d is None for k, d in whisper.items() if "/self/" in k or "/cross/" in k)
+    # 20 heads on 16: every attention row-parallel, its vocabulary on the width
+    assert all(d == (3 if k.endswith("/wo") else 1) for k, d in whisper.items()
+               if "/self/" in k or "/cross/" in k or "/attn/" in k)
+    assert whisper["embed"] == 1
     whisper4 = T.placement(_shapes(get_config("whisper-large-v3")),
                            param_axes(get_config("whisper-large-v3")), {"data": 1, "model": 4})
     assert all(d is not None for k, d in whisper4.items()
                if k.endswith(("/self/wq", "/cross/wo", "encoder/0/sub0/attn/wq")))
+    assert whisper4["encoder/0/sub0/attn/wq"] == 2 and whisper4["embed"] == 1
 
 
 @pytest.mark.parametrize("heads,kv", [(16, 8), (32, 2), (12, 2), (12, 4), (25, 5)])

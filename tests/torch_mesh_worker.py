@@ -6,8 +6,8 @@ in every rank, and returns each rank's results (``start`` and ``collect``
 split it, so the caller can work while the ranks run). A task is a dict with a
 ``kind`` (``allreduce``, ``reduce``, ``step``, ``optim``, ``optim_one``, ``losses``,
 ``tp_step``, ``tp_blocks``, ``moe_blocks``, ``recurrent_blocks``,
-``collectives``, and the checkpoint kinds ``save``, ``restore``, ``resume``, ``mesh_ckpt``,
-``protocol``) and its inputs; a task
+``fallback_blocks``, ``collectives``, and the checkpoint kinds ``save``,
+``restore``, ``resume``, ``mesh_ckpt``, ``protocol``) and its inputs; a task
 with ``after`` waits until that file exists (the caller writes its inputs
 meanwhile). Each rank runs on one CPU thread (pytest runs several workers
 at once).
@@ -329,7 +329,8 @@ def _tp_step(task, rank):
     each of ``task["meshes"]``: the gradient of the first batch, gathered
     whole (``forward_backward``); 2 steps end to end with each step's
     ``STATS`` bytes and recorded calls, and ``MeshStep.reckon`` of the same
-    step on this rank's ``meta`` parts; the leaves the step splits; with
+    step on this rank's ``meta`` parts; the leaves the step splits; the
+    calls of the ``embed``-cut modes in the steps (``CALLS``); with
     ``fp32``, the steps' (loss, aux) in fp32 compute; ``partial: "bf16"``
     keeps the row-parallel partials in bf16; ``overrides`` replaces fields
     of the reduced config (``remat``); ``whole_params`` returns the
@@ -383,6 +384,7 @@ def _tp_step(task, rank):
         del g
         opt, state, fn = fresh()
         losses, aux, stats, recorded = [], [], [], []
+        T.CALLS.update(dict.fromkeys(T.CALLS, 0))
         for b in batches:
             with recording() as rec:
                 state, metrics = fn(state, b)
@@ -390,7 +392,8 @@ def _tp_step(task, rank):
             aux.append(float(metrics["aux_loss"]))
             stats.append(fn.times["collective_bytes"])
             recorded.append(list(rec))
-        res.update(losses=losses, aux=aux, stats_bytes=stats, recorded=recorded)
+        res.update(losses=losses, aux=aux, stats_bytes=stats, recorded=recorded,
+                   calls=dict(T.CALLS))
         if task.get("whole_params"):  # the parameters after the steps, whole
             res["params"] = ms.whole_params(state.params)
         if task.get("fp32"):  # the same steps in fp32 compute
@@ -500,7 +503,7 @@ def _tp_blocks(task, rank):
 
 def recurrent_cuts(kind, shapes, world):
     """``{leaf: the dim a model axis of ``world`` cuts, or None}`` of one
-    recurrent block's leaves (``shapes``: ``{path in the block: shape}``),
+    block's leaves (``shapes``: ``{path in the block: shape}``),
     by the placement rule (``tensor_parallel.placement`` on the leaves
     stacked as one layer)."""
     from repro_torch.models.axes import leaf_axes
@@ -564,6 +567,95 @@ def recurrent_apply(kind, flat, x, cfg):
     B, S = x.shape[:2]
     pos = torch.arange(S)[None].expand(B, -1)
     return RECURRENT[kind](p, x, LayerSpec(kind), cfg, positions=pos)[0]
+
+
+def fallback_cuts(block, shapes, world):
+    """``{leaf: the dim a model axis of ``world`` cuts, or None}`` of one
+    ``embed``-cut case's leaves (``shapes``: ``{leaf: shape}``; an
+    attention's per-layer leaves, or the top-level ``embed`` / ``head``), by
+    the placement rule (``tensor_parallel.placement``)."""
+    from repro_torch.models.axes import _TOP
+    from repro_torch.sharding import tensor_parallel as T
+
+    if block == "attention":  # one layer of a dense block's attention
+        cuts = recurrent_cuts("dense", {f"attn/{k}": s for k, s in shapes.items()}, world)
+        return {k.split("/", 1)[1]: d for k, d in cuts.items()}
+    return T.placement({k: tuple(s) for k, s in shapes.items()}, {k: _TOP[k] for k in shapes},
+                       {"data": 1, "model": world})
+
+
+def fallback_apply(case, p, x, cfg, tp=None):
+    """An ``embed``-cut case's block on leaves ``p`` and input ``x``: with
+    ``tp``, the model-shard functions of ``sharding.tensor_parallel``
+    (row-parallel attention, the column-parallel lookup, the row-parallel
+    cross entropy), else the one-process ones. Returns (its output, the
+    scalar its backward starts from, the cross-attention's source or
+    None)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.blocks import apply_attention
+
+    cot = torch.from_numpy(case["cot"])
+    if case["block"] == "attention":
+        src = None
+        if "source" in case:
+            src = torch.from_numpy(case["source"]).to(x.dtype).requires_grad_()
+            y = apply_attention(p, x, cfg, causal=False, kv_source=src)
+        else:
+            pos = torch.arange(x.shape[1])[None].expand(x.shape[0], -1)
+            y = apply_attention(p, x, cfg, window=case.get("window", 0), positions=pos)
+        return y, (y.float() * cot).sum(), src
+    if case["block"] == "lookup":
+        ids = torch.from_numpy(case["ids"])
+        y = (L.embed_lookup(p["embed"], ids) if tp is None
+             else L.column_parallel_lookup(p["embed"], ids, tp))
+        return y, (y.float() * cot).sum(), None
+    head = p["embed"].t() if "embed" in p else p["head"]
+    labels = torch.from_numpy(case["labels"])
+    kw = dict(logit_cap=cfg.final_softcap, chunk=8)
+    loss = (L.chunked_cross_entropy(x, head, labels, **kw) if tp is None
+            else L.row_parallel_cross_entropy(x, head, labels, tp, **kw))
+    return loss, loss, None
+
+
+def _fallback_blocks(task, rank):
+    """Each case whose ``worlds`` hold this world's size (a world of ``M``
+    ranks, one model group) on this rank's model shard of its leaves
+    (``fallback_cuts``), forward and backward (``fallback_apply``), in the
+    case's compute type. Returns per case (None where it does not run here)
+    the output, the gradients of the input and the source, each leaf's
+    gradient (of the rank's shard) and the modes' ``CALLS``."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.sharding import tensor_parallel as T
+
+    world = dist.get_world_size()
+    tp = T.TPRun(None, rank, world)
+    out = []
+    for case in task["cases"]:
+        if world not in case["worlds"]:
+            out.append(None)
+            continue
+        dtype = torch.float32 if case["dtype"] == "fp32" else torch.bfloat16
+        cuts = fallback_cuts(case["block"], {k: v.shape for k, v in case["params"].items()},
+                             world)
+        p = {}
+        for k, v in case["params"].items():
+            v = torch.from_numpy(v)
+            if cuts[k] is not None:
+                n = v.shape[cuts[k]] // world
+                v = v.narrow(cuts[k], rank * n, n)
+            p[k] = v.clone().requires_grad_()
+        T.CALLS.update(dict.fromkeys(T.CALLS, 0))
+        with _compute_dtype(dtype), T.use(tp):
+            cfg = dataclasses.replace(reduced_config(case["arch"]), **case["cfg"])
+            x = torch.from_numpy(case["x"]).to(dtype).requires_grad_()
+            y, total, src = fallback_apply(case, p, x, cfg, tp)
+            total.backward()
+        out.append({"y": y.detach(), "x_grad": x.grad,
+                    "src_grad": None if src is None else src.grad,
+                    "grads": {k: v.grad for k, v in p.items()}, "calls": dict(T.CALLS)})
+    return out
 
 
 def _moe_blocks(task, rank):
@@ -888,7 +980,7 @@ def _protocol(task, rank):
 TASKS = {"allreduce": _allreduce, "reduce": _reduce, "step": _step, "optim": _optim,
          "optim_one": _optim_one, "losses": _losses, "tp_step": _tp_step, "tp_blocks": _tp_blocks,
          "moe_blocks": _moe_blocks, "recurrent_blocks": _recurrent_blocks,
-         "collectives": _collectives, "slots": _slots,
+         "fallback_blocks": _fallback_blocks, "collectives": _collectives, "slots": _slots,
          "save": _save, "restore": _restore, "resume": _resume, "mesh_ckpt": _mesh_ckpt,
          "protocol": _protocol}
 
